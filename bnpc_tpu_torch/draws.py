@@ -1,0 +1,165 @@
+"""Random-draw providers: the port's RNG seam.
+
+JAX threefry streams and torch Philox streams never agree bit for bit, so
+every move of the port takes a :class:`Draws` object instead of a generator.
+Its tree mirrors ``jax.random``: a move calls ``split``/``fold_in`` and the
+draw methods at exactly the points where the ``bnpc_tpu`` counterpart splits
+its key and draws. A provider that wraps a JAX key and hands back the JAX
+package's own draws (the parity tests have one) therefore replays any port
+function against its JAX counterpart on the same key.
+
+:class:`TorchDraws` is the runtime provider: one ``torch.Generator`` on the
+sampler's device. It flattens the key tree: ``split`` and ``fold_in`` hand
+back providers over the same stream, so every draw is fresh and independent
+(correct in distribution; the tree position only matters for replay).
+
+Conventions shared by every provider:
+  * floats are float32, indices int32 (``randint``, ``categorical``,
+    ``permutation``);
+  * ``bits`` returns uint32 values held in an int64 tensor (torch has no
+    general-purpose uint32 arithmetic);
+  * ``categorical(logits)`` reduces the last axis (jax.random.categorical).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Draws:
+    """Interface of a draw provider (see the module docstring)."""
+
+    device: torch.device
+
+    def split(self, n: int) -> list["Draws"]:
+        raise NotImplementedError
+
+    def fold_in(self, i: int) -> "Draws":
+        raise NotImplementedError
+
+    def uniform(self, shape) -> torch.Tensor:
+        raise NotImplementedError
+
+    def normal(self, shape) -> torch.Tensor:
+        raise NotImplementedError
+
+    def gumbel(self, shape) -> torch.Tensor:
+        raise NotImplementedError
+
+    def bits(self, shape) -> torch.Tensor:
+        raise NotImplementedError
+
+    def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def categorical(self, logits: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def permutation(self, n: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def beta(self, a, b) -> torch.Tensor:
+        raise NotImplementedError
+
+    def gamma(self, a) -> torch.Tensor:
+        raise NotImplementedError
+
+    def beta_binary(self, p: float, q: float, xm, xm0) -> torch.Tensor:
+        """Exact Beta(p + xm, q + xm0) field for binary planes."""
+        raise NotImplementedError
+
+    def beta_general(self, a, b) -> torch.Tensor:
+        """Exact Beta(a, b) for array-valued parameters."""
+        raise NotImplementedError
+
+    def truncnorm(self, a, b, loc, scale) -> torch.Tensor:
+        """Truncated normal on [loc + a*scale, loc + b*scale]."""
+        raise NotImplementedError
+
+
+class TorchDraws(Draws):
+    """Runtime provider: one torch.Generator on `device`, seeded once.
+
+    Numbers are generated on the generator's own device and returned on
+    ``self.device`` (the same device here; a subclass may generate on the
+    CPU for a device-independent stream)."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(int(seed))
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device)
+
+    def full(self, x) -> torch.Tensor:
+        """`x` as a float32 tensor on self.device; a Python number goes by
+        a fill kernel, not a blocking host-to-device copy."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.full((), float(x), dtype=torch.float32,
+                          device=self.device)
+
+    def split(self, n: int) -> list["Draws"]:
+        return [self] * n
+
+    def fold_in(self, i: int) -> "Draws":
+        return self
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._out(torch.rand(shape, generator=self.gen,
+                                    device=self.gen.device,
+                                    dtype=torch.float32))
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._out(torch.randn(shape, generator=self.gen,
+                                     device=self.gen.device,
+                                     dtype=torch.float32))
+
+    def gumbel(self, shape) -> torch.Tensor:
+        # jax.random.gumbel: -log(-log(U)), U on [tiny, 1).
+        u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
+    def bits(self, shape) -> torch.Tensor:
+        return self._out(torch.randint(0, 2**32, shape, generator=self.gen,
+                                       device=self.gen.device,
+                                       dtype=torch.int64))
+
+    def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
+        return self._out(torch.randint(lo, hi, shape, generator=self.gen,
+                                       device=self.gen.device,
+                                       dtype=torch.int64).to(torch.int32))
+
+    def categorical(self, logits: torch.Tensor) -> torch.Tensor:
+        z = logits + self.gumbel(tuple(logits.shape))
+        return torch.argmax(z, dim=-1).to(torch.int32)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return self._out(torch.randperm(n, generator=self.gen,
+                                        device=self.gen.device)
+                         .to(torch.int32))
+
+    def gamma(self, a) -> torch.Tensor:
+        a = torch.as_tensor(a, dtype=torch.float32).to(self.gen.device)
+        return self._out(torch._standard_gamma(a, generator=self.gen))
+
+    def beta(self, a, b) -> torch.Tensor:
+        a, b = torch.broadcast_tensors(self.full(a), self.full(b))
+        ga, gb = self.gamma(a), self.gamma(b)
+        return ga / (ga + gb)
+
+    def beta_binary(self, p: float, q: float, xm, xm0) -> torch.Tensor:
+        from bnpc_tpu_torch.ops.randomx import beta_binary
+
+        return beta_binary(self, p, q, xm, xm0)
+
+    def beta_general(self, a, b) -> torch.Tensor:
+        from bnpc_tpu_torch.ops.randomx import beta_general
+
+        return beta_general(self, a, b)
+
+    def truncnorm(self, a, b, loc, scale) -> torch.Tensor:
+        from bnpc_tpu_torch.ops.truncnorm import rvs
+
+        return rvs(self, a, b, loc, scale)

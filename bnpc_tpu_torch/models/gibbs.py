@@ -1,0 +1,144 @@
+"""Sequential per-cell Gibbs sweep (counterpart of bnpc_tpu/models/gibbs.py).
+
+Reference: update_assignments_Gibbs (libs/CRP.py:254-288). The sweep is
+sequential over a random permutation. Two implementations share the same
+hoisted randomness (permutation, Gumbel noise folded into the likelihood
+matrix Z, counter-based newborn rows drawn from ``fold_in(cell)``) and give
+the same result:
+
+  * ``lazy`` — the lazy-birth host loop around the segment kernel
+    (ops/cuda_gibbs.py::lazy_segment): the kernel walks the cells and exits
+    at a cluster birth; the loop draws that cell's newborn Beta row,
+    patches one Z column and one params row, and relaunches. Launches per
+    sweep = births + 1, and each launch costs one host read of its info.
+    The default on CUDA.
+  * ``scan`` — a plain sequential loop with the semantics of bnpc_tpu's
+    ``_scan_impl``. The default on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
+from bnpc_tpu_torch.data import PackedData
+from bnpc_tpu_torch.draws import Draws
+from bnpc_tpu_torch.ops import likelihood as lk
+from bnpc_tpu_torch.ops.cuda_gibbs import lazy_k_pad, lazy_segment
+from bnpc_tpu_torch.state import CRPState
+
+NEG_INF = float("-inf")
+
+
+def _sweep_keys(draws: Draws, cfg: ModelConfig):
+    """The sweep's (perm, gumbel, k_beta) randomness (gibbs.py:_sweep_keys).
+    Slot j's noise is gumbel[:, j]; the new-cluster option's is
+    gumbel[:, k_max]."""
+    k_perm, k_gumbel, k_beta = draws.split(3)
+    perm = k_perm.permutation(cfg.n_cells)
+    gumbel = k_gumbel.gumbel((cfg.n_cells, cfg.k_max + 1))
+    return perm, gumbel, k_beta
+
+
+def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig):
+    """Newborn parameter row for `cell` (libs/CRP.py:183-188, 291-294): an
+    exact Beta(p + x, q + x0) draw, counter-keyed by the cell."""
+    theta = k_beta.fold_in(cell).beta_binary(cfg.p, cfg.q, data.xm[cell],
+                                             data.xm0[cell])
+    return torch.clamp(theta, TMIN, TMAX).to(torch.float32)
+
+
+def _birth_column(theta, slot: int, state, data, gumbel):
+    f1, f0 = lk.log_prob_tables(theta, state.fp, state.fn)
+    return lk.ll_col(f1, f0, data.xm, data.xm0) + gumbel[:, slot]
+
+
+def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
+                cfg: ModelConfig, impl: str = "auto") -> CRPState:
+    """One full Gibbs sweep. impl: "auto" (lazy on CUDA, scan on the CPU),
+    "lazy" or "scan"."""
+    if impl == "auto":
+        impl = "lazy" if state.assignment.is_cuda else "scan"
+    n, k_max = cfg.n_cells, cfg.k_max
+    alpha = state.dp_alpha
+    log_denom = torch.log(n - 1.0 + alpha)
+    new_post = lk.new_cluster_ll(data, cfg, state.fp, state.fn) \
+        + torch.log(alpha) - log_denom
+
+    perm, gumbel, k_beta = _sweep_keys(draws, cfg)
+    # Z-formulation: the Gumbel noise is folded into the likelihood matrix
+    # up front, so the categorical draw is a plain argmax.
+    c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
+    z = lk.ll_matrix(data, c1, c0) + gumbel[:, :k_max]
+    aux = new_post + gumbel[:, k_max]
+    if impl == "lazy":
+        return _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
+                          log_denom)
+    if impl == "scan":
+        return _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
+                          log_denom)
+    raise ValueError(f"unknown Gibbs impl {impl!r}")
+
+
+def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+    """Plain sequential sweep (bnpc_tpu _scan_impl semantics)."""
+    assignment = state.assignment.clone()
+    params = state.params.clone()
+    size = state.cluster_size.clone()
+    z = z.clone()
+    for cell in perm.tolist():
+        # Remove the cell from its cluster (libs/CRP.py:262-266).
+        size[assignment[cell]] -= 1
+        live = size > 0
+        prior = torch.log(torch.clamp(size, min=1).to(torch.float32)) \
+            - log_denom
+        post_old = torch.where(live, z[cell] + prior, NEG_INF)
+        has_free = bool((~live).any())
+        # First max, as jnp.argmax over [post_old, post_new].
+        is_new = has_free and bool(aux[cell] > post_old.max())
+        if is_new:
+            target = int(torch.argmax((size == 0).to(torch.int32)))
+            theta = fresh_row(k_beta, cell, data, cfg)
+            params[target] = theta
+            z[:, target] = _birth_column(theta, target, state, data, gumbel)
+        else:
+            target = int(torch.argmax(post_old))
+        size[target] += 1
+        assignment[cell] = target
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=size)
+
+
+def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+    """Birth-lazy host loop around the segment kernel (bnpc_tpu
+    _pallas_lazy_impl). The kernel reads only the PRE-SWEEP assignment of
+    not-yet-visited cells, and writes targets by visit position; one
+    scatter at the end puts them back in cell order."""
+    n, k_max = cfg.n_cells, cfg.k_max
+    dev = z.device
+    k_pad = lazy_k_pad(k_max)
+    z = torch.nn.functional.pad(z, (0, k_pad - k_max)).contiguous()
+    sizes = torch.cat([
+        state.cluster_size.to(torch.float32),
+        torch.full((k_pad - k_max,), -1.0, device=dev),
+    ])
+    assign0 = state.assignment.contiguous()
+    aux = aux.contiguous()
+    log_denom = log_denom.to(torch.float32).contiguous()
+    tgt_v = torch.empty((n,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    params = state.params.clone()
+    i0 = 0
+    while i0 < n:
+        lazy_segment(z, aux, assign0, perm, sizes, tgt_v, info, i0,
+                     log_denom)
+        i_next, b_cell, b_slot, _ = info.tolist()  # host sync per launch
+        if b_cell >= 0:
+            theta = fresh_row(k_beta, b_cell, data, cfg)
+            params[b_slot] = theta
+            z[:, b_slot] = _birth_column(theta, b_slot, state, data, gumbel)
+        i0 = i_next
+    assignment = torch.empty_like(tgt_v)
+    assignment[perm.long()] = tgt_v
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=sizes[:k_max].to(torch.int32))

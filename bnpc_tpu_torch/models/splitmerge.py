@@ -1,0 +1,517 @@
+"""Non-conjugate Jain-Neal split-merge move with restricted Gibbs launch
+scans (counterpart of bnpc_tpu/models/splitmerge.py; reference
+libs/CRP.py:417-820).
+
+The move is a function over fixed-shape masked tensors: the cells taking
+part are a boolean mask over all n cells, the restricted 2-way assignment
+``rg`` is an int vector over all n cells, and every likelihood term is a
+masked matvec of sufficient statistics. The serial restricted scan runs in
+the rg kernel (ops/cuda_rg.py). Only the split-or-merge choice is read on
+the host (one synchronization per move); the scan's s_count and count1
+stay on the device, and acceptance is applied with ``torch.where``.
+
+As in bnpc_tpu, the merge reverse path iterates the movable cells in
+ascending cell-id order (a fixed order of the same restricted
+conditionals; libs/CRP.py:806-818 uses its scratch-array order).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
+from bnpc_tpu_torch.data import PackedData
+from bnpc_tpu_torch.draws import Draws
+from bnpc_tpu_torch.ops import distributions as dist
+from bnpc_tpu_torch.ops import likelihood as lk
+from bnpc_tpu_torch.ops import mh
+from bnpc_tpu_torch.ops.cuda_rg import rg_scan
+from bnpc_tpu_torch.state import (CRPState, beta_posterior_params,
+                                  first_free_slot)
+
+NEG_INF = float("-inf")
+
+
+class _MoveCtx(NamedTuple):
+    """Everything fixed for the duration of one split-merge proposal."""
+
+    is_split: bool
+    cells: torch.Tensor        # [n] bool — cells taking part in the move
+    s_mask: torch.Tensor       # [n] bool — cells minus the two anchors
+    anchor_i: torch.Tensor     # 0-d int32 cell id (reference: cells[0])
+    anchor_j: torch.Tensor     # 0-d int32 cell id (reference: cells[-1])
+    cl_a: torch.Tensor         # 0-d int32 cluster of anchor_i
+    cl_b: torch.Tensor         # 0-d int32 cluster of anchor_j (== cl_a split)
+    n_move: torch.Tensor       # 0-d f32 |cells|
+    ltrans_size: torch.Tensor  # 0-d f32 forward size-proposal log-prob term
+    inv_sum_others: torch.Tensor  # 0-d f32 sum of 1/size over other clusters
+
+
+class _RGState(NamedTuple):
+    rg: torch.Tensor            # [n] int32 in {0, 1}
+    params_split: torch.Tensor  # [2, m] f32
+    params_merge: torch.Tensor  # [m] f32
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, without a host read of i."""
+    return x.index_select(0, i.reshape(1).long()).squeeze(0)
+
+
+def _gumbel_top2(draws: Draws, logits):
+    z = logits + draws.gumbel(tuple(logits.shape))
+    first = torch.argmax(z)
+    second = torch.argmax(z.index_fill(0, first.reshape(1), NEG_INF))
+    return first.to(torch.int32), second.to(torch.int32)
+
+
+def _masked_counts(mask_f32, data: PackedData):
+    """(n1, n0) each [m]: observed 1/0 counts over the cells in `mask`."""
+    return mask_f32 @ data.xm, mask_f32 @ data.xm0
+
+
+def _side_masks(ctx: _MoveCtx, rg):
+    """f32 cell masks of launch side 0 (incl anchor i) and side 1 (incl j)."""
+    idx = torch.arange(rg.shape[0], device=rg.device)
+    side0 = (ctx.s_mask & (rg == 0)) | (idx == ctx.anchor_i)
+    side1 = (ctx.s_mask & (rg == 1)) | (idx == ctx.anchor_j)
+    return side0.to(torch.float32), side1.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Proposal setup (do_split_move / do_merge_move, libs/CRP.py:434-524)
+# ---------------------------------------------------------------------------
+
+
+def _setup(draws: Draws, state: CRPState, cfg: ModelConfig,
+           is_split: bool) -> _MoveCtx:
+    n = cfg.n_cells
+    dev = state.assignment.device
+    idx = torch.arange(n, device=dev)
+    size_f = state.cluster_size.to(torch.float32)
+    live = state.cluster_size > 0
+    k_cl, k_anchor_i, k_anchor_j = draws.split(3)
+
+    if is_split:
+        # One size-weighted cluster with >= 2 cells (libs/CRP.py:441-445).
+        split_logits = torch.where(state.cluster_size >= 2,
+                                   torch.log(torch.clamp(size_f, min=1.0)),
+                                   NEG_INF)
+        cl = k_cl.categorical(split_logits)
+        members = state.assignment == cl
+        anchor_i, anchor_j = _gumbel_top2(
+            k_anchor_i, torch.where(members, 0.0, NEG_INF))
+        size = _at(size_f, cl)
+        # Eq. 3 second term (libs/CRP.py:453-456).
+        ltrans = torch.log(size / n) - torch.log(size) - torch.log(size - 1.0)
+        slot_idx = torch.arange(cfg.k_max, device=dev)
+        inv_others = torch.sum(torch.where(
+            live & (slot_idx != cl), 1.0 / torch.clamp(size_f, min=1.0), 0.0))
+        cells, cl_a, cl_b = members, cl, cl
+    else:
+        # Two inverse-size-weighted clusters.
+        inv = torch.where(live, 1.0 / torch.clamp(size_f, min=1.0), 0.0)
+        inv_sum = torch.sum(inv)
+        merge_logits = torch.where(
+            live, torch.log(torch.clamp(inv, min=1e-30)), NEG_INF)
+        cl_a, cl_b = _gumbel_top2(k_cl, merge_logits)
+        members_a = state.assignment == cl_a
+        members_b = state.assignment == cl_b
+        anchor_i = k_anchor_i.categorical(
+            torch.where(members_a, 0.0, NEG_INF))
+        anchor_j = k_anchor_j.categorical(
+            torch.where(members_b, 0.0, NEG_INF))
+        # Eq. 6 second term (libs/CRP.py:505-507).
+        ltrans = (torch.log(_at(inv, cl_a) / inv_sum)
+                  + torch.log(_at(inv, cl_b) / inv_sum)
+                  - torch.log(_at(size_f, cl_a))
+                  - torch.log(_at(size_f, cl_b)))
+        cells = members_a | members_b
+        inv_others = torch.zeros((), device=dev)  # read by splits only
+
+    s_mask = cells & (idx != anchor_i) & (idx != anchor_j)
+    return _MoveCtx(
+        is_split=is_split, cells=cells, s_mask=s_mask,
+        anchor_i=anchor_i, anchor_j=anchor_j, cl_a=cl_a, cl_b=cl_b,
+        n_move=cells.sum().to(torch.float32), ltrans_size=ltrans,
+        inv_sum_others=inv_others,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Launch state (run_rg_nc steps 3.x, libs/CRP.py:527-567)
+# ---------------------------------------------------------------------------
+
+
+def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
+             cfg: ModelConfig) -> _RGState:
+    k_i, k_j, k_m = draws.split(3)
+    mix0, _ = cfg.beta_mix
+    mask = data.mask
+
+    # Likelihood-based initial split: score every cell against the anchors'
+    # own (noise-imputed) genotypes (libs/CRP.py:547-561). The comparison
+    # ll_j > ll_i is taken as ONE product over the table differences: where
+    # the anchors' rows hold the same values in other columns, the two sums
+    # are equal in exact arithmetic but round differently in any other
+    # summation order, while the difference's terms cancel exactly.
+    def anchor_tables(a):
+        th = torch.where(_at(mask, a) > 0, _at(data.x, a), mix0)
+        return lk.log_prob_tables(th, state.fp, state.fn)
+
+    (c1i, c0i), (c1j, c0j) = (anchor_tables(ctx.anchor_i),
+                              anchor_tables(ctx.anchor_j))
+    rg = (data.xm @ (c1j - c1i) + data.xm0 @ (c0j - c0i) > 0).to(torch.int32)
+
+    side0, side1 = _side_masks(ctx, rg)
+    n1_0, n0_0 = _masked_counts(side0, data)
+    n1_1, n0_1 = _masked_counts(side1, data)
+    params_split = torch.stack([
+        beta_posterior_params(k_i, cfg, n1_0, n0_0),
+        beta_posterior_params(k_j, cfg, n1_1, n0_1),
+    ])
+    n1_m, n0_m = _masked_counts(ctx.cells.to(torch.float32), data)
+    params_merge = beta_posterior_params(k_m, cfg, n1_m, n0_m)
+    return _RGState(rg, params_split, params_merge)
+
+
+def _visit_order(k_perm: Draws, s_mask, rg_launch, ll2, dz):
+    """Visit order for a restricted scan plus visit-order payloads: a
+    uniform random permutation with the move's cells FIRST (their relative
+    order uniform over S, libs/CRP.py:616), so "movable" in visit order is
+    simply position < s_count. Sorted by (not-in-S, 64 random bits), stable,
+    as bnpc_tpu's variadic lax.sort.
+
+    Returns (order, lau_v, ll0_v, ll1_v, dz_v)."""
+    n = s_mask.shape[0]
+    bits = k_perm.bits((2, n))
+    # The two uint32 words as one order-preserving signed 64-bit key.
+    key = (bits[0] - 2**31) * 2**32 + bits[1]
+    order = torch.sort(key, stable=True).indices
+    order = order[torch.sort((~s_mask[order]).to(torch.int8),
+                             stable=True).indices]
+    return (order.to(torch.int32), rg_launch[order].to(torch.float32),
+            ll2[order, 0], ll2[order, 1], dz[order])
+
+
+def _side1_others(final, launch):
+    """Movable cells on side 1, other than the one at each position, when
+    a scan reaches it: the final sides of the positions before it plus the
+    launch sides of the positions after it (both [n] f32, 0 outside S)."""
+    before = torch.cumsum(final, 0) - final
+    after = torch.flip(torch.cumsum(torch.flip(launch, (0,)), 0), (0,)) \
+        - launch
+    return before + after
+
+
+def _trans_prob_replay(ctx: _MoveCtx, lau_v, fin_v, ll0_v, ll1_v, s_count,
+                       dp_alpha):
+    """Chosen-log-probability sum of a completed restricted scan. Given the
+    launch and final sides the count evolution is deterministic, so the
+    sequential accumulation of libs/CRP.py:622-630 is prefix/suffix sums in
+    visit order."""
+    n = lau_v.shape[0]
+    in_s = (torch.arange(n, device=lau_v.device) < s_count).to(torch.float32)
+    s1 = _side1_others(fin_v.to(torch.float32) * in_s, lau_v * in_s)
+    n_j = s1 + 1.0
+    n_i = ctx.n_move - s1 - 2.0
+    log_denom = torch.log(ctx.n_move - 1.0 + dp_alpha)
+    lp0 = ll0_v + torch.log(n_i) - log_denom
+    lp1 = ll1_v + torch.log(n_j) - log_denom
+    mx = torch.maximum(lp0, lp1)
+    lse = mx + torch.log(torch.exp(lp0 - mx) + torch.exp(lp1 - mx))
+    chosen = torch.where(fin_v > 0, lp1, lp0) - lse
+    # where, not multiply: non-movable positions can hold nan/-inf rows.
+    return torch.sum(torch.where(in_s > 0.0, chosen, 0.0))
+
+
+def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
+                    state: CRPState, data: PackedData, cfg: ModelConfig,
+                    trans_prob: bool):
+    """Sequential restricted 2-way Gibbs over the non-anchor cells
+    (_rg_scan_assign, libs/CRP.py:609-632). Returns (rg, sum of chosen
+    log-probabilities; 0 unless `trans_prob`).
+
+    With hoisted Gumbel noise, side 1 wins iff dz + log(n_j) - log(n_i) > 0
+    with dz = (ll2[:,1]+g1) - (ll2[:,0]+g0); the count logs are the table
+    dtab[s1], +inf where side i would empty (the reference's
+    lp0 = ll0 + log(0) = -inf, libs/CRP.py:622)."""
+    n = cfg.n_cells
+    k_perm, k_gumbel = draws.split(2)
+    gumbel = k_gumbel.gumbel((n, 2))
+    c1, c0 = lk.log_prob_tables(params_split, state.fp, state.fn)  # [2, m]
+    ll2 = data.xm @ c1.T + data.xm0 @ c0.T  # [n, 2]
+    z = ll2 + gumbel
+    dz = z[:, 1] - z[:, 0]
+
+    order, lau_v, ll0_v, ll1_v, dz_v = _visit_order(
+        k_perm, ctx.s_mask, rg, ll2, dz)
+
+    dev = dz.device
+    s1r = torch.arange(n + 2, dtype=torch.float32, device=dev)
+    dtab = torch.log(s1r + 1.0) \
+        - torch.log(torch.clamp(ctx.n_move - s1r - 2.0, min=0.0))
+    s_count = ctx.s_mask.sum().to(torch.int32)
+    count1 = torch.where(ctx.s_mask, rg, 0).sum().to(torch.int32)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    lau_i = lau_v.to(torch.int32)
+
+    out_v = rg_scan(dz_v.contiguous(), lau_i, dtab, s_count, count1)
+    fin_v = torch.where(pos < s_count, out_v, lau_i)
+    fin_cell = torch.empty_like(fin_v)
+    fin_cell[order.long()] = fin_v
+    rg_new = torch.where(ctx.s_mask, fin_cell, rg)
+    if trans_prob:
+        return rg_new, _trans_prob_replay(ctx, lau_v, fin_v, ll0_v, ll1_v,
+                                          s_count, state.dp_alpha)
+    return rg_new, torch.zeros((), device=dev)
+
+
+def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
+                   trans_prob: bool):
+    """One launch scan of the split configuration (libs/CRP.py:570-606)."""
+    k_assign, k_par = draws.split(2)
+    rg, prob_cl = _rg_scan_assign(k_assign, ctx, rgs.rg, rgs.params_split,
+                                  state, data, cfg, trans_prob)
+    side0, side1 = _side_masks(ctx, rg)
+    n1 = torch.stack([side0 @ data.xm, side1 @ data.xm])
+    n0 = torch.stack([side0 @ data.xm0, side1 @ data.xm0])
+    res = mh.mh_cluster_params(k_par, rgs.params_split, n1, n0, state.fp,
+                               state.fn, cfg, trans_prob=trans_prob)
+    return rgs._replace(rg=rg, params_split=res.params), \
+        prob_cl + torch.sum(res.trans_logprob)
+
+
+def _rg_scan_merge(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
+                   trans_prob: bool):
+    """One launch scan of the merge configuration (libs/CRP.py:581-587)."""
+    n1, n0 = _masked_counts(ctx.cells.to(torch.float32), data)
+    res = mh.mh_cluster_params(draws, rgs.params_merge, n1, n0, state.fp,
+                               state.fn, cfg, trans_prob=trans_prob)
+    return rgs._replace(params_merge=res.params), res.trans_logprob
+
+
+# ---------------------------------------------------------------------------
+# MH ratio pieces (libs/CRP.py:641-820)
+# ---------------------------------------------------------------------------
+
+
+def _ll_split_all(side0, side1, cells_f, params_split, params_merge, state,
+                  data):
+    """(ll_i + ll_j under split params, ll_all under merge params) — eqs.
+    11/12 (libs/CRP.py:716-733)."""
+    c1s, c0s = lk.log_prob_tables(params_split, state.fp, state.fn)
+    n1_0, n0_0 = _masked_counts(side0, data)
+    n1_1, n0_1 = _masked_counts(side1, data)
+    ll_split = torch.sum(n1_0 * c1s[0] + n0_0 * c0s[0]) \
+        + torch.sum(n1_1 * c1s[1] + n0_1 * c0s[1])
+    n1_m, n0_m = _masked_counts(cells_f, data)
+    c1m, c0m = lk.log_prob_tables(params_merge, state.fp, state.fn)
+    ll_all = torch.sum(n1_m * c1m + n0_m * c0m)
+    return ll_split, ll_all
+
+
+def _beta_prior_sum(cfg, x):
+    return torch.sum(dist.beta_logpdf(x, cfg.p, cfg.q, cfg.log_beta_norm))
+
+
+def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg):
+    """Probability of regenerating the ORIGINAL split from the launch state
+    (merge reverse path; _rg_get_split_prob, libs/CRP.py:777-820)."""
+    k_std, _ = draws.split(2)
+    std = mh.draw_proposal_std(k_std, tuple(rgs.params_split.shape))
+    # Bounds 0/1 here, not TMIN/TMAX — reference quirk (libs/CRP.py:779-780).
+    a = (0.0 - rgs.params_split) / std
+    b = (1.0 - rgs.params_split) / std
+
+    # Parameter transition terms use the LAUNCH sides.
+    side0, side1 = _side_masks(ctx, rgs.rg)
+    n1_0, n0_0 = _masked_counts(side0, data)
+    n1_1, n0_1 = _masked_counts(side1, data)
+    target_i = _at(state.params, ctx.cl_a)
+    target_j = _at(state.params, ctx.cl_b)
+    prob_param_i = mh.realized_trans_logprob(
+        target_i, rgs.params_split[0], n1_0, n0_0, a[0], b[0], std[0],
+        state.fp, state.fn, cfg)
+    prob_param_j = mh.realized_trans_logprob(
+        target_j, rgs.params_split[1], n1_1, n0_1, a[1], b[1], std[1],
+        state.fp, state.fn, cfg)
+
+    # Each movable cell is forced to its original side under the original
+    # parameters; the count evolution is deterministic, so the "scan" is
+    # prefix/suffix sums in ascending cell order.
+    orig = torch.where(state.assignment == ctx.cl_a, 0, 1).to(torch.int32)
+    c1, c0 = lk.log_prob_tables(torch.stack([target_i, target_j]),
+                                state.fp, state.fn)
+    ll2 = data.xm @ c1.T + data.xm0 @ c0.T
+    log_denom = torch.log(ctx.n_move - 1.0 + state.dp_alpha)
+
+    in_s = ctx.s_mask.to(torch.float32)
+    s1 = _side1_others(orig.to(torch.float32) * in_s,
+                       rgs.rg.to(torch.float32) * in_s)
+    n_j = s1 + 1.0
+    n_i = ctx.n_move - s1 - 2.0
+    logpost = ll2 + torch.log(torch.stack([n_i, n_j], dim=1)) - log_denom
+    logp = logpost - torch.logsumexp(logpost, dim=1, keepdim=True)
+    chosen = torch.gather(logp, 1, orig.long()[:, None])[:, 0]
+    # where, not multiply: a forced side count can be 0 (chosen = -inf).
+    prob_assign = torch.sum(torch.where(in_s > 0.0, chosen, 0.0))
+    return prob_param_i + prob_param_j + prob_assign
+
+
+def _counts(row: int, accept, dev):
+    """[2, 2] int32 MH counts: (accepted, declined) in `row`."""
+    acc = accept.to(torch.int32)
+    c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    c[row] = torch.stack([acc, 1 - acc])
+    return c
+
+
+def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
+    """Split acceptance (libs/CRP.py:641-653) and its application."""
+    n = cfg.n_cells
+    dev = state.assignment.device
+    # Final scan to the proposal state, with transition probabilities.
+    rgs2, gs_split = _rg_scan_split(k_f1, ctx, rgs, state, data, cfg, True)
+    # Reverse: merge-launch -> the original single cluster (eq. 15).
+    std = mh.draw_proposal_std(k_f2, tuple(rgs.params_merge.shape))
+    a = (TMIN - rgs2.params_merge) / std
+    b = (TMAX - rgs2.params_merge) / std
+    cells_f = ctx.cells.to(torch.float32)
+    n1_m, n0_m = _masked_counts(cells_f, data)
+    params_a = _at(state.params, ctx.cl_a)
+    gs_merge = mh.realized_trans_logprob(
+        params_a, rgs2.params_merge, n1_m, n0_m, a, b, std, state.fp,
+        state.fn, cfg)
+    trans_ratio = gs_merge - gs_split
+
+    n_j = torch.where(ctx.s_mask, rgs2.rg, 0).sum().to(torch.float32) + 1.0
+    n_i = ctx.n_move - n_j
+    # Eq. 7 prior ratio (libs/CRP.py:695-713).
+    lprior = (torch.log(state.dp_alpha) - torch.lgamma(ctx.n_move)
+              + torch.lgamma(n_j) + torch.lgamma(n_i))
+    if not cfg.beta_prior_uniform:
+        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_split) \
+            - _beta_prior_sum(cfg, params_a)
+
+    side0, side1 = _side_masks(ctx, rgs2.rg)
+    ll_split, ll_all = _ll_split_all(side0, side1, cells_f,
+                                     rgs2.params_split, rgs2.params_merge,
+                                     state, data)
+    ll_ratio = ll_split - ll_all
+
+    # Eq. 5 size-proposal ratio (libs/CRP.py:757-764).
+    norm = ctx.inv_sum_others + 1.0 / n_i + 1.0 / n_j
+    rev = -torch.log(n_i * norm) - torch.log(n_j * norm)
+    size_ratio = rev - ctx.ltrans_size
+
+    A = trans_ratio + lprior + ll_ratio + size_ratio
+    # Degenerate launch: every movable cell on one side (libs/CRP.py:647-648).
+    s_count = ctx.n_move - 2.0
+    degenerate = (s_count > 0) & ((n_j - 1.0 == 0.0)
+                                  | (n_j - 1.0 == s_count))
+    accept = (~degenerate) & (torch.log(k_accept.uniform(())) < A)
+
+    # Apply: side 1 moves to a fresh slot (libs/CRP.py:466-481).
+    new_slot = first_free_slot(state.cluster_size)
+    idx = torch.arange(n, device=dev)
+    move_to_new = accept & ((ctx.s_mask & (rgs2.rg == 1))
+                            | (idx == ctx.anchor_j))
+    assignment = torch.where(move_to_new, new_slot, state.assignment)
+    n_moved = move_to_new.sum().to(torch.int32)
+    slots = torch.stack([ctx.cl_a, new_slot]).long()
+    cluster_size = state.cluster_size.index_add(
+        0, slots, torch.stack([-n_moved, n_moved]))
+    params = state.params.index_copy(
+        0, slots, torch.where(accept, rgs2.params_split,
+                              state.params.index_select(0, slots)))
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=cluster_size), _counts(0, accept, dev)
+
+
+def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
+    """Merge acceptance (libs/CRP.py:656-665) and its application."""
+    n = cfg.n_cells
+    dev = state.assignment.device
+    # Forward: one more merge scan with transition probabilities (eq. 16).
+    rgs2, gs_merge = _rg_scan_merge(k_f1, ctx, rgs, state, data, cfg, True)
+    gs_split = _reverse_split_prob(k_f2, ctx, rgs2, state, data, cfg)
+    trans_ratio = gs_split - gs_merge
+
+    # Eq. 8 prior ratio over the ORIGINAL clusters (libs/CRP.py:736-754).
+    size_f = state.cluster_size.to(torch.float32)
+    n_i, n_j = _at(size_f, ctx.cl_a), _at(size_f, ctx.cl_b)
+    params_a, params_b = _at(state.params, ctx.cl_a), \
+        _at(state.params, ctx.cl_b)
+    lprior = (torch.lgamma(ctx.n_move) - torch.log(state.dp_alpha)
+              - torch.lgamma(n_i) - torch.lgamma(n_j))
+    if not cfg.beta_prior_uniform:
+        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_merge) \
+            - _beta_prior_sum(cfg, params_a) - _beta_prior_sum(cfg, params_b)
+
+    # Eq. 12 with the original sides under the launch split params.
+    orig_rg = torch.where(state.assignment == ctx.cl_a, 0, 1)
+    side0, side1 = _side_masks(ctx, orig_rg)
+    ll_split, ll_all = _ll_split_all(side0, side1,
+                                     ctx.cells.to(torch.float32),
+                                     rgs2.params_split, rgs2.params_merge,
+                                     state, data)
+    ll_ratio = ll_all - ll_split
+
+    # Eq. 6 size ratio (libs/CRP.py:767-774); the log(|S| - 1) term is
+    # dropped when |S| <= 1 (the reference's FloatingPointError fallback).
+    s_count = ctx.n_move - 2.0
+    rev = -torch.log(torch.tensor(float(n))) - torch.where(
+        s_count - 1.0 > 0.0,
+        torch.log(torch.clamp(s_count - 1.0, min=1e-30)), 0.0)
+    size_ratio = rev - ctx.ltrans_size
+
+    A = trans_ratio + lprior + ll_ratio + size_ratio
+    accept = torch.log(k_accept.uniform(())) < A
+
+    members_b = state.assignment == ctx.cl_b
+    assignment = torch.where(accept & members_b, ctx.cl_a, state.assignment)
+    size_b = _at(state.cluster_size, ctx.cl_b)
+    cluster_size = state.cluster_size.index_add(
+        0, ctx.cl_a.reshape(1).long(),
+        torch.where(accept, size_b, 0).reshape(1))
+    cluster_size = cluster_size.index_copy(
+        0, ctx.cl_b.reshape(1).long(),
+        torch.where(accept, 0, size_b).reshape(1).to(torch.int32))
+    params = state.params.index_copy(
+        0, ctx.cl_a.reshape(1).long(),
+        torch.where(accept, rgs2.params_merge, params_a)[None])
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=cluster_size), _counts(1, accept, dev)
+
+
+def split_merge(draws: Draws, state: CRPState, data: PackedData,
+                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int):
+    """One split-merge proposal. Returns (state, counts[2, 2]) where
+    counts[0] = (accepted, declined) split deltas and counts[1] the merge
+    deltas (MH_counter rows 1/2, libs/MCMC.py:320-328)."""
+    k_move, k_setup, k_init, k_scans, k_final, k_accept = draws.split(6)
+
+    n_clusters = state.n_clusters
+    forced_split = n_clusters == 1
+    # Reference forces a merge at K == n (libs/CRP.py:424); with a capacity
+    # cap a split is likewise impossible at K == k_max.
+    forced_merge = n_clusters >= cfg.k_max
+    want_split = k_move.uniform(()) < sm_split_ratio
+    is_split = bool(forced_split | (want_split & ~forced_merge))  # host sync
+
+    ctx = _setup(k_setup, state, cfg, is_split)
+    rgs = _rg_init(k_init, ctx, state, data, cfg)
+
+    # Launch scans (libs/CRP.py:535-537): each refreshes both the split and
+    # the merge configuration.
+    for kk in k_scans.split(sm_steps):
+        k1, k2 = kk.split(2)
+        rgs, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False)
+        rgs, _ = _rg_scan_merge(k2, ctx, rgs, state, data, cfg, False)
+
+    k_f1, k_f2 = k_final.split(2)
+    branch = _split_branch if is_split else _merge_branch
+    return branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg)

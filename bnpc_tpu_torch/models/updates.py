@@ -1,0 +1,98 @@
+"""Non-assignment moves: parameter MH, alpha resampling, error-rate MH
+(counterpart of bnpc_tpu/models/updates.py). All three run against the
+per-cluster sufficient statistics, so they cost O(k_max * m).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bnpc_tpu_torch.config import EPSILON, ModelConfig
+from bnpc_tpu_torch.draws import Draws
+from bnpc_tpu_torch.ops import distributions as dist
+from bnpc_tpu_torch.ops import likelihood as lk
+from bnpc_tpu_torch.ops import mh
+from bnpc_tpu_torch.ops import truncnorm
+from bnpc_tpu_torch.state import CRPState
+
+
+def update_parameters(draws: Draws, state: CRPState, n1, n0,
+                      cfg: ModelConfig):
+    """MH-update every live cluster's parameter row at once
+    (update_parameters, libs/CRP.py:302-311). Returns (state, declined,
+    accepted), counted over live slots only."""
+    live = state.cluster_size > 0
+    res = mh.mh_cluster_params(draws, state.params, n1, n0, state.fp,
+                               state.fn, cfg)
+    params = torch.where(live[:, None], res.params, state.params)
+    declined = torch.where(live, res.declined, 0).sum()
+    accepted = live.sum() * cfg.n_muts - declined
+    return state._replace(params=params), declined, accepted
+
+
+def update_dp_alpha(draws: Draws, state: CRPState,
+                    cfg: ModelConfig) -> CRPState:
+    """Escobar & West (1995) auxiliary-variable resampling of alpha
+    (update_DP_alpha, libs/CRP.py:386-410), with both reference quirks: the
+    Gamma draw treats ``b - log(eta)`` as the numpy SCALE parameter
+    (libs/CRP.py:401-407), and the result is clamped to >= 1 + eps
+    (libs/CRP.py:409)."""
+    k_eta, k_pi, k_gamma = draws.split(3)
+    n = float(cfg.n_cells)
+    k = state.n_clusters.to(torch.float32)
+    a_g, b_g = cfg.dp_a_shape, cfg.dp_a_loc
+
+    eta = k_eta.beta(state.dp_alpha + 1.0, n)
+    log_eta = torch.log(eta)
+    w = (a_g + k - 1.0) / (n * (b_g - log_eta))
+    pi_eta = w / (1.0 + w)
+
+    use_high = k_pi.uniform(()) < pi_eta
+    shape = a_g + k - torch.where(use_high, 0.0, 1.0)
+    new_alpha = k_gamma.gamma(shape) * (b_g - log_eta)
+    alpha = torch.clamp(new_alpha, min=1.0 + EPSILON).to(torch.float32)
+    return state._replace(dp_alpha=alpha)
+
+
+def _full_ll_at_rates(params, n1, n0, fp, fn):
+    c1, c0 = lk.log_prob_tables(params, fp, fn)
+    return lk.ll_from_stats(n1, n0, c1, c0)
+
+
+def _mh_error_rate(draws: Draws, old, prior_mean: float, prior_sd: float,
+                   ll_fn):
+    """Single scalar truncated-normal MH step
+    (libs/CRP_learning_errors.py:66-111)."""
+    k_std, k_prop, k_u = draws.split(3)
+    # float32 products, as jnp.array([0.5, 1.0, 1.5]) * prior_sd
+    sds = (torch.tensor([0.5, 1.0, 1.5]) * prior_sd).tolist()
+    std = mh.choose(k_std.randint((), 0, 3), sds)
+    a = (0.0 - old) / std
+    b = (1.0 - old) / std
+    new = k_prop.truncnorm(a, b, old, std)
+
+    new_p_target = truncnorm.logpdf(new, a, b, old, std)
+    a_rev = (0.0 - new) / std
+    b_rev = (1.0 - new) / std
+    old_p_target = truncnorm.logpdf(old, a_rev, b_rev, new, std)
+
+    A = (ll_fn(new) - ll_fn(old)
+         + dist.truncnorm_prior_logpdf(new, prior_mean, prior_sd)
+         - dist.truncnorm_prior_logpdf(old, prior_mean, prior_sd)
+         + old_p_target - new_p_target)
+    accept = torch.log(k_u.uniform(())) < A
+    return torch.where(accept, new, old).to(torch.float32), accept
+
+
+def update_error_rates(draws: Draws, state: CRPState, n1, n0,
+                       cfg: ModelConfig):
+    """MH on FP then FN (libs/CRP_learning_errors.py:52-55; FN's likelihood
+    sees the freshly updated FP)."""
+    k_fp, k_fn = draws.split(2)
+    fp, fp_acc = _mh_error_rate(
+        k_fp, state.fp, cfg.fp, cfg.fp_sd,
+        lambda e: _full_ll_at_rates(state.params, n1, n0, e, state.fn))
+    fn, fn_acc = _mh_error_rate(
+        k_fn, state.fn, cfg.fn, cfg.fn_sd,
+        lambda e: _full_ll_at_rates(state.params, n1, n0, fp, e))
+    return state._replace(fp=fp, fn=fn), fp_acc, fn_acc

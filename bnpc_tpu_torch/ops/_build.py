@@ -1,0 +1,116 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at first
+use, into ``bnpc_tpu_torch/_build/`` (git-ignored); the library's file name
+carries a hash of the sources and flags, so an edited source rebuilds.
+
+Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
+needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
+add is contracted into an FMA the plain torch version does not make.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C signatures: (argtypes) of every exported function; restype is int (the
+# cudaGetLastError() code after the launch).
+_SIGNATURES = {
+    # z, aux, assign, perm, sizes, tgt, info, log_denom, n, k_pad, i0, stream
+    "bnpc_lazy_segment": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dz, lau, dtab, s_count, count1, out, n, stream
+    "bnpc_rg_scan": [_P, _P, _P, _P, _P, _P, _I, _P],
+}
+
+_lib = None
+build_seconds = 0.0
+build_log = ""
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    sources = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libbnpc_kernels_{_digest(sources)}.so"
+    if not so.exists():
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` — what a kernel argument must be before its pointer is
+    passed."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_launch(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -1,0 +1,104 @@
+"""The lazy Gibbs segment: CUDA kernel wrapper and its plain torch twin.
+
+Counterpart of bnpc_tpu/ops/pallas_gibbs.py::pallas_lazy_segment. The kernel
+(csrc/lazy_segment.cu) runs the per-cell loop of the sweep from position
+``i0`` and exits at the first cluster birth; the caller
+(models/gibbs.py::_lazy_impl) patches the newborn's z column and relaunches.
+
+Interface (both versions): ``sizes`` [k_pad] f32 (-1 on padded slots) is
+updated in place, ``tgt`` [n] i32 receives the chosen slot of every visited
+position in [i0, i_next), and ``info`` [4] i32 receives
+(i_next, birth_cell, birth_slot, cap_veto); birth_cell == -1 when the
+segment ran to the end, cap_veto == 1 iff some cell's new-cluster option
+won while no slot was free.
+
+A CPU tensor goes to the plain twin; a CUDA tensor goes to the kernel or
+the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bnpc_tpu_torch.ops import _build
+
+# Kernel launches since the last reset (the wrapper adds one per launch).
+launches = 0
+
+_SLOTS_PER_LANE = (1, 2, 4, 8, 16, 32)
+
+
+def lazy_k_pad(k_max: int) -> int:
+    """Slot width the kernel runs at: 32 x a power of two >= k_max."""
+    for spl in _SLOTS_PER_LANE:
+        if 32 * spl >= k_max:
+            return 32 * spl
+    raise ValueError(f"k_max={k_max} exceeds the kernel's 1024 slots")
+
+
+def lazy_segment_ref(z, aux, assign, perm, sizes, tgt, info, i0: int,
+                     log_denom):
+    """Plain torch twin of the kernel: the same loop, the same float32
+    expressions, the same first-index tie-breaks and early exit."""
+    n, k_pad = perm.shape[0], z.shape[1]
+    iota = torch.arange(k_pad, device=z.device)
+    big = torch.tensor(k_pad, device=z.device)
+    perm_h, assign_h = perm.tolist(), assign.tolist()
+    veto, i_next, b_cell, b_slot = 0, n, -1, -1
+    for i in range(i0, n):
+        cell = perm_h[i]
+        sizes[assign_h[cell]] -= 1.0
+        logits = z[cell] + (torch.log(torch.clamp(sizes, min=0.0))
+                            - log_denom)
+        best = logits.max()
+        free = torch.where(sizes == 0.0, iota, big).min()
+        idx = torch.where(logits == best, iota, big).min()
+        cand, free, idx = torch.stack(
+            [(aux[cell] > best).long(), free, idx]).tolist()
+        is_new = bool(cand) and free < k_pad
+        veto |= int(bool(cand) and free >= k_pad)
+        t = free if is_new else idx
+        sizes[t] += 1.0
+        tgt[i] = t
+        if is_new:
+            i_next, b_cell, b_slot = i + 1, cell, t
+            break
+    info.copy_(torch.tensor([i_next, b_cell, b_slot, veto],
+                            dtype=torch.int32))
+
+
+def lazy_segment(z, aux, assign, perm, sizes, tgt, info, i0: int, log_denom):
+    """Run one birth-bounded segment (see the module docstring).
+
+    z [n, k_pad] f32; aux [n] f32; assign, perm [n] i32; sizes [k_pad] f32;
+    tgt [n] i32; info [4] i32; log_denom 0-d f32 tensor; i0 a host int.
+    """
+    if z.device.type == "cpu":
+        return lazy_segment_ref(z, aux, assign, perm, sizes, tgt, info, i0,
+                                log_denom)
+    if z.device.type != "cuda":
+        raise ValueError(f"lazy_segment: unsupported device {z.device}")
+    n, k_pad = perm.shape[0], z.shape[1]
+    if k_pad not in tuple(32 * s for s in _SLOTS_PER_LANE):
+        raise ValueError(f"lazy_segment: k_pad={k_pad} unsupported")
+    if not 0 <= i0 <= n:
+        raise ValueError(f"lazy_segment: i0={i0} outside [0, {n}]")
+    dev = z.device
+    f32, i32 = torch.float32, torch.int32
+    _build.check_tensor(z, "z", f32, (n, k_pad), dev)
+    _build.check_tensor(aux, "aux", f32, (n,), dev)
+    _build.check_tensor(assign, "assign", i32, (n,), dev)
+    _build.check_tensor(perm, "perm", i32, (n,), dev)
+    _build.check_tensor(sizes, "sizes", f32, (k_pad,), dev)
+    _build.check_tensor(tgt, "tgt", i32, (n,), dev)
+    _build.check_tensor(info, "info", i32, (4,), dev)
+    _build.check_tensor(log_denom, "log_denom", f32, (), dev)
+    lib = _build.load_library()
+    global launches
+    launches += 1
+    rc = lib.bnpc_lazy_segment(
+        z.data_ptr(), aux.data_ptr(), assign.data_ptr(), perm.data_ptr(),
+        sizes.data_ptr(), tgt.data_ptr(), info.data_ptr(),
+        log_denom.data_ptr(), n, k_pad, int(i0),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "bnpc_lazy_segment")
