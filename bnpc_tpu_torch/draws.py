@@ -68,6 +68,12 @@ class Draws:
         """Exact Beta(p + xm, q + xm0) field for binary planes."""
         raise NotImplementedError
 
+    def fresh_rows(self, p: float, q: float, xm, xm0) -> torch.Tensor:
+        """[n, m] newborn row of every cell, clipped to [TMIN, TMAX]: row c
+        is ``fold_in(c).beta_binary(p, q, xm[c], xm0[c])`` (bnpc_tpu's
+        counter-keyed rows, models/gibbs.py::_hoisted_randomness)."""
+        raise NotImplementedError
+
     def beta_general(self, a, b) -> torch.Tensor:
         """Exact Beta(a, b) for array-valued parameters."""
         raise NotImplementedError
@@ -153,6 +159,14 @@ class TorchDraws(Draws):
         from bnpc_tpu_torch.ops.randomx import beta_binary
 
         return beta_binary(self, p, q, xm, xm0)
+
+    def fresh_rows(self, p: float, q: float, xm, xm0) -> torch.Tensor:
+        # fold_in(c) is this same stream, so one batched draw over the whole
+        # planes has the law of n per-cell draws.
+        from bnpc_tpu_torch.config import TMAX, TMIN
+
+        return torch.clamp(self.beta_binary(p, q, xm, xm0), TMIN,
+                           TMAX).to(torch.float32)
 
     def beta_general(self, a, b) -> torch.Tensor:
         from bnpc_tpu_torch.ops.randomx import beta_general

@@ -93,9 +93,10 @@ def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
 
 
 def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                    data: PackedData, trace_k: int):
+                    data: PackedData, trace_k: int, gibbs_impl: str = "auto"):
     """The single-step body (do_step, libs/MCMC.py:320-342); draws are
-    split exactly as in bnpc_tpu/mcmc.py:_make_step_body."""
+    split exactly as in bnpc_tpu/mcmc.py:_make_step_body. ``gibbs_impl`` is
+    the Gibbs sweep's impl (models/gibbs.py::gibbs_sweep)."""
     # The move thresholds as float32 values: comparing the uniforms' exact
     # float32 values against them on the host is JAX's float32 comparison.
     thresholds = [float(np.float32(p)) for p in (
@@ -115,7 +116,8 @@ def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                     mcmc_cfg.sm_steps)
                 counts[1:3] += sm_counts
             else:
-                state = gibbs_sweep(k_assign, state, data, cfg)
+                state = gibbs_sweep(k_assign, state, data, cfg,
+                                    impl=gibbs_impl)
             if mcmc_cfg.dpa_prob > 0.0 and do_dpa:
                 state = update_dp_alpha(k_dpa, state, cfg)
 

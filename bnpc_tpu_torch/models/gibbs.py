@@ -1,19 +1,31 @@
 """Sequential per-cell Gibbs sweep (counterpart of bnpc_tpu/models/gibbs.py).
 
 Reference: update_assignments_Gibbs (libs/CRP.py:254-288). The sweep is
-sequential over a random permutation. Two implementations share the same
+sequential over a random permutation. Four implementations share the same
 hoisted randomness (permutation, Gumbel noise folded into the likelihood
 matrix Z, counter-based newborn rows drawn from ``fold_in(cell)``) and give
 the same result:
 
-  * ``lazy`` — the lazy-birth host loop around the segment kernel
+  * ``lazy`` — the lazy-birth host loop around the resident segment kernel
     (ops/cuda_gibbs.py::lazy_segment): the kernel walks the cells and exits
     at a cluster birth; the loop draws that cell's newborn Beta row,
     patches one Z column and one params row, and relaunches. Launches per
     sweep = births + 1, and each launch costs one host read of its info.
-    The default on CUDA.
+    The default on CUDA while Z is at most 13 MiB and k_max <= 1024.
+  * ``stream`` — the same loop around the streaming segment kernel
+    (ops/cuda_stream.py::lazy_segment_stream), with Z, aux and the
+    assignment gathered into visit order once per sweep, so rows stream
+    from device memory in order. The default on CUDA above that size
+    (ops/cuda_gibbs.py::resolve_stream, bnpc_tpu's rule).
+  * ``eager`` — every newborn row drawn up front and the [n, n] likelihood
+    of every cell under every newborn row computed as one product; one
+    launch of the whole-sweep kernel (ops/cuda_sweep.py::eager_sweep)
+    patches births in-kernel. No host read.
   * ``scan`` — a plain sequential loop with the semantics of bnpc_tpu's
     ``_scan_impl``. The default on the CPU.
+
+On a CPU tensor ``lazy``, ``stream`` and ``eager`` run their kernels' plain
+twins, so the CPU tests hold each path against its bnpc_tpu counterpart.
 """
 
 from __future__ import annotations
@@ -24,7 +36,10 @@ from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
 from bnpc_tpu_torch.ops import likelihood as lk
-from bnpc_tpu_torch.ops.cuda_gibbs import lazy_k_pad, lazy_segment
+from bnpc_tpu_torch.ops.cuda_gibbs import (lazy_k_pad, lazy_segment,
+                                           resolve_stream, stream_k_pad)
+from bnpc_tpu_torch.ops.cuda_stream import lazy_segment_stream
+from bnpc_tpu_torch.ops.cuda_sweep import eager_sweep
 from bnpc_tpu_torch.state import CRPState
 
 NEG_INF = float("-inf")
@@ -53,12 +68,38 @@ def _birth_column(theta, slot: int, state, data, gumbel):
     return lk.ll_col(f1, f0, data.xm, data.xm0) + gumbel[:, slot]
 
 
+def _padded_sizes(state, k_pad: int):
+    """[k_pad] f32 sizes row with the kernels' -1 sentinel on padded
+    slots."""
+    k_max = state.cluster_size.shape[0]
+    return torch.cat([
+        state.cluster_size.to(torch.float32),
+        torch.full((k_pad - k_max,), -1.0, device=state.cluster_size.device),
+    ])
+
+
+def resolve_impl(impl: str, cfg: ModelConfig, on_cuda: bool) -> str:
+    """"auto" as bnpc_tpu's "auto_single" resolves it: on CUDA the
+    streaming kernel where resolve_stream(cfg), else the resident one; on
+    the CPU the scan."""
+    if impl != "auto":
+        return impl
+    if not on_cuda:
+        return "scan"
+    return "stream" if resolve_stream(cfg) else "lazy"
+
+
 def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
                 cfg: ModelConfig, impl: str = "auto") -> CRPState:
-    """One full Gibbs sweep. impl: "auto" (lazy on CUDA, scan on the CPU),
-    "lazy" or "scan"."""
-    if impl == "auto":
-        impl = "lazy" if state.assignment.is_cuda else "scan"
+    """One full Gibbs sweep. impl: "auto" (see resolve_impl), "lazy",
+    "stream", "eager" or "scan"."""
+    impl = resolve_impl(impl, cfg, state.assignment.is_cuda)
+    run = {"lazy": _lazy_impl, "stream": _stream_impl, "eager": _eager_impl,
+           "scan": _scan_impl}.get(impl)
+    if run is None:
+        raise ValueError(f"unknown Gibbs impl {impl!r}")
+    if impl == "eager":
+        _check_eager_fits(cfg, state.assignment.device)
     n, k_max = cfg.n_cells, cfg.k_max
     alpha = state.dp_alpha
     log_denom = torch.log(n - 1.0 + alpha)
@@ -71,13 +112,21 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
     c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
     z = lk.ll_matrix(data, c1, c0) + gumbel[:, :k_max]
     aux = new_post + gumbel[:, k_max]
-    if impl == "lazy":
-        return _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
-                          log_denom)
-    if impl == "scan":
-        return _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
-                          log_denom)
-    raise ValueError(f"unknown Gibbs impl {impl!r}")
+    return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom)
+
+
+def _check_eager_fits(cfg: ModelConfig, device) -> None:
+    """The eager sweep's [n, n] product must fit in the free device memory;
+    raise (never switch implementation) when it does not."""
+    if device.type != "cuda":
+        return
+    need = 4 * cfg.n_cells * cfg.n_cells
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise ValueError(
+            f"impl='eager' needs the [{cfg.n_cells}, {cfg.n_cells}] newborn "
+            f"likelihood product ({need / 2**30:.2f} GiB) but {device} has "
+            f"{free / 2**30:.2f} GiB free; use impl='stream' or 'lazy'")
 
 
 def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
@@ -118,10 +167,7 @@ def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
     dev = z.device
     k_pad = lazy_k_pad(k_max)
     z = torch.nn.functional.pad(z, (0, k_pad - k_max)).contiguous()
-    sizes = torch.cat([
-        state.cluster_size.to(torch.float32),
-        torch.full((k_pad - k_max,), -1.0, device=dev),
-    ])
+    sizes = _padded_sizes(state, k_pad)
     assign0 = state.assignment.contiguous()
     aux = aux.contiguous()
     log_denom = log_denom.to(torch.float32).contiguous()
@@ -140,5 +186,63 @@ def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
         i0 = i_next
     assignment = torch.empty_like(tgt_v)
     assignment[perm.long()] = tgt_v
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=sizes[:k_max].to(torch.int32))
+
+
+def _stream_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+    """The birth-lazy loop around the streaming kernel (bnpc_tpu
+    _pallas_stream_impl): Z, aux and the pre-sweep assignment are gathered
+    into visit order once per sweep; a birth at visit position p is cell
+    perm[p], and its Z column is computed in cell order and gathered into
+    visit order, in bnpc_tpu's order of operations."""
+    n, k_max = cfg.n_cells, cfg.k_max
+    dev = z.device
+    k_pad = stream_k_pad(k_max)
+    order = perm.long()
+    zp = torch.nn.functional.pad(z[order], (0, k_pad - k_max)).contiguous()
+    auxp = aux[order].contiguous()
+    assignp = state.assignment[order].contiguous()
+    sizes = _padded_sizes(state, k_pad)
+    log_denom = log_denom.to(torch.float32).contiguous()
+    tgt_v = torch.empty((n,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    params = state.params.clone()
+    i0 = 0
+    while i0 < n:
+        lazy_segment_stream(zp, auxp, assignp, sizes, tgt_v, info, i0,
+                            log_denom)
+        i_next, b_pos, b_slot, _ = info.tolist()  # host sync per launch
+        if b_pos >= 0:
+            cell = int(perm[b_pos])
+            theta = fresh_row(k_beta, cell, data, cfg)
+            params[b_slot] = theta
+            col = _birth_column(theta, b_slot, state, data, gumbel)
+            zp[:, b_slot] = col[order]
+        i0 = i_next
+    assignment = torch.empty_like(tgt_v)
+    assignment[order] = tgt_v
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=sizes[:k_max].to(torch.int32))
+
+
+def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+    """The whole-sweep kernel (bnpc_tpu _pallas_impl): every newborn row
+    drawn up front, the [n, n] likelihood of every cell under every newborn
+    row as one product (left to torch.matmul, as bnpc_tpu leaves it to
+    XLA), and one launch that patches births in-kernel."""
+    k_max = cfg.k_max
+    k_pad = stream_k_pad(k_max)
+    fresh = k_beta.fresh_rows(cfg.p, cfg.q, data.xm, data.xm0)
+    f1, f0 = lk.log_prob_tables(fresh, state.fp, state.fn)
+    lf = lk.ll_matrix(data, f1, f0).contiguous()  # [n, n]
+    pad = (0, k_pad - k_max)
+    zp = torch.nn.functional.pad(z, pad).contiguous()
+    gum = torch.nn.functional.pad(gumbel[:, :k_max], pad).contiguous()
+    assignment, sizes, params = eager_sweep(
+        zp, gum, lf, fresh.contiguous(), aux.contiguous(),
+        state.assignment.contiguous(), perm.contiguous(),
+        _padded_sizes(state, k_pad), state.params.contiguous(),
+        log_denom.to(torch.float32).contiguous())
     return state._replace(assignment=assignment, params=params,
                           cluster_size=sizes[:k_max].to(torch.int32))

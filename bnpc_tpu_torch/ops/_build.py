@@ -1,9 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build happens at first
-use, into ``bnpc_tpu_torch/_build/`` (git-ignored); the library's file name
-carries a hash of the sources and flags, so an edited source rebuilds.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build happens at first use,
+into ``bnpc_tpu_torch/_build/`` (git-ignored); the library's file name
+carries a hash of the sources, headers and flags, so an edited source
+rebuilds.
 
 Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
 needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
@@ -26,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 ]
 
@@ -40,6 +42,11 @@ _SIGNATURES = {
     "bnpc_lazy_segment": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dz, lau, dtab, s_count, count1, out, n, stream
     "bnpc_rg_scan": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream
+    "bnpc_lazy_stream": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # z, gum, lf, fresh, aux, assign, perm, sizes, params, out, log_denom,
+    # n, k_pad, m, stream
+    "bnpc_eager_sweep": [_P] * 11 + [_I, _I, _I, _P],
 }
 
 _lib = None
@@ -62,32 +69,51 @@ def _sources() -> list[Path]:
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _build(sources, so: Path) -> None:
+    """One nvcc per source, all at once, then one link into `so`."""
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"obj.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    objs = [work / f"{s.stem}.o" for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    if any(p.returncode for p in procs):
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    build_log += proc.stdout + proc.stderr
+    shutil.rmtree(work, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{build_log}")
+    os.replace(tmp, so)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _lib, build_seconds, build_log
+    global _lib
     if _lib is not None:
         return _lib
     sources = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libbnpc_kernels_{_digest(sources)}.so"
     if not so.exists():
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
+        _build(sources, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -27,6 +27,10 @@ launches = 0
 
 _SLOTS_PER_LANE = (1, 2, 4, 8, 16, 32)
 
+# Slots of the streaming and eager kernels' shared-memory sizes row: the
+# 227 KB of dynamic shared memory a block may use on sm_90, in floats.
+SMEM_MAX_SLOTS = 232448 // 4
+
 
 def lazy_k_pad(k_max: int) -> int:
     """Slot width the kernel runs at: 32 x a power of two >= k_max."""
@@ -36,25 +40,52 @@ def lazy_k_pad(k_max: int) -> int:
     raise ValueError(f"k_max={k_max} exceeds the kernel's 1024 slots")
 
 
+def stream_k_pad(k_max: int) -> int:
+    """Slot width of the streaming and eager kernels: k_max rounded up to a
+    multiple of 32, at most SMEM_MAX_SLOTS (their shared-memory sizes
+    row)."""
+    k_pad = -(-k_max // 32) * 32
+    if k_pad > SMEM_MAX_SLOTS:
+        raise ValueError(f"k_max={k_max} exceeds the {SMEM_MAX_SLOTS} slots "
+                         "of the kernels' shared-memory sizes row")
+    return k_pad
+
+
+def resolve_stream(cfg) -> bool:
+    """True when the sweep runs the streaming kernel: bnpc_tpu's rule
+    (models/gibbs.py::resolve_stream, Z of 4 * round_up(n, 8) *
+    round_up(k_max, 128) bytes over 13 MiB), or more slots than the
+    resident kernel's 1024."""
+    z_bytes = 4 * (-(-cfg.n_cells // 8) * 8) * (-(-cfg.k_max // 128) * 128)
+    return z_bytes > 13 * 1024 * 1024 or cfg.k_max > 32 * _SLOTS_PER_LANE[-1]
+
+
+def pick_ref(z_row, sizes, aux, log_denom):
+    """One cell's decision as the kernels take it, on `sizes` with the cell
+    already removed. Returns host ints (cand, free, idx): cand whether the
+    new-cluster option beats every slot, free the first free slot (k_pad
+    when none), idx the first slot holding the best logit."""
+    k_pad = sizes.shape[0]
+    iota = torch.arange(k_pad, device=sizes.device)
+    big = torch.full((), k_pad, device=sizes.device)
+    logits = z_row + (torch.log(torch.clamp(sizes, min=0.0)) - log_denom)
+    best = logits.max()
+    free = torch.where(sizes == 0.0, iota, big).min()
+    idx = torch.where(logits == best, iota, big).min()
+    return torch.stack([(aux > best).long(), free, idx]).tolist()
+
+
 def lazy_segment_ref(z, aux, assign, perm, sizes, tgt, info, i0: int,
                      log_denom):
     """Plain torch twin of the kernel: the same loop, the same float32
     expressions, the same first-index tie-breaks and early exit."""
     n, k_pad = perm.shape[0], z.shape[1]
-    iota = torch.arange(k_pad, device=z.device)
-    big = torch.tensor(k_pad, device=z.device)
     perm_h, assign_h = perm.tolist(), assign.tolist()
     veto, i_next, b_cell, b_slot = 0, n, -1, -1
     for i in range(i0, n):
         cell = perm_h[i]
         sizes[assign_h[cell]] -= 1.0
-        logits = z[cell] + (torch.log(torch.clamp(sizes, min=0.0))
-                            - log_denom)
-        best = logits.max()
-        free = torch.where(sizes == 0.0, iota, big).min()
-        idx = torch.where(logits == best, iota, big).min()
-        cand, free, idx = torch.stack(
-            [(aux[cell] > best).long(), free, idx]).tolist()
+        cand, free, idx = pick_ref(z[cell], sizes, aux[cell], log_denom)
         is_new = bool(cand) and free < k_pad
         veto |= int(bool(cand) and free >= k_pad)
         t = free if is_new else idx

@@ -7,24 +7,45 @@ Phases (any failure exits non-zero, and no result line is printed):
 
   1. device  — a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them;
-  2. build   — compiles the kernels (bnpc_tpu_torch/csrc/*.cu) with nvcc;
-  3. kernels — each kernel against its plain torch twin on the card, at the
-               main path's shapes (5,000 cells, 256 slots); outputs must match
-               exactly; prints each kernel's median time beside its twin's;
+  2. build   — compiles the kernels (bnpc_tpu_torch/csrc/*.cu), one nvcc
+               per source, all at once;
+  3. kernels — each kernel against its plain torch twin on the card, at its
+               path's shapes; outputs must match exactly; prints each
+               kernel's median time beside its twin's and its bound:
+                 lazy_segment  5,000 x 256: no birth, a birth, a veto;
+                 rg_scan       5,000 cells: s_count 0, 1, 37, 5,000;
+                 lazy_stream   131,072 x 128 over the last 8,192 positions:
+                               no birth, a birth, a veto; and k_max 2,000
+                               (the shared-memory sizes row) at 4,096
+                               cells; timed over the full segment beside
+                               lazy_segment on the same Z in cell order;
+                 eager_sweep   5,000 x 256 with lf [5,000, 5,000]: no birth,
+                               two births back to back (the stale-prefetch
+                               trap), a veto;
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
-               twins) fed identical draws: assignments, sizes and MH counts
+               twins) fed identical draws, once per Gibbs impl ("auto" =
+               lazy, "stream", "eager"): assignments, sizes and MH counts
                exactly, every float to rtol 1e-4 (the two devices' ndtri and
                log differ in the last ulps, and the inverse-CDF proposals
                amplify that in the tails: measured 1.8e-5 on an H100);
   5. main    — the main path: MCMCRunner on the card at the bench
                configuration (5,000 x 200, k_max 256, learned errors,
                sm 0.33 / sm_steps 3 / dpa 0.25 / err 0.25), 256 warm-up and
-               256 timed steps; state invariants, both kernels launched,
-               steps/s, launches per sweep, host syncs per step, cluster
-               count and ARI against the planted truth.
+               256 timed steps; state invariants, lazy_segment and rg_scan
+               launched, steps/s, launches per sweep, host syncs per step,
+               cluster count and ARI against the planted truth;
+  6. large   — the large-n path: MCMCRunner at 131,072 x 200, k_max 128
+               (benchmarks/scale_bench.py's data and configuration), 16
+               warm-up and 64 timed steps; the same invariants, lazy_stream
+               and rg_scan launched and lazy_segment never;
+  7. eager   — the step body with gibbs_impl="eager" at the bench
+               configuration, 64 warm-up and 256 timed steps; the same
+               invariants, eager_sweep launched; steps/s beside phase 5's.
 
-The last three lines are the nvidia-smi line, a JSON line with one entry per
-kernel, and {"ok": true, "device": {...}}.
+Before each of phases 5-7 every kernel's launch counter is set to 0; the
+counters read after the phase are that path's launches. The last three lines
+are the nvidia-smi line, a JSON line with one entry per kernel, and
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -35,6 +56,16 @@ import warnings
 import numpy as np
 
 N, M, K_MAX = 5000, 200, 256
+N_LARGE, K_LARGE = 131072, 128
+STREAM_TAIL = 8192
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory bandwidth
+# and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float operations the per-cell step spends on each slot: max(size, 0),
+# log, subtract, add, the max reduction and the tie compare.
+OPS_PER_SLOT = 6
+MIX = dict(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25, sm_steps=3)
 
 
 def log(msg):
@@ -48,15 +79,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_data(n, m, k_clones, missing, seed=0):
+def make_data(n, m, k_clones, missing, seed=0, fp=0.001):
     """The bench's simulated clone matrix (the generator of
-    benchmarks/accuracy_bench.py:make_data, numpy only)."""
+    benchmarks/accuracy_bench.py:make_data and, with fp=0.001, 20 clones
+    and missing 0.1, of benchmarks/scale_bench.py:make_data; numpy only).
+    Returns (data, planted assignment)."""
     rng = np.random.default_rng(seed)
     geno = rng.integers(0, 2, size=(k_clones, m))
     assign = rng.integers(0, k_clones, size=n)
     data = geno[assign].astype(float)
     data[(data == 1) & (rng.random((n, m)) < 0.1)] = 0
-    data[(data == 0) & (rng.random((n, m)) < 0.001)] = 1
+    data[(data == 0) & (rng.random((n, m)) < fp)] = 1
     data[rng.random((n, m)) < missing] = np.nan
     return data, assign
 
@@ -77,14 +110,13 @@ def adjusted_rand(a, b) -> float:
     return float((s_ij - expected) / (0.5 * (s_a + s_b) - expected))
 
 
-def bench_configs():
+def bench_configs(n=N, k_max=K_MAX):
     from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 
-    cfg = ModelConfig(n_cells=N, n_muts=M, k_max=K_MAX, p=0.25, q=0.25,
+    cfg = ModelConfig(n_cells=n, n_muts=M, k_max=k_max, p=0.25, q=0.25,
                       fp=0.01, fn=0.2, learn_errors=True, fp_sd=0.01,
                       fn_sd=0.1)
-    mc = MCMCConfig(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25, sm_steps=3)
-    return cfg, mc
+    return cfg, MCMCConfig(**MIX)
 
 
 def cuda_ms(fn, reps):
@@ -103,6 +135,14 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def bound(bytes_moved, ops):
+    """(least ms, what bounds it): bytes over the HBM rate against float32
+    operations over the float32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_err(pairs) -> float:
     err = 0.0
     for a, b in pairs:
@@ -111,9 +151,76 @@ def max_err(pairs) -> float:
     return err
 
 
+def kernel_modules():
+    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream, cuda_sweep
+
+    return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
+            "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep}
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def check_launches(path, launches, used):
+    """Every kernel of `used` launched on the path, and no other."""
+    for name, count in launches.items():
+        if (count > 0) != (name in used):
+            raise AssertionError(f"{path}: launches {launches}, expected "
+                                 f"exactly {sorted(used)} to run")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
+
+
+def segment_case(dev, assign_np, hot, k_max, k_pad, i0):
+    """(assign, aux, sizes, i0) tensors of one segment case: aux is -1e30
+    except +1e30 at the `hot` indices."""
+    import torch
+
+    n = assign_np.shape[0]
+    aux = np.full(n, -1e30, np.float32)
+    aux[hot] = 1e30
+    sizes = np.bincount(assign_np, minlength=k_pad).astype(np.float32)
+    sizes[k_max:] = -1.0
+    return (torch.from_numpy(assign_np.astype(np.int32)).to(dev),
+            torch.from_numpy(aux).to(dev), torch.from_numpy(sizes).to(dev),
+            i0)
+
+
+def run_segment(fn, args, n, sizes0, i0, log_denom, dev):
+    """One segment of `fn` on fresh outputs: (tgt, sizes, info)."""
+    import torch
+
+    sizes = sizes0.clone()
+    tgt = torch.full((n,), -7, dtype=torch.int32, device=dev)
+    info = torch.zeros((4,), dtype=torch.int32, device=dev)
+    fn(*args, sizes, tgt, info, i0, log_denom)
+    torch.cuda.synchronize()
+    return tgt, sizes, info
+
+
+def compare_segment(name, kernel, twin, expect_next, expect_b, veto_want):
+    """Kernel and twin (tgt, sizes, info) equal, info as expected."""
+    import torch
+
+    (kt, ks, ki), (rt, rs, ri) = kernel, twin
+    if not (torch.equal(kt, rt) and torch.equal(ks, rs)
+            and torch.equal(ki, ri)):
+        raise AssertionError(f"{name}: kernel {ki.tolist()} != twin "
+                             f"{ri.tolist()} or targets/sizes differ")
+    i_next, b, _, veto = ki.tolist()
+    if (i_next, b) != (expect_next, expect_b) or bool(veto) != veto_want:
+        raise AssertionError(f"{name}: info {ki.tolist()}")
+    log(f"  {name}: info {ki.tolist()} — kernel == twin")
+    return [(kt, rt), (ks, rs), (ki, ri)]
 
 
 def phase_lazy_segment(dev):
@@ -131,63 +238,43 @@ def phase_lazy_segment(dev):
                              device=dev)
     perm_h = perm.cpu().numpy()
 
-    def case(assign_np, hot_positions, i0):
-        aux = np.full(N, -1e30, np.float32)
-        aux[perm_h[hot_positions]] = 1e30
-        sizes = np.bincount(assign_np, minlength=k_pad).astype(np.float32)
-        sizes[K_MAX:] = -1.0
-        return (torch.from_numpy(assign_np.astype(np.int32)).to(dev),
-                torch.from_numpy(aux).to(dev),
-                torch.from_numpy(sizes).to(dev), i0)
-
     cases = {
         # 200 live slots, 56 free; the new-cluster option never wins.
-        "no_birth": case(rng.integers(0, 200, N), [], 0),
+        "no_birth": (segment_case(dev, rng.integers(0, 200, N), [], K_MAX,
+                                  k_pad, 0), (N, -1, False)),
         # From position 1000, a birth forced at position 2600.
-        "birth": case(rng.integers(0, 200, N), [2600], 1000),
+        "birth": (segment_case(dev, rng.integers(0, 200, N), perm_h[[2600]],
+                               K_MAX, k_pad, 1000),
+                  (2601, int(perm_h[2600]), False)),
         # Every slot live (>= 19 cells): the first 5 cells' new-cluster
         # option wins with no free slot — vetoed, no birth.
-        "veto": case(np.arange(N) % K_MAX, [0, 1, 2, 3, 4], 0),
+        "veto": (segment_case(dev, np.arange(N) % K_MAX, perm_h[:5], K_MAX,
+                              k_pad, 0), (N, -1, True)),
     }
-    expect_info = {"no_birth": (N, -1), "birth": (2601, int(perm_h[2600])),
-                   "veto": (N, -1)}
     pairs = []
-    for name, (assign, aux, sizes0, i0) in cases.items():
-        outs = []
-        for fn in (lazy_segment, lazy_segment_ref):
-            sizes = sizes0.clone()
-            tgt = torch.full((N,), -7, dtype=torch.int32, device=dev)
-            info = torch.zeros((4,), dtype=torch.int32, device=dev)
-            fn(z, aux, assign, perm, sizes, tgt, info, i0, log_denom)
-            torch.cuda.synchronize()
-            outs.append((tgt, sizes, info))
-        (kt, ks, ki), (rt, rs, ri) = outs
-        if not (torch.equal(kt, rt) and torch.equal(ks, rs)
-                and torch.equal(ki, ri)):
-            raise AssertionError(
-                f"lazy_segment {name}: kernel {ki.tolist()} != twin "
-                f"{ri.tolist()} or targets/sizes differ")
-        i_next, b_cell, _, veto = ki.tolist()
-        want_next, want_cell = expect_info[name]
-        if (i_next, b_cell) != (want_next, want_cell):
-            raise AssertionError(f"lazy_segment {name}: info {ki.tolist()}")
-        if (name == "veto") != bool(veto):
-            raise AssertionError(f"lazy_segment {name}: veto {veto}")
-        pairs += [(kt, rt), (ks, rs), (ki, ri)]
-        log(f"  lazy_segment {name}: info {ki.tolist()} — kernel == twin")
+    for name, ((assign, aux, sizes0, i0), want) in cases.items():
+        args = (z, aux, assign, perm)
+        outs = [run_segment(fn, args, N, sizes0, i0, log_denom, dev)
+                for fn in (lazy_segment, lazy_segment_ref)]
+        pairs += compare_segment(f"lazy_segment {name}", *outs, *want)
 
-    assign, aux, sizes0, i0 = cases["no_birth"]
-    buf = [sizes0.clone() for _ in range(21)]
+    assign, aux, sizes0, _ = cases["no_birth"][0]
+    buf = iter([sizes0.clone() for _ in range(21)])
     tgt = torch.empty((N,), dtype=torch.int32, device=dev)
     info = torch.empty((4,), dtype=torch.int32, device=dev)
-    it = iter(buf)
-    ms = cuda_ms(lambda: lazy_segment(z, aux, assign, perm, next(it), tgt,
+    ms = cuda_ms(lambda: lazy_segment(z, aux, assign, perm, next(buf), tgt,
                                       info, 0, log_denom), 21)
     plain_ms = cuda_ms(lambda: lazy_segment_ref(
         z, aux, assign, perm, sizes0.clone(), tgt, info, 0, log_denom), 3)
+    # Every cell: its z row, aux, assign and perm entries in, its target
+    # out; the sizes row in and out.
+    bound_ms, bound_by = bound(4 * (N * k_pad + 4 * N + 2 * k_pad + 4),
+                               OPS_PER_SLOT * N * k_pad)
     log(f"  lazy_segment full segment (n={N}, k_pad={k_pad}): kernel "
-        f"{ms:.4f} ms, plain twin {plain_ms:.1f} ms")
-    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms}
+        f"{ms:.4f} ms, plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by})")
+    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_rg_scan(dev):
@@ -222,9 +309,171 @@ def phase_rg_scan(dev):
     dtab, sc, c1 = inputs(N)
     ms = cuda_ms(lambda: rg_scan(dz, lau, dtab, sc, c1), 51)
     plain_ms = cuda_ms(lambda: rg_scan_ref(dz, lau, dtab, sc, c1), 3)
+    # dz, lau and dtab in, the sides out; four operations per cell.
+    bound_ms, bound_by = bound(4 * (4 * N + 4), 4 * N)
     log(f"  rg_scan s_count={N}: kernel {ms:.4f} ms, plain twin "
-        f"{plain_ms:.1f} ms")
-    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms}
+        f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_lazy_stream(dev):
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_gibbs import (lazy_segment, lazy_segment_ref,
+                                               stream_k_pad)
+    from bnpc_tpu_torch.ops.cuda_stream import (lazy_segment_stream,
+                                                lazy_segment_stream_ref)
+
+    n, k_pad = N_LARGE, stream_k_pad(K_LARGE)
+    rng = np.random.default_rng(2)
+    zp = torch.from_numpy(
+        (rng.standard_normal((n, k_pad)) * 4.0).astype(np.float32)).to(dev)
+    log_denom = torch.tensor(np.log(n - 1.0 + 10.0), dtype=torch.float32,
+                             device=dev)
+    i0 = n - STREAM_TAIL
+    cases = {
+        # 100 live slots, 28 free; the new-cluster option never wins.
+        "no_birth": (segment_case(dev, rng.integers(0, 100, n), [], K_LARGE,
+                                  k_pad, i0), (n, -1, False)),
+        # A birth forced mid-segment.
+        "birth": (segment_case(dev, rng.integers(0, 100, n), [n - 4000],
+                               K_LARGE, k_pad, i0),
+                  (n - 3999, n - 4000, False)),
+        # Every slot live (1,024 cells each): vetoed wins, no birth.
+        "veto": (segment_case(dev, np.arange(n) % K_LARGE,
+                              np.arange(i0, i0 + 5), K_LARGE, k_pad, i0),
+                 (n, -1, True)),
+    }
+    pairs = []
+    for name, ((assignp, auxp, sizes0, start), want) in cases.items():
+        args = (zp, auxp, assignp)
+        outs = [run_segment(fn, args, n, sizes0, start, log_denom, dev)
+                for fn in (lazy_segment_stream, lazy_segment_stream_ref)]
+        pairs += compare_segment(f"lazy_stream {name} (n={n}, k_pad={k_pad},"
+                                 f" from {start})", *outs, *want)
+
+    # k_max 2,000: k_pad 2,016 > 1,024, the shared-memory sizes row.
+    n_w, k_w = 4096, 2000
+    kp_w = stream_k_pad(k_w)
+    zw = torch.from_numpy(
+        (rng.standard_normal((n_w, kp_w)) * 4.0).astype(np.float32)).to(dev)
+    ld_w = torch.tensor(np.log(n_w - 1.0 + 10.0), dtype=torch.float32,
+                        device=dev)
+    assignp, auxp, sizes0, _ = segment_case(
+        dev, rng.integers(0, 1500, n_w), [3000], k_w, kp_w, 0)
+    outs = [run_segment(fn, (zw, auxp, assignp), n_w, sizes0, 0, ld_w, dev)
+            for fn in (lazy_segment_stream, lazy_segment_stream_ref)]
+    pairs += compare_segment(f"lazy_stream wide (n={n_w}, k_pad={kp_w})",
+                             *outs, 3001, 3000, False)
+
+    # Timing: the full no-birth segment, and the resident kernel on the same
+    # Z read in cell order through a random permutation.
+    assignp, auxp, sizes0, _ = cases["no_birth"][0]
+    tgt = torch.empty((n,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    buf = iter([sizes0.clone() for _ in range(21)])
+    ms = cuda_ms(lambda: lazy_segment_stream(zp, auxp, assignp, next(buf),
+                                             tgt, info, 0, log_denom), 21)
+    plain_ms = cuda_ms(lambda: lazy_segment_stream_ref(
+        zp, auxp, assignp, sizes0.clone(), tgt, info, 0, log_denom), 1)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    buf = iter([sizes0.clone() for _ in range(21)])
+    resident_ms = cuda_ms(lambda: lazy_segment(
+        zp, auxp, assignp, perm, next(buf), tgt, info, 0, log_denom), 21)
+    for i in range(2):  # twice more after the resident kernel: the spread
+        buf = iter([sizes0.clone() for _ in range(21)])
+        t = cuda_ms(lambda: lazy_segment_stream(zp, auxp, assignp, next(buf),
+                                                tgt, info, 0, log_denom), 21)
+        log(f"  lazy_stream full segment, repeat {i + 1}: {t:.4f} ms")
+    # Every position: its zp row, aux and assign in, its target out; the
+    # sizes row in and out.
+    bound_ms, bound_by = bound(4 * (n * k_pad + 3 * n + 2 * k_pad + 4),
+                               OPS_PER_SLOT * n * k_pad)
+    log(f"  lazy_stream full segment (n={n}, k_pad={k_pad}, Z "
+        f"{4 * n * k_pad / 1e6:.1f} MB): kernel {ms:.4f} ms, plain twin "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"lazy_segment on the same Z in cell order {resident_ms:.4f} ms")
+    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "resident_same_z_ms": resident_ms}
+
+
+def phase_eager_sweep(dev):
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_gibbs import stream_k_pad
+    from bnpc_tpu_torch.ops.cuda_sweep import eager_sweep, eager_sweep_ref
+
+    k_pad = stream_k_pad(K_MAX)
+    rng = np.random.default_rng(3)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    z = t((rng.standard_normal((N, k_pad)) * 4.0).astype(np.float32))
+    gum = t(rng.gumbel(size=(N, k_pad)).astype(np.float32))
+    lf_np = (rng.standard_normal((N, N)) * 4.0).astype(np.float32)
+    fresh = t(rng.uniform(1e-5, 1 - 1e-5, (N, M)).astype(np.float32))
+    params = t(rng.uniform(1e-5, 1 - 1e-5, (K_MAX, M)).astype(np.float32))
+    perm_h = rng.permutation(N).astype(np.int32)
+    perm = t(perm_h)
+    log_denom = torch.tensor(np.log(N - 1.0 + 10.0), dtype=torch.float32,
+                             device=dev)
+    # Two births back to back at positions 2600 and 2601; both newborn
+    # columns are large, so every later cell, the one visited right after
+    # each birth included, follows them only if it sees the patch.
+    lf_births = lf_np.copy()
+    lf_births[:, perm_h[[2600, 2601]]] = 30.0
+    lf, lf_b = t(lf_np), t(lf_births)
+    cases = {
+        "no_birth": (segment_case(dev, rng.integers(0, 200, N), [], K_MAX,
+                                  k_pad, 0), lf, 0),
+        "two_births": (segment_case(dev, rng.integers(0, 200, N),
+                                    perm_h[[2600, 2601]], K_MAX, k_pad, 0),
+                       lf_b, 2),
+        "veto": (segment_case(dev, np.arange(N) % K_MAX, perm_h[:5], K_MAX,
+                              k_pad, 0), lf, 0),
+    }
+    pairs = []
+    for name, ((assign, aux, sizes0, _), lf_c, births) in cases.items():
+        args = (z, gum, lf_c, fresh, aux, assign, perm, sizes0, params,
+                log_denom)
+        (ka, ks, kp), (ra, rs, rp) = eager_sweep(*args), eager_sweep_ref(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(ka, ra) and torch.equal(ks, rs)
+                and torch.equal(kp, rp)):
+            raise AssertionError(f"eager_sweep {name}: kernel != twin")
+        born = int(((sizes0 == 0) & (ks > 0)).sum())
+        changed = int((kp != params).any(dim=1).sum())
+        if changed != births:
+            raise AssertionError(f"eager_sweep {name}: {changed} newborn "
+                                 f"rows, expected {births}")
+        if births:
+            slots = ka[perm[2600:2603].long()].tolist()
+            log(f"  eager_sweep {name}: slots of positions 2600-2602 "
+                f"{slots}; {born} slots born")
+            if slots[0] == slots[1] or slots[2] not in slots[:2]:
+                raise AssertionError(f"eager_sweep {name}: slots {slots}")
+        pairs += [(ka, ra), (ks, rs), (kp, rp)]
+        log(f"  eager_sweep {name}: {int((ks > 0).sum())} live slots — "
+            "kernel == twin")
+
+    (assign, aux, sizes0, _), _, _ = cases["no_birth"]
+    args = (z, gum, lf, fresh, aux, assign, perm, sizes0, params, log_denom)
+    ms = cuda_ms(lambda: eager_sweep(*args), 21)
+    plain_ms = cuda_ms(lambda: eager_sweep_ref(*args), 3)
+    # No birth: every z row, aux, assign and perm entry in, the assignment
+    # out; the sizes row and the params in and out (lf, gum and fresh are
+    # read only on a birth).
+    bound_ms, bound_by = bound(
+        4 * (N * k_pad + 4 * N + 2 * k_pad + 2 * K_MAX * M),
+        OPS_PER_SLOT * N * k_pad)
+    log(f"  eager_sweep no birth (n={N}, k_pad={k_pad}): kernel {ms:.4f} ms,"
+        f" plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +481,7 @@ def phase_rg_scan(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_small(dev):
+def phase_small(dev, gibbs_impl):
     import torch
 
     from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
@@ -254,10 +503,10 @@ def phase_small(dev):
     cfg = ModelConfig(n_cells=n, n_muts=m, k_max=n, p=0.25, q=0.25,
                       fp=0.01, fn=0.2, learn_errors=True, fp_sd=0.01,
                       fn_sd=0.1)
-    mc = MCMCConfig(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25, sm_steps=3)
+    mc = MCMCConfig(**MIX)
     trace_k = resolve_trace_k(cfg, mc)
     packed = {d: pack_data(data, d) for d in ("cpu", dev)}
-    steps = {d: _make_step_body(cfg, mc, packed[d], trace_k)
+    steps = {d: _make_step_body(cfg, mc, packed[d], trace_k, gibbs_impl)
              for d in ("cpu", dev)}
     state = init_state(TorchDraws(0, "cpu"), cfg, packed["cpu"], "cpu")
     kinds = np.zeros(3, int)  # gibbs, split, merge
@@ -269,9 +518,11 @@ def phase_small(dev):
         (cs, cr), (gs, gr) = out["cpu"], out[dev]
         for f in ("assignment", "cluster_size"):
             if not torch.equal(getattr(cs, f), getattr(gs, f).cpu()):
-                raise AssertionError(f"small step {s}: {f} differs")
+                raise AssertionError(f"small {gibbs_impl} step {s}: {f} "
+                                     "differs")
         if not torch.equal(cr.mh_counts, gr.mh_counts.cpu()):
-            raise AssertionError(f"small step {s}: mh_counts differ")
+            raise AssertionError(f"small {gibbs_impl} step {s}: mh_counts "
+                                 "differ")
         for a, b in [(cs.params, gs.params), (cs.dp_alpha, gs.dp_alpha),
                      (cs.fp, gs.fp), (cs.fn, gs.fn), (cr.ml, gr.ml),
                      (cr.map_, gr.map_)]:
@@ -279,22 +530,99 @@ def phase_small(dev):
         c = cr.mh_counts.numpy()
         kinds += [c[1:3].sum() == 0, c[1].sum() > 0, c[2].sum() > 0]
         state = cs
-    log(f"  12 steps GPU == CPU (gibbs/split/merge steps: {kinds.tolist()})")
+    log(f"  gibbs_impl={gibbs_impl!r}: 12 steps GPU == CPU "
+        f"(gibbs/split/merge steps: {kinds.tolist()})")
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the main path
+# Phases 5-7: the paths
 # ---------------------------------------------------------------------------
+
+
+def check_state(state, rows_list, n, k_max):
+    """State invariants: sizes agree with the assignment, params inside
+    [TMIN, TMAX], a finite ML/MAP trace."""
+    from bnpc_tpu_torch.config import TMAX, TMIN
+
+    a = state.assignment.cpu().numpy()
+    sizes = state.cluster_size.cpu().numpy()
+    params = state.params.cpu().numpy()
+    if not (np.array_equal(sizes, np.bincount(a, minlength=k_max))
+            and sizes.sum() == n):
+        raise AssertionError("cluster sizes disagree with the assignment")
+    if not ((params >= TMIN - 1e-7).all() and (params <= TMAX + 1e-7).all()):
+        raise AssertionError("params outside [TMIN, TMAX]")
+    for rows in rows_list:
+        if not (np.isfinite(rows["ml"]).all()
+                and np.isfinite(rows["map_"]).all()):
+            raise AssertionError("non-finite ML/MAP in the trace")
+    return a, sizes
+
+
+def syncs_per_step(run, steps):
+    """Host synchronizations per step of `run(steps)`, counted by torch's
+    sync debug mode (its bookkeeping is kept out of the timed windows)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / steps
+
+
+def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
+               sweep_kernel):
+    """Warm up, time, check and summarize one path. `run_block(state,
+    draws, steps)` returns (state, rows, draws)."""
+    import torch
+
+    reset_launches()
+    state, warm_rows, draws = run_block(state, draws, warm)
+    torch.cuda.synchronize()
+    warm_launches = read_launches()
+    t0 = time.perf_counter()
+    state, rows, draws = run_block(state, draws, timed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches(name, launches, {sweep_kernel, "rg_scan"})
+    a, sizes = check_state(state, [warm_rows, rows], n, k_max)
+
+    sm_steps = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) > 0).sum())
+    sweeps = timed - sm_steps
+    timed_l = {k: launches[k] - warm_launches[k] for k in launches}
+    out = {
+        "steps_per_s": timed / seconds,
+        "timed_seconds": seconds,
+        "gibbs_sweeps": sweeps,
+        "sm_moves": sm_steps,
+        "launches_path": launches,
+        "launches_per_sweep": timed_l[sweep_kernel] / max(sweeps, 1),
+        "rg_launches_per_sm_move": timed_l["rg_scan"] / max(sm_steps, 1),
+        "host_syncs_per_step": syncs_per_step(
+            lambda k: run_block(state, draws, k), 16),
+        "clusters": int((sizes > 0).sum()),
+        "ari": adjusted_rand(truth, a),
+    }
+    log(f"  steps/s {out['steps_per_s']:.3f} ({timed} timed steps, "
+        f"{seconds:.3f} s, after {warm} warm-up; {sweeps} Gibbs sweeps, "
+        f"{sm_steps} split-merge moves)")
+    log(f"  launches on this path: {launches}; {sweep_kernel} per Gibbs "
+        f"sweep {out['launches_per_sweep']:.3f}; rg_scan per split-merge "
+        f"{out['rg_launches_per_sm_move']:.3f}")
+    log(f"  host syncs per step {out['host_syncs_per_step']:.3f}; clusters "
+        f"{out['clusters']}; ARI vs truth {out['ari']:.4f}")
+    return out
 
 
 def phase_main(dev):
-    import torch
-
-    from bnpc_tpu_torch.config import TMAX, TMIN
     from bnpc_tpu_torch.data import pack_data
     from bnpc_tpu_torch.draws import TorchDraws
     from bnpc_tpu_torch.mcmc import MCMCRunner
-    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg
 
     data, truth = make_data(N, M, 10, 0.1, seed=0)
     cfg, mc = bench_configs()
@@ -307,72 +635,54 @@ def phase_main(dev):
             or not np.isfinite(res.ML).all():
         raise AssertionError("run(): unexpected result shapes or values")
 
-    state = runner.init_chains(TorchDraws(0, dev))
-    draws = TorchDraws(1, dev)
-    cuda_gibbs.launches = cuda_rg.launches = 0
-    state, warm_rows, draws = runner.run_block(state, draws, 256)
-    torch.cuda.synchronize()
-    warm = (cuda_gibbs.launches, cuda_rg.launches)
-    t0 = time.perf_counter()
-    state, rows, draws = runner.run_block(state, draws, 256)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"lazy_segment": cuda_gibbs.launches,
-                "rg_scan": cuda_rg.launches}
-    timed = (launches["lazy_segment"] - warm[0],
-             launches["rg_scan"] - warm[1])
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was never launched: {launches}")
+    return timed_path("main", runner.run_block,
+                      runner.init_chains(TorchDraws(0, dev)),
+                      TorchDraws(1, dev), 256, 256, N, K_MAX, truth,
+                      "lazy_segment")
 
-    # State invariants.
-    a = state.assignment.cpu().numpy()
-    sizes = state.cluster_size.cpu().numpy()
-    params = state.params.cpu().numpy()
-    if not (np.array_equal(sizes, np.bincount(a, minlength=K_MAX))
-            and sizes.sum() == N):
-        raise AssertionError("cluster sizes disagree with the assignment")
-    if not ((params >= TMIN - 1e-7).all() and (params <= TMAX + 1e-7).all()):
-        raise AssertionError("params outside [TMIN, TMAX]")
-    if not (np.isfinite(rows["ml"]).all() and np.isfinite(rows["map_"]).all()
-            and np.isfinite(warm_rows["ml"]).all()):
-        raise AssertionError("non-finite ML/MAP in the trace")
 
-    sm_steps = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) > 0).sum())
-    gibbs_sweeps = 256 - sm_steps
+def phase_large(dev):
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.draws import TorchDraws
+    from bnpc_tpu_torch.mcmc import MCMCRunner
+    from bnpc_tpu_torch.models.gibbs import resolve_impl
 
-    # Host synchronizations per step, counted by torch's sync debug mode
-    # over a separate 16-step window (its bookkeeping is not in the timing).
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            runner.run_block(state, draws, 16)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    data, truth = make_data(N_LARGE, M, 20, 0.1, seed=0)
+    cfg, mc = bench_configs(N_LARGE, K_LARGE)
+    if resolve_impl("auto", cfg, on_cuda=True) != "stream":
+        raise AssertionError("the large-n path must resolve to 'stream'")
+    runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                        block_size=64)
+    return timed_path("large", runner.run_block,
+                      runner.init_chains(TorchDraws(0, dev)),
+                      TorchDraws(1, dev), 16, 64, N_LARGE, K_LARGE, truth,
+                      "lazy_stream")
 
-    out = {
-        "steps_per_s": 256 / seconds,
-        "timed_seconds": seconds,
-        "gibbs_sweeps": gibbs_sweeps,
-        "sm_moves": sm_steps,
-        "launches_main_path": launches,
-        "launches_timed": {"lazy_segment": timed[0], "rg_scan": timed[1]},
-        "lazy_launches_per_sweep": timed[0] / max(gibbs_sweeps, 1),
-        "rg_launches_per_sm_move": timed[1] / max(sm_steps, 1),
-        "host_syncs_per_step": syncs / 16,
-        "clusters": int((sizes > 0).sum()),
-        "ari": adjusted_rand(truth, a),
-    }
-    log(f"  steps/s {out['steps_per_s']:.3f} (256 timed steps, "
-        f"{seconds:.3f} s; {gibbs_sweeps} Gibbs sweeps, {sm_steps} "
-        "split-merge moves)")
-    log(f"  launches: {launches}; per Gibbs sweep "
-        f"{out['lazy_launches_per_sweep']:.3f}; rg per split-merge "
-        f"{out['rg_launches_per_sm_move']:.3f}")
-    log(f"  host syncs per step {out['host_syncs_per_step']:.3f}; clusters "
-        f"{out['clusters']}; ARI vs truth {out['ari']:.4f}")
-    return out
+
+def phase_eager(dev):
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.draws import TorchDraws
+    from bnpc_tpu_torch.mcmc import (_make_step_body, _rows_to_host,
+                                     resolve_trace_k)
+    from bnpc_tpu_torch.state import init_state
+
+    data, truth = make_data(N, M, 10, 0.1, seed=0)
+    cfg, mc = bench_configs()
+    packed = pack_data(data, dev)
+    step = _make_step_body(cfg, mc, packed, resolve_trace_k(cfg, mc),
+                           gibbs_impl="eager")
+
+    def run_block(state, draws, n_steps):
+        keys = draws.split(n_steps + 1)
+        rows = []
+        for k in keys[1:]:
+            state, row = step(state, k)
+            rows.append(row)
+        return state, _rows_to_host(rows), keys[0]
+
+    state = init_state(TorchDraws(0, dev).split(1)[0], cfg, packed, dev)
+    return timed_path("eager", run_block, state, TorchDraws(1, dev), 64, 256,
+                      N, K_MAX, truth, "eager_sweep")
 
 
 def main():
@@ -382,7 +692,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/5] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/7] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
     import bnpc_tpu_torch  # noqa: F401  (precision pins)
@@ -390,39 +700,65 @@ def main():
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/5] build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds:.1f} s)")
+    log(f"[2/7] build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line \
+                or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/5] kernels against their plain twins (exact match)")
-    k1 = phase_lazy_segment(dev)
-    k2 = phase_rg_scan(dev)
-    log("[4/5] small input: GPU against CPU on identical draws")
-    phase_small(dev)
-    log("[5/5] main path: MCMCRunner at 5,000 x 200, k_max 256")
+    log("[3/7] kernels against their plain twins (exact match)")
+    k = {"lazy_segment": phase_lazy_segment(dev),
+         "rg_scan": phase_rg_scan(dev),
+         "lazy_stream": phase_lazy_stream(dev),
+         "eager_sweep": phase_eager_sweep(dev)}
+    log("[4/7] small input: GPU against CPU on identical draws")
+    for impl in ("auto", "stream", "eager"):
+        phase_small(dev, impl)
+    log(f"[5/7] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} ({smi})")
     main_out = phase_main(dev)
+    log(f"[6/7] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+        f"{K_LARGE} ({smi})")
+    large_out = phase_large(dev)
+    log(f"[7/7] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+        f"{K_MAX} ({smi})")
+    eager_out = phase_eager(dev)
+    log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
+        f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
+        "configuration")
 
+    path_launches = {"lazy_segment": main_out, "rg_scan": main_out,
+                     "lazy_stream": large_out, "eager_sweep": eager_out}
+    meta = {
+        "lazy_segment": ("bnpc_tpu_torch/csrc/lazy_segment.cu",
+                         "bnpc_tpu/ops/pallas_gibbs.py:316"),
+        "rg_scan": ("bnpc_tpu_torch/csrc/rg_scan.cu",
+                    "bnpc_tpu/ops/pallas_rg.py:68"),
+        "lazy_stream": ("bnpc_tpu_torch/csrc/lazy_stream.cu",
+                        "bnpc_tpu/ops/pallas_gibbs.py:521"),
+        "eager_sweep": ("bnpc_tpu_torch/csrc/sweep.cu",
+                        "bnpc_tpu/ops/pallas_gibbs.py:78"),
+    }
     kernels = [
-        {"name": "lazy_segment", "route": "cuda",
-         "source": "bnpc_tpu_torch/csrc/lazy_segment.cu",
-         "replaces": "bnpc_tpu/ops/pallas_gibbs.py:316",
-         "launches": main_out["launches_main_path"]["lazy_segment"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
-        {"name": "rg_scan", "route": "cuda",
-         "source": "bnpc_tpu_torch/csrc/rg_scan.cu",
-         "replaces": "bnpc_tpu/ops/pallas_rg.py:68",
-         "launches": main_out["launches_main_path"]["rg_scan"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
-    ]
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": path_launches[name]["launches_path"][name],
+         "max_abs_err": k[name]["max_abs_err"], "ms": k[name]["ms"],
+         "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
+         "bound_by": k[name]["bound_by"], "library_ms": None}
+        for name, (src, rep) in meta.items()]
+    log(json.dumps({"paths": {
+        name: {f: out[f] for f in ("steps_per_s", "launches_per_sweep",
+                                   "host_syncs_per_step", "clusters", "ari")}
+        for name, out in (("main", main_out), ("large", large_out),
+                          ("eager", eager_out))},
+        "lazy_segment_on_stream_z_ms": k["lazy_stream"][
+            "resident_same_z_ms"]}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
+    # The port runs on one device.
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

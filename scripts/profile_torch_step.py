@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's main path on one CUDA device.
 
-    python3 scripts/profile_torch_step.py [--steps 256] [--profiled 64]
+    python3 scripts/profile_torch_step.py [--cell main|large] [--warmup 256]
+                                          [--steps 256] [--profiled 64]
 
-Runs the bench cell of chip_smoke.py (5,000 x 200, k_max 256, learned
-errors, full move mixture; 256 warm-up steps), then prints:
+Runs one cell of chip_smoke.py: "main", the bench cell (5,000 x 200, k_max
+256), or "large", the large-n cell (131,072 x 200, k_max 128, the
+streaming sweep); learned errors, full move mixture, `--warmup` steps
+first. Then prints:
   * per-step wall time by move kind (Gibbs / split / merge), each step
     ending in torch.cuda.synchronize();
   * a torch.profiler window: wall time, device self time and the device's
@@ -31,6 +34,8 @@ from bnpc_tpu_torch.mcmc import MCMCRunner  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", choices=("main", "large"), default="main")
+    ap.add_argument("--warmup", type=int, default=256)
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--profiled", type=int, default=64)
     args = ap.parse_args()
@@ -38,12 +43,20 @@ def main():
         raise SystemExit("profile_torch_step: no CUDA device")
     dev = "cuda"
     print(chip_smoke.nvidia_smi())
-    data, _ = chip_smoke.make_data(chip_smoke.N, chip_smoke.M, 10, 0.1)
-    cfg, mc = chip_smoke.bench_configs()
+    if args.cell == "main":
+        data, _ = chip_smoke.make_data(chip_smoke.N, chip_smoke.M, 10, 0.1)
+        cfg, mc = chip_smoke.bench_configs()
+    else:
+        data, _ = chip_smoke.make_data(chip_smoke.N_LARGE, chip_smoke.M, 20,
+                                       0.1)
+        cfg, mc = chip_smoke.bench_configs(chip_smoke.N_LARGE,
+                                           chip_smoke.K_LARGE)
+    print(f"cell {args.cell}: {cfg.n_cells} x {cfg.n_muts}, k_max "
+          f"{cfg.k_max}")
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev)
     state = runner.init_chains(TorchDraws(0, dev))
     draws = TorchDraws(1, dev)
-    state, _, draws = runner.run_block(state, draws, 256)
+    state, _, draws = runner.run_block(state, draws, args.warmup)
     torch.cuda.synchronize()
 
     step = runner._step

@@ -9,11 +9,15 @@ on ``key``. Test-only: it imports jax.
 
 from __future__ import annotations
 
+import functools
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from bnpc_tpu.models import gibbs as jgibbs
 from bnpc_tpu.ops import randomx as jrandomx
 from bnpc_tpu.ops import truncnorm as jtruncnorm
 from bnpc_tpu_torch.draws import Draws
@@ -24,6 +28,16 @@ from bnpc_tpu_torch.draws import Draws
 _beta_binary = jax.jit(jrandomx.beta_binary, static_argnums=(1, 2))
 _beta_general = jax.jit(jrandomx.beta_general)
 _truncnorm = jax.jit(jtruncnorm.rvs)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _fresh_rows(key, p, q, xm, xm0):
+    """bnpc_tpu's per-cell newborn rows (models/gibbs.py::fresh_row), one
+    per cell from fold_in(key, cell), as _hoisted_randomness draws them."""
+    data = types.SimpleNamespace(xm=xm, xm0=xm0)
+    cfg = types.SimpleNamespace(p=p, q=q)
+    return jax.vmap(lambda c: jgibbs.fresh_row(key, c, data, cfg))(
+        jnp.arange(xm.shape[0]))
 
 
 def to_torch(x) -> torch.Tensor:
@@ -85,6 +99,9 @@ class JaxDraws(Draws):
     def beta_binary(self, p, q, xm, xm0):
         return to_torch(_beta_binary(self.key, p, q, to_jax(xm),
                                      to_jax(xm0)))
+
+    def fresh_rows(self, p, q, xm, xm0):
+        return to_torch(_fresh_rows(self.key, p, q, to_jax(xm), to_jax(xm0)))
 
     def beta_general(self, a, b):
         return to_torch(_beta_general(self.key, to_jax(a), to_jax(b)))
