@@ -47,6 +47,10 @@ _SIGNATURES = {
     # z, gum, lf, fresh, aux, assign, perm, sizes, params, out, log_denom,
     # n, k_pad, m, stream
     "bnpc_eager_sweep": [_P] * 11 + [_I, _I, _I, _P],
+    # z, aux, assign, perm, sizes, tgt, info, log_denom, n, k_pad, stream
+    "bnpc_vecflow": [_P] * 8 + [_I, _I, _P],
+    # z, perm, sizes, out, info, n, k_pad, i0, stream
+    "bnpc_while_exit": [_P] * 5 + [_I, _I, _I, _P],
 }
 
 _lib = None

@@ -22,6 +22,16 @@ Phases (any failure exits non-zero, and no result line is printed):
                  eager_sweep   5,000 x 256 with lf [5,000, 5,000]: no birth,
                                two births back to back (the stale-prefetch
                                trap), a veto;
+                 vecflow       5,000 x 256 (the probe's shape): no birth, a
+                               birth mid-batch (the rest of the batch
+                               compared), a won new-cluster option with no
+                               free slot, and n 4,993 (z rows padded to
+                               5,000; the inert tail); also timed on
+                               lazy_stream's 131,072 x 128 Z beside
+                               lazy_segment there;
+                 while_exit    512 x 256 (the probe's shape): NaN sizes from
+                               0 (the probe verbatim), a birth from 0, a
+                               birth from position 200;
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager"): assignments, sizes and MH counts
@@ -40,20 +50,28 @@ Phases (any failure exits non-zero, and no result line is printed):
                and rg_scan launched and lazy_segment never;
   7. eager   — the step body with gibbs_impl="eager" at the bench
                configuration, 64 warm-up and 256 timed steps; the same
-               invariants, eager_sweep launched; steps/s beside phase 5's.
+               invariants, eager_sweep launched; steps/s beside phase 5's;
+  8. probes  — the two probes' entry points (bnpc_tpu_torch/probes/):
+               vecflow_probe.main() (vecflow against lazy_segment at 5,000
+               x 256) and while_probe.main() (the full no-birth run at 512 x
+               256 beside lazy_segment there, and one relaunch: alone, until
+               the call returns, and with its host read).
 
-Before each of phases 5-7 every kernel's launch counter is set to 0; the
-counters read after the phase are that path's launches. The last three lines
+Before each of phases 5-7, and before each probe in phase 8, every kernel's
+launch counter is set to 0; the counters read after it are that path's
+launches (the probes' paths are their main()s). The last three lines
 are the nvidia-smi line, a JSON line with one entry per kernel, and
 {"ok": true, "device": {...}}.
 """
 
 import json
-import subprocess
 import time
 import warnings
 
 import numpy as np
+
+from bnpc_tpu_torch.probes import card as nvidia_smi
+from bnpc_tpu_torch.probes import cuda_ms
 
 N, M, K_MAX = 5000, 200, 256
 N_LARGE, K_LARGE = 131072, 128
@@ -70,13 +88,6 @@ MIX = dict(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25, sm_steps=3)
 
 def log(msg):
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_data(n, m, k_clones, missing, seed=0, fp=0.001):
@@ -119,22 +130,6 @@ def bench_configs(n=N, k_max=K_MAX):
     return cfg, MCMCConfig(**MIX)
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of `fn` over `reps` runs, by CUDA events."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def bound(bytes_moved, ops):
     """(least ms, what bounds it): bytes over the HBM rate against float32
     operations over the float32 peak."""
@@ -153,9 +148,11 @@ def max_err(pairs) -> float:
 
 def kernel_modules():
     from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream, cuda_sweep
+    from bnpc_tpu_torch.probes import vecflow_probe, while_probe
 
     return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
-            "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep}
+            "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep,
+            "vecflow": vecflow_probe, "while_exit": while_probe}
 
 
 def reset_launches():
@@ -324,6 +321,7 @@ def phase_lazy_stream(dev):
                                                stream_k_pad)
     from bnpc_tpu_torch.ops.cuda_stream import (lazy_segment_stream,
                                                 lazy_segment_stream_ref)
+    from bnpc_tpu_torch.probes.vecflow_probe import BATCH, n_batches, vecflow
 
     n, k_pad = N_LARGE, stream_k_pad(K_LARGE)
     rng = np.random.default_rng(2)
@@ -381,6 +379,20 @@ def phase_lazy_stream(dev):
     buf = iter([sizes0.clone() for _ in range(21)])
     resident_ms = cuda_ms(lambda: lazy_segment(
         zp, auxp, assignp, perm, next(buf), tgt, info, 0, log_denom), 21)
+    # The vecflow probe on the same Z and permutation: equal targets, sizes
+    # and info to lazy_segment's, then its time.
+    tgt_v = torch.empty((n_batches(n), BATCH), device=dev)
+    info_v = torch.empty((1,), dtype=torch.int32, device=dev)
+    sizes_l, sizes_v = sizes0.clone(), sizes0.clone()
+    lazy_segment(zp, auxp, assignp, perm, sizes_l, tgt, info, 0, log_denom)
+    vecflow(zp, auxp, assignp, perm, sizes_v, tgt_v, info_v, log_denom)
+    if not (torch.equal(tgt_v.reshape(-1)[:n].to(torch.int32), tgt)
+            and torch.equal(sizes_v, sizes_l)
+            and int(info_v[0]) == int(info[0]) == n):
+        raise AssertionError("vecflow != lazy_segment on the 131,072-cell Z")
+    buf = iter([sizes0.clone() for _ in range(21)])
+    vecflow_ms = cuda_ms(lambda: vecflow(zp, auxp, assignp, perm, next(buf),
+                                         tgt_v, info_v, log_denom), 21)
     for i in range(2):  # twice more after the resident kernel: the spread
         buf = iter([sizes0.clone() for _ in range(21)])
         t = cuda_ms(lambda: lazy_segment_stream(zp, auxp, assignp, next(buf),
@@ -393,10 +405,11 @@ def phase_lazy_stream(dev):
     log(f"  lazy_stream full segment (n={n}, k_pad={k_pad}, Z "
         f"{4 * n * k_pad / 1e6:.1f} MB): kernel {ms:.4f} ms, plain twin "
         f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"lazy_segment on the same Z in cell order {resident_ms:.4f} ms")
+        f"lazy_segment on the same Z in cell order {resident_ms:.4f} ms, "
+        f"vecflow there {vecflow_ms:.4f} ms (targets equal)")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "resident_same_z_ms": resident_ms}
+            "resident_same_z_ms": resident_ms, "vecflow_same_z_ms": vecflow_ms}
 
 
 def phase_eager_sweep(dev):
@@ -471,6 +484,140 @@ def phase_eager_sweep(dev):
         OPS_PER_SLOT * N * k_pad)
     log(f"  eager_sweep no birth (n={N}, k_pad={k_pad}): kernel {ms:.4f} ms,"
         f" plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_vecflow(dev):
+    import torch
+
+    from bnpc_tpu_torch.probes.vecflow_probe import (BATCH, K_PAD, make_inputs,
+                                                     n_batches, vecflow,
+                                                     vecflow_ref)
+
+    def case(n, hot=(), free=True):
+        """The probe's input at n cells; aux +1e30 at the `hot` positions;
+        slots 20-23 free (size 0) unless `free` is False."""
+        z, aux, assign, perm, sizes, log_denom = make_inputs(n, K_PAD, dev)
+        aux[perm[list(hot)].long()] = 1e30
+        if free:
+            sizes[20:24] = 0.0
+        return (z, aux, assign, perm), sizes, log_denom
+
+    def run(fn, args, sizes0, log_denom):
+        n = args[3].shape[0]
+        sizes = sizes0.clone()
+        tgt = torch.full((n_batches(n), BATCH), -7.0, device=dev)
+        info = torch.zeros((1,), dtype=torch.int32, device=dev)
+        fn(*args, sizes, tgt, info, log_denom)
+        torch.cuda.synchronize()
+        return tgt, sizes, info
+
+    cases = {
+        # 12 live slots, aux -inf: the probe's main() input.
+        "no_birth": (case(N, free=False), N),
+        # A birth at position 2,600 (batch 20, position 40): the batch runs
+        # on, its later cells seeing the newborn, and the sweep ends there.
+        "birth_mid_batch": (case(N, hot=[2600]), 2600),
+        # The new-cluster option wins for 5 cells with no free slot: no
+        # birth (the probe has no veto output), the argmax instead.
+        "no_free_slot": (case(N, hot=range(5), free=False), N),
+        # z rows padded to 5,000; 121 inert tail positions in the last batch.
+        "ragged": (case(N - 7), N - 7),
+    }
+    pairs = []
+    for name, ((args, sizes0, log_denom), want) in cases.items():
+        (kt, ks, ki), (rt, rs, ri) = [run(fn, args, sizes0, log_denom)
+                                      for fn in (vecflow, vecflow_ref)]
+        if not (torch.equal(kt, rt) and torch.equal(ks, rs)
+                and torch.equal(ki, ri)) or int(ki[0]) != want:
+            raise AssertionError(f"vecflow {name}: kernel info {ki.tolist()}"
+                                 f" twin {ri.tolist()}, targets or sizes "
+                                 "differ")
+        rows = int((kt[:, 0] != -7.0).sum())
+        pairs += [(kt, rt), (ks, rs), (ki, ri)]
+        log(f"  vecflow {name} (n={args[3].shape[0]}, k_pad={K_PAD}): info "
+            f"{ki.tolist()}, {rows} batches written — kernel == twin")
+
+    (args, sizes0, log_denom), _ = cases["no_birth"]
+    tgt = torch.empty((n_batches(N), BATCH), device=dev)
+    info = torch.empty((1,), dtype=torch.int32, device=dev)
+    buf = iter([sizes0.clone() for _ in range(21)])
+    ms = cuda_ms(lambda: vecflow(*args, next(buf), tgt, info, log_denom), 21)
+    plain_ms = cuda_ms(lambda: vecflow_ref(*args, sizes0.clone(), tgt, info,
+                                           log_denom), 3)
+    # Every cell: its z row, aux, assign and perm entries in; the sizes row
+    # in and out; the [nb, 128] targets and info out. Every position of the
+    # batches (the inert tail included) takes the per-slot step.
+    positions = n_batches(N) * BATCH
+    bound_ms, bound_by = bound(
+        4 * (N * K_PAD + 3 * N + 2 * K_PAD + positions + 1),
+        OPS_PER_SLOT * positions * K_PAD)
+    log(f"  vecflow full sweep (n={N}, k_pad={K_PAD}): kernel {ms:.4f} ms, "
+        f"plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_while_exit(dev):
+    import torch
+
+    from bnpc_tpu_torch.probes.while_probe import (K_PAD, N, make_inputs,
+                                                   while_exit, while_exit_ref)
+
+    z, perm, sizes_fin = make_inputs(N, K_PAD, dev)
+    perm_h = perm.cpu().numpy()
+
+    def birth_case(i0, pos):
+        """Finite sizes with slot 0 empty, and z[perm[pos], 0] large: the
+        first birth is at position `pos`, into slot 0."""
+        zb = z.clone()
+        zb[int(perm_h[pos]), 0] = 50.0
+        sizes = sizes_fin.clone()
+        sizes[0] = 0.0
+        return zb, sizes, i0, [pos + 1, int(perm_h[pos]), -1, -1]
+
+    cases = {
+        # The TPU probe verbatim: its sizes output unwritten (NaN).
+        "verbatim": (z, torch.full((K_PAD,), float("nan"), device=dev), 0,
+                     [N, -1, -1, -1]),
+        "birth": birth_case(0, 100),
+        "late_i0": birth_case(200, 350),
+    }
+    pairs = []
+    for name, (zc, sizes0, i0, want) in cases.items():
+        outs = []
+        for fn in (while_exit, while_exit_ref):
+            sizes = sizes0.clone()
+            out = torch.full((N,), -7, dtype=torch.int32, device=dev)
+            info = torch.zeros((4,), dtype=torch.int32, device=dev)
+            fn(zc, perm, sizes, out, info, i0)
+            torch.cuda.synchronize()
+            outs.append((out, sizes, info))
+        (ko, ks, ki), (ro, rs, ri) = outs
+        if not (torch.equal(ko, ro) and torch.equal(ki, ri)) \
+                or ki.tolist() != want:
+            raise AssertionError(f"while_exit {name}: kernel info "
+                                 f"{ki.tolist()} twin {ri.tolist()}, "
+                                 f"expected {want}, or targets differ")
+        torch.testing.assert_close(ks, rs, rtol=0, atol=0, equal_nan=True)
+        pairs += [(ko, ro), (ki, ri)]
+        log(f"  while_exit {name} (n={N}, k_pad={K_PAD}, from {i0}): info "
+            f"{ki.tolist()} — kernel == twin")
+
+    out = torch.empty((N,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    buf = iter([sizes_fin.clone() for _ in range(21)])
+    ms = cuda_ms(lambda: while_exit(z, perm, next(buf), out, info, 0), 21)
+    plain_ms = cuda_ms(lambda: while_exit_ref(z, perm, sizes_fin.clone(), out,
+                                              info, 0), 3)
+    # No birth, from 0: every cell's z row and perm entry in, its target
+    # out; the sizes row in and out; five float operations per slot.
+    bound_ms, bound_by = bound(4 * (N * K_PAD + 2 * N + 2 * K_PAD + 4),
+                               5 * N * K_PAD)
+    log(f"  while_exit full no-birth run (n={N}, k_pad={K_PAD}): kernel "
+        f"{ms:.4f} ms, plain twin {plain_ms:.1f} ms, bound {bound_ms:.6f} ms "
         f"({bound_by})")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -685,6 +832,25 @@ def phase_eager(dev):
                       N, K_MAX, truth, "eager_sweep")
 
 
+def phase_probes():
+    """Each probe's main() on the card, its launch counters set to 0
+    before it: each runs its own kernel and lazy_segment."""
+    from bnpc_tpu_torch.probes import vecflow_probe, while_probe
+
+    out = {}
+    for name, mod, used in (("vecflow", vecflow_probe,
+                             {"vecflow", "lazy_segment"}),
+                            ("while_exit", while_probe,
+                             {"while_exit", "lazy_segment"})):
+        reset_launches()
+        res = mod.main([])
+        launches = read_launches()
+        check_launches(f"probe {name}", launches, used)
+        out[name] = {**res, "launches_path": launches}
+        log(f"  launches on this path: {launches}")
+    return out
+
+
 def main():
     import torch
 
@@ -692,43 +858,50 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/7] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/8] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    import bnpc_tpu_torch  # noqa: F401  (precision pins)
     from bnpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/7] build: {time.perf_counter() - t0:.1f} s "
+    log(f"[2/8] build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/7] kernels against their plain twins (exact match)")
+    log("[3/8] kernels against their plain twins (exact match)")
     k = {"lazy_segment": phase_lazy_segment(dev),
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
-         "eager_sweep": phase_eager_sweep(dev)}
-    log("[4/7] small input: GPU against CPU on identical draws")
+         "eager_sweep": phase_eager_sweep(dev),
+         "vecflow": phase_vecflow(dev),
+         "while_exit": phase_while_exit(dev)}
+    log("[4/8] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager"):
         phase_small(dev, impl)
-    log(f"[5/7] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    log(f"[5/8] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} ({smi})")
     main_out = phase_main(dev)
-    log(f"[6/7] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+    log(f"[6/8] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
         f"{K_LARGE} ({smi})")
     large_out = phase_large(dev)
-    log(f"[7/7] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+    log(f"[7/8] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
         f"{K_MAX} ({smi})")
     eager_out = phase_eager(dev)
     log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
         f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
         "configuration")
+    log(f"[8/8] probes: their entry points on the card ({smi})")
+    probes = phase_probes()
 
-    path_launches = {"lazy_segment": main_out, "rg_scan": main_out,
-                     "lazy_stream": large_out, "eager_sweep": eager_out}
+    path_launches = {"lazy_segment": main_out["launches_path"],
+                     "rg_scan": main_out["launches_path"],
+                     "lazy_stream": large_out["launches_path"],
+                     "eager_sweep": eager_out["launches_path"],
+                     "vecflow": probes["vecflow"]["launches_path"],
+                     "while_exit": probes["while_exit"]["launches_path"]}
     meta = {
         "lazy_segment": ("bnpc_tpu_torch/csrc/lazy_segment.cu",
                          "bnpc_tpu/ops/pallas_gibbs.py:316"),
@@ -738,10 +911,14 @@ def main():
                         "bnpc_tpu/ops/pallas_gibbs.py:521"),
         "eager_sweep": ("bnpc_tpu_torch/csrc/sweep.cu",
                         "bnpc_tpu/ops/pallas_gibbs.py:78"),
+        "vecflow": ("bnpc_tpu_torch/csrc/vecflow_probe.cu",
+                    "benchmarks/vecflow_probe.py:36"),
+        "while_exit": ("bnpc_tpu_torch/csrc/while_probe.cu",
+                       "benchmarks/mosaic_while_probe.py:22"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path_launches[name]["launches_path"][name],
+         "launches": path_launches[name][name],
          "max_abs_err": k[name]["max_abs_err"], "ms": k[name]["ms"],
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
@@ -752,7 +929,11 @@ def main():
         for name, out in (("main", main_out), ("large", large_out),
                           ("eager", eager_out))},
         "lazy_segment_on_stream_z_ms": k["lazy_stream"][
-            "resident_same_z_ms"]}))
+            "resident_same_z_ms"],
+        "vecflow_on_stream_z_ms": k["lazy_stream"]["vecflow_same_z_ms"],
+        "probes": {name: {f: v for f, v in out.items()
+                          if f != "launches_path"}
+                   for name, out in probes.items()}}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     # The port runs on one device.

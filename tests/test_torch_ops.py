@@ -215,12 +215,14 @@ def test_import_keeps_jax_out():
     code = (
         "import sys\n"
         "import bnpc_tpu_torch, bnpc_tpu_torch.mcmc, bnpc_tpu_torch.convert\n"
+        "import bnpc_tpu_torch.probes.vecflow_probe\n"
+        "import bnpc_tpu_torch.probes.while_probe\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'bnpc_tpu')]\n"
+        "('jax', 'jaxlib', 'bnpc_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
