@@ -17,12 +17,19 @@
 //
 // What bounds it: the serial dependency chain through `sizes`, i.e. latency
 // per cell, not bandwidth (z is 5 MB at 5,000 x 256 and stays in L2; each
-// cell reads one 1 KB row). Design: ONE warp. Each lane owns k_pad/32 slots
-// of the sizes row in registers (lane l owns slots l, l+32, ...), so a z
-// row load is coalesced; best/free/idx are warp-shuffle reductions (the
-// index-mins keep the first-lane tie-break and the first free slot). The
-// next cell's perm/assign/aux/z-row loads are issued one cell ahead, since
-// they do not depend on the carried sizes. The TPU kernel's 128-lane
+// cell reads one 1 KB row). Design: ONE warp running the per-cell step of
+// gibbs_common.cuh (the sizes row and its cached log weights in registers,
+// lane l owning slots l, l+32, ...; best logit and first index as two
+// redux.sync reductions). Nothing a cell reads but the sizes depends
+// on the cells before it, and perm is known ahead, so every load is taken
+// off the chain: perm comes in 32-position chunks, one chunk ahead, with
+// assign[perm] and aux[perm] gathered behind it (a lane per position, read
+// back by warp shuffle), and a cp.async ring keeps the rows
+// z[perm[i + 1 .. i + kRing - 1]] in flight in shared memory, which also
+// hides the row's miss where z exceeds L2. The loop is software-pipelined
+// by hand: iteration i reads position i + 1's row, aux and removed slot into
+// registers, so the step starts on registers and its loads fill the waits
+// of the chain. The TPU kernel's 128-lane
 // vector-flow batching is not carried over: it only existed because Mosaic
 // is slow at crossing from vector to scalar.
 //
@@ -30,26 +37,28 @@
 // math: the logits must use the accurate logf of the plain torch twin,
 // bnpc_tpu_torch/ops/cuda_gibbs.py::lazy_segment_ref).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "gibbs_common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using namespace bnpc;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ int warp_min(int x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = min(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
+// perm, and assign / aux gathered through it, of 32 consecutive positions:
+// lane l holds position base + l.
+struct Chunk {
+  int cell;
+  int o;
+  float a;
+  __device__ __forceinline__ void load(const int* __restrict__ perm,
+                                       const int* __restrict__ assign,
+                                       const float* __restrict__ aux,
+                                       int base, int n, int lane) {
+    const int p = base + lane;
+    cell = p < n ? perm[p] : 0;
+    o = p < n ? assign[cell] : 0;
+    a = p < n ? aux[cell] : 0.f;
+  }
+};
 
 template <int SPL>  // slots per lane; k_pad = 32 * SPL
 __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
@@ -62,86 +71,89 @@ __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
     int* __restrict__ info,            // [4]
     const float* __restrict__ log_denom_p, int n, int i0) {
   constexpr int K = 32 * SPL;
+  __shared__ __align__(16) float ring[kRing][K];
   const int lane = threadIdx.x;
-  const float log_denom = *log_denom_p;
 
-  float sz[SPL];
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) sz[s] = sizes[s * 32 + lane];
+  Chain<SPL> c;
+  chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
 
   int veto = 0, birth_pos = -1, birth_cell = -1, birth_slot = -1;
-
-  int cell = 0, old = 0;
-  float a = 0.f, v[SPL];
   if (i0 < n) {
-    cell = perm[i0];
-    old = assign[cell];
-    a = aux[cell];
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = z[(size_t)cell * K + s * 32 + lane];
-  }
+    int cb = i0 & ~31;
+    Chunk cur, nxt;
+    cur.load(perm, assign, aux, cb, n, lane);
+    nxt.load(perm, assign, aux, cb + 32, n, lane);
 
-  for (int i = i0; i < n; ++i) {
-    // Prefetch the next cell: independent of the carried sizes.
-    int cell_n = 0, old_n = 0;
-    float a_n = 0.f, v_n[SPL];
-    if (i + 1 < n) {
-      cell_n = perm[i + 1];
-      old_n = assign[cell_n];
-      a_n = aux[cell_n];
+    // Rows of positions i0 .. i0 + kRing - 2 in flight, one commit group
+    // per row (a position past n reads cell 0's row, so that no copy sits
+    // behind a branch). Iteration i issues the row of position
+    // i + kRing - 1 into the ring slot of position i - 1's row, which
+    // iteration i - 2 read into registers.
+    const unsigned ring_s =
+        (unsigned)__cvta_generic_to_shared(&ring[0][lane]);
+    constexpr unsigned kRowBytes = K * sizeof(float);
+    const float* z_lane = z + lane;
+    for (int d = 0; d < kRing - 1; ++d) {
+      const int r = i0 + d;
+      const int cell_r = pair_at(cur.cell, nxt.cell, r - cb);
+      issue_row_full<SPL>(ring_s + (unsigned)r % kRing * kRowBytes,
+                          z_lane + (size_t)cell_r * K);
+      cp_async_commit();
+    }
+    chain_remove_first<SPL>(c, __shfl_sync(kFull, cur.o, i0 - cb), lane);
+
+    // What position i needs is in registers before its iteration starts:
+    // its row v, its aux a and the slot old_next that position i + 1 leaves
+    // (0 past n).
+    float a = __shfl_sync(kFull, cur.a, i0 - cb);
+    int old_next = pair_at(cur.o, nxt.o, i0 + 1 - cb);
+    float v[SPL];
+    cp_async_wait<kRing - 2>();  // row i0 has landed (this lane's part)
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) v[s] = ring[i0 % kRing][s * 32 + lane];
+
+    for (int i = i0;; ++i) {
+      if (i - cb == 32) {  // once in 32 positions, before the block below
+        cb = i;
+        cur = nxt;
+        nxt.load(perm, assign, aux, cb + 32, n, lane);
+      }
+      __syncwarp();
+      const int r = i + kRing - 1;
+      const int cell_r = pair_at(cur.cell, nxt.cell, r - cb);
+      issue_row_full<SPL>(ring_s + (unsigned)r % kRing * kRowBytes,
+                          z_lane + (size_t)cell_r * K);
+      cp_async_commit();
+      const float a_n = pair_at(cur.a, nxt.a, i + 1 - cb);
+      const int old_n2 = pair_at(cur.o, nxt.o, i + 2 - cb);
+      cp_async_wait<kRing - 2>();  // position i + 1's row has landed
+      float v_n[SPL];
 #pragma unroll
       for (int s = 0; s < SPL; ++s)
-        v_n[s] = z[(size_t)cell_n * K + s * 32 + lane];
+        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
+
+      // Remove/add of libs/CRP.py:262-299, the next cell's removal folded
+      // in.
+      const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, true,
+                                     lane);
+      veto |= (p.cand && !p.is_new) ? 1 : 0;
+      if (lane == 0) tgt_out[i] = p.t;
+      if (p.is_new) {
+        birth_pos = i;
+        birth_cell = __shfl_sync(kFull, cur.cell, i - cb);
+        birth_slot = p.t;
+        break;
+      }
+      if (i + 1 >= n) break;
+      a = a_n;
+      old_next = old_n2;
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
     }
-
-    // Remove the cell from its cluster (libs/CRP.py:262-266).
-#pragma unroll
-    for (int s = 0; s < SPL; ++s)
-      if (s * 32 + lane == old) sz[s] -= 1.f;
-
-    float logit[SPL];
-    float best = -CUDART_INF_F;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) {
-      logit[s] = v[s] + (logf(fmaxf(sz[s], 0.f)) - log_denom);
-      best = fmaxf(best, logit[s]);
-    }
-    best = warp_max(best);
-
-    int free_l = K, idx_l = K;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) {
-      const int slot = s * 32 + lane;
-      if (sz[s] == 0.f) free_l = min(free_l, slot);
-      if (logit[s] == best) idx_l = min(idx_l, slot);
-    }
-    const int free_slot = warp_min(free_l);
-    const int idx = warp_min(idx_l);
-
-    const bool cand = a > best;
-    const bool is_new = cand && free_slot < K;
-    veto |= (cand && free_slot >= K) ? 1 : 0;
-    const int t = is_new ? free_slot : idx;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s)
-      if (s * 32 + lane == t) sz[s] += 1.f;
-    if (lane == 0) tgt_out[i] = t;
-
-    if (is_new) {
-      birth_pos = i;
-      birth_cell = cell;
-      birth_slot = t;
-      break;
-    }
-    cell = cell_n;
-    old = old_n;
-    a = a_n;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
+    cp_async_wait_all();
   }
 
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) sizes[s * 32 + lane] = sz[s];
+  chain_store<SPL>(c, sizes, K, lane);
   if (lane == 0) {
     info[0] = birth_pos >= 0 ? birth_pos + 1 : n;
     info[1] = birth_cell;

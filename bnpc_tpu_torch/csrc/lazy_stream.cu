@@ -14,12 +14,16 @@
 // What bounds it: the serial chain through the sizes row (latency per
 // cell), and, where Z exceeds the 50 MB L2 (131,072 x 128 x 4 B = 67 MB),
 // the HBM latency of each row. What the design does about each:
-//   * the chain: one warp, the sizes row in registers (k_pad <= 1024),
-//     best/free/idx as warp-shuffle reductions, as in lazy_segment.cu;
+//   * the chain: one warp, the sizes row and its cached log weights in
+//     registers (k_pad <= 1024), best logit and first index as two
+//     redux.sync reductions (gibbs_common.cuh::chain_step);
 //   * the row latency: in visit order the next rows' addresses are known,
 //     so a cp.async ring keeps kRing - 1 rows in flight in shared memory;
 //     aux and assign come in 32-position chunks, one chunk ahead, in
-//     registers (a lane per position, read back by warp shuffle).
+//     registers (a lane per position, read back by warp shuffle); and the
+//     loop is software-pipelined by hand: iteration i reads position
+//     i + 1's row, aux and removed slot into registers, so the step starts
+//     on registers and its loads fill the waits of the chain.
 // Above 1024 slots the sizes row lives in shared memory (up to 58,112
 // slots) and rows are read straight from global memory, with the next row
 // prefetched into L2.
@@ -37,28 +41,6 @@
 namespace {
 
 using namespace bnpc;
-
-constexpr int kRing = 8;  // rows in the shared-memory ring
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // aux/assign of 32 consecutive positions, lane l holding position base + l.
 struct Chunk {
@@ -81,15 +63,6 @@ __device__ __forceinline__ void write_info(int* info, int n, int birth_pos,
   info[3] = veto;
 }
 
-// This lane's part of one row into the ring, unpredicated (row_cols).
-template <int SPL>
-__device__ __forceinline__ void issue_row(float* dst,
-                                          const float* __restrict__ src,
-                                          const int (&col)[SPL], int lane) {
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) cp_async4(dst + s * 32 + lane, src + col[s]);
-}
-
 template <int SPL>  // register layout; k_pad <= 32 * SPL
 __global__ void __launch_bounds__(32, 1) stream_reg_kernel(
     const float* __restrict__ zp,      // [n, k_pad] visit order
@@ -101,67 +74,83 @@ __global__ void __launch_bounds__(32, 1) stream_reg_kernel(
     const float* __restrict__ log_denom_p, int n, int k_pad, int i0) {
   __shared__ __align__(16) float ring[kRing][32 * SPL];
   const int lane = threadIdx.x;
-  const float log_denom = *log_denom_p;
 
-  float sz[SPL];
+  Chain<SPL> c;
+  chain_init<SPL>(c, sizes, k_pad, *log_denom_p, lane);
   int col[SPL];
   row_cols<SPL>(col, k_pad, lane);
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    const int slot = s * 32 + lane;
-    sz[s] = slot < k_pad ? sizes[slot] : -1.f;
-  }
-
-  // Rows i0 .. i0 + kRing - 2 in flight, one commit group per row (empty
-  // past n). Iteration i issues row i + kRing - 1 into the ring slot that
-  // iteration i - 1 consumed: that iteration's branch on its pick has
-  // resolved, so its shared-memory reads are complete.
-  for (int d = 0; d < kRing - 1; ++d) {
-    const int r = i0 + d;
-    if (r < n) issue_row<SPL>(ring[r % kRing], zp + (size_t)r * k_pad, col,
-                              lane);
-    cp_async_commit();
-  }
-  int cb = i0 & ~31;
-  Chunk cur, nxt;
-  cur.load(auxp, assignp, cb, n, lane);
-  nxt.load(auxp, assignp, cb + 32, n, lane);
 
   int veto = 0, birth_pos = -1, birth_slot = -1;
-  for (int i = i0; i < n; ++i) {
-    const int r = i + kRing - 1;
-    if (r < n) issue_row<SPL>(ring[r % kRing], zp + (size_t)r * k_pad, col,
-                              lane);
-    cp_async_commit();
-    if (i - cb == 32) {
-      cb = i;
-      cur = nxt;
-      nxt.load(auxp, assignp, cb + 32, n, lane);
+  if (i0 < n) {
+    // Rows i0 .. i0 + kRing - 2 in flight, one commit group per row. A row
+    // past the end is the last row again (rowp stops), so that no copy sits
+    // behind a branch. Iteration i issues row r = i + kRing - 1 into the
+    // ring slot of row i - 1, which iteration i - 2 read into registers.
+    const unsigned ring_s =
+        (unsigned)__cvta_generic_to_shared(&ring[0][lane]);
+    constexpr unsigned kRowBytes = 32 * SPL * sizeof(float);
+    const float* rowp = zp + (size_t)i0 * k_pad;  // the next row to issue
+    int r = i0;
+    for (int d = 0; d < kRing - 1; ++d) {
+      issue_row<SPL>(ring_s + (unsigned)r % kRing * kRowBytes, rowp, col);
+      cp_async_commit();
+      rowp += r + 1 < n ? k_pad : 0;
+      ++r;
     }
-    const float a = __shfl_sync(kFull, cur.a, i - cb);
-    const int old = __shfl_sync(kFull, cur.o, i - cb);
+    int cb = i0 & ~31;
+    Chunk cur, nxt;
+    cur.load(auxp, assignp, cb, n, lane);
+    nxt.load(auxp, assignp, cb + 32, n, lane);
+    chain_remove_first<SPL>(c, __shfl_sync(kFull, cur.o, i0 - cb), lane);
 
-    cp_async_wait<kRing - 1>();  // row i has landed (this lane's part)
-    const float* row = ring[i % kRing];
+    // What position i needs is in registers before its iteration starts:
+    // its row v, its aux a and the slot old_next that position i + 1 leaves
+    // (0 past n).
+    float a = __shfl_sync(kFull, cur.a, i0 - cb);
+    int old_next = pair_at(cur.o, nxt.o, i0 + 1 - cb);
     float v[SPL];
+    cp_async_wait<kRing - 2>();  // row i0 has landed (this lane's part)
 #pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = row[s * 32 + lane];
-    const Pick p = pick_reg<SPL>(sz, v, old, a, log_denom, lane);
-    veto |= (p.cand && !p.is_new) ? 1 : 0;
-    if (lane == 0) tgt_out[i] = p.t;
-    if (p.is_new) {
-      birth_pos = i;
-      birth_slot = p.t;
-      break;
-    }
-  }
-  cp_async_wait_all();
+    for (int s = 0; s < SPL; ++s) v[s] = ring[i0 % kRing][s * 32 + lane];
 
+    for (int i = i0;; ++i) {
+      if (i - cb == 32) {  // once in 32 positions, before the block below
+        cb = i;
+        cur = nxt;
+        nxt.load(auxp, assignp, cb + 32, n, lane);
+      }
+      __syncwarp();
+      issue_row<SPL>(ring_s + (unsigned)r % kRing * kRowBytes, rowp, col);
+      cp_async_commit();
+      rowp += r + 1 < n ? k_pad : 0;
+      ++r;
+      const float a_n = pair_at(cur.a, nxt.a, i + 1 - cb);
+      const int old_n2 = pair_at(cur.o, nxt.o, i + 2 - cb);
+      cp_async_wait<kRing - 2>();  // row i + 1 has landed
+      float v_n[SPL];
 #pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    const int slot = s * 32 + lane;
-    if (slot < k_pad) sizes[slot] = sz[s];
+      for (int s = 0; s < SPL; ++s)
+        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
+
+      const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, true,
+                                     lane);
+      veto |= (p.cand && !p.is_new) ? 1 : 0;
+      if (lane == 0) tgt_out[i] = p.t;
+      if (p.is_new) {
+        birth_pos = i;
+        birth_slot = p.t;
+        break;
+      }
+      if (i + 1 >= n) break;
+      a = a_n;
+      old_next = old_n2;
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
+    }
+    cp_async_wait_all();
   }
+
+  chain_store<SPL>(c, sizes, k_pad, lane);
   if (lane == 0) write_info(info, n, birth_pos, birth_slot, veto);
 }
 

@@ -16,10 +16,14 @@
 // What bounds it: the serial chain per cell (one warp, latency bound, as
 // lazy_segment.cu), plus O(n) strided loads and stores per birth (a column
 // of lf and gum in, a column of z out). Design: the sizes row in registers
-// (k_pad <= 1024, lane l owns slots l, l+32, ...) or in shared memory
-// (k_pad up to 58,112); the next cell's perm/assign/aux/z row are loaded
-// one cell ahead. Two traps: (1) the lanes that write the patched column
-// are not the lanes that later read those rows, so the patch ends in
+// (k_pad <= 1024, lane l owns slots l, l+32, ..., with the cached log
+// weights of gibbs_common.cuh::chain_step) or in shared memory (k_pad up to
+// 58,112); the next cell's perm/assign/aux/z row are loaded one cell ahead.
+// What the step caches (w, wp) follows the sizes only, never z, so a birth's
+// patch of a z column leaves it valid; a cache of anything read from z
+// would have to be refreshed after patch_birth. Two traps: (1) the lanes
+// that write the patched column are not the lanes that later read those
+// rows, so the patch ends in
 // __syncwarp(), which orders memory among the warp, and z is read with
 // plain (coherent) loads, never through the read-only path; (2) the row
 // prefetched for the next cell predates the patch, so after a birth its
@@ -69,22 +73,17 @@ __global__ void __launch_bounds__(32, 1) sweep_reg_kernel(
     int* __restrict__ assign_out,      // [n] cell order
     const float* __restrict__ log_denom_p, int n, int k_pad, int m) {
   const int lane = threadIdx.x;
-  const float log_denom = *log_denom_p;
 
-  float sz[SPL];
+  Chain<SPL> c;
+  chain_init<SPL>(c, sizes, k_pad, *log_denom_p, lane);
   int col[SPL];
   row_cols<SPL>(col, k_pad, lane);
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    const int slot = s * 32 + lane;
-    sz[s] = slot < k_pad ? sizes[slot] : -1.f;
-  }
 
-  int cell = 0, old = 0;
+  int cell = 0;
   float a = 0.f, v[SPL];
   if (n > 0) {
     cell = perm[0];
-    old = assign[cell];
+    chain_remove_first<SPL>(c, assign[cell], lane);
     a = aux[cell];
     load_row<SPL>(v, z, cell, k_pad, col);
   }
@@ -97,7 +96,8 @@ __global__ void __launch_bounds__(32, 1) sweep_reg_kernel(
       a_n = aux[cell_n];
       load_row<SPL>(v_n, z, cell_n, k_pad, col);
     }
-    const Pick p = pick_reg<SPL>(sz, v, old, a, log_denom, lane);
+    // The sweep runs on past a birth: the step always removes the next cell.
+    const Pick p = chain_step<SPL>(c, v, a, old_n, i + 1 < n, false, lane);
     if (p.is_new) {
       patch_birth(z, gum, lf, fresh, params, n, k_pad, m, cell, p.t, lane);
       // The next cell's row predates the patch: its owner lane sets element
@@ -110,17 +110,12 @@ __global__ void __launch_bounds__(32, 1) sweep_reg_kernel(
     }
     if (lane == 0) assign_out[cell] = p.t;
     cell = cell_n;
-    old = old_n;
     a = a_n;
 #pragma unroll
     for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
   }
 
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    const int slot = s * 32 + lane;
-    if (slot < k_pad) sizes[slot] = sz[s];
-  }
+  chain_store<SPL>(c, sizes, k_pad, lane);
 }
 
 // Shared-memory layout for k_pad > 1024: rows are read straight from z

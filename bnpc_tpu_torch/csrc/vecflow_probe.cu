@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel benchmarks/vecflow_probe.py::_vecflow_kernel
 // (called through vecflow). It runs the per-cell step of lazy_segment.cu
-// (gibbs_common.cuh::pick_reg) over positions 0, 1, ... in batches of 128:
+// (gibbs_common.cuh::chain_step) over positions 0, 1, ... in batches of 128:
 //
 //   * a position i >= n in the last batch is inert: it reads
 //     cell = perm[n - 1], removes nothing, cannot give birth, and its target
@@ -14,9 +14,10 @@
 //   * tgt_out [nb, 128] f32 receives the targets of every batch run (later
 //     rows are not written), info[0] the first birth's position, or n.
 //
-// What bounds it: the serial chain through `sizes` (three warp reductions a
-// cell), as in lazy_segment.cu; not bandwidth. The design carries the TPU
-// probe's ideas to this card: lane l holds the targets of the batch's
+// What bounds it: the serial chain through `sizes` (two dependent warp
+// reductions a cell), as in lazy_segment.cu; not bandwidth. The design
+// carries the TPU probe's ideas to this card: lane l holds the targets of
+// the batch's
 // positions 4l .. 4l+3 in registers and writes them with one 16-byte store
 // per batch (one coalesced 512-byte store), not one store per cell; the
 // batch's perm, assign and aux entries come in one batch ahead, four a lane,
@@ -65,23 +66,12 @@ __device__ __forceinline__ void load_batch(Batch& bt, const int* perm,
 
 // First slot holding the best logit, sizes unchanged (an inert position).
 template <int SPL>
-__device__ __forceinline__ int first_argmax(const float (&sz)[SPL],
-                                            const float (&v)[SPL],
-                                            float log_denom, int lane) {
-  constexpr int K = 32 * SPL;
-  float logit[SPL];
-  float best = -CUDART_INF_F;
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    logit[s] = bnpc::logit_of(v[s], sz[s], log_denom);
-    best = fmaxf(best, logit[s]);
-  }
-  best = bnpc::warp_max(best);
-  int idx_l = K;
-#pragma unroll
-  for (int s = 0; s < SPL; ++s)
-    if (logit[s] == best) idx_l = min(idx_l, s * 32 + lane);
-  return bnpc::warp_min(idx_l);
+__device__ __forceinline__ int first_argmax(const bnpc::Chain<SPL>& c,
+                                            const float (&v)[SPL], int lane) {
+  float best;
+  int idx;
+  bnpc::best_and_first<SPL>(c, v, lane, best, idx);
+  return idx;
 }
 
 template <int SPL>  // slots per lane; k_pad = 32 * SPL
@@ -96,15 +86,14 @@ __global__ void __launch_bounds__(32, 1) vecflow_kernel(
     const float* __restrict__ log_denom_p, int n) {
   constexpr int K = 32 * SPL;
   const int lane = threadIdx.x;
-  const float log_denom = *log_denom_p;
   const int nb = (n + kBatch - 1) / kBatch;
 
-  float sz[SPL];
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) sz[s] = sizes[s * 32 + lane];
+  bnpc::Chain<SPL> c;
+  bnpc::chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
 
   Batch cur, nxt;
   load_batch(cur, perm, assign, aux, 0, n, lane);
+  bnpc::chain_remove_first<SPL>(c, __shfl_sync(kFull, cur.old[0], 0), lane);
   float v[SPL];
   {
     const int cell0 = __shfl_sync(kFull, cur.cell[0], 0);
@@ -131,17 +120,23 @@ __global__ void __launch_bounds__(32, 1) vecflow_kernel(
         for (int s = 0; s < SPL; ++s)
           v_n[s] = z[(size_t)cell_n * K + s * 32 + lane];
 
-        const int old = __shfl_sync(kFull, cur.old[r], q);
+        // The next position's slot: the step removes it, and runs on past
+        // a birth, but not past the end of a birth's batch, where the sweep
+        // ends.
+        const bool last = q == 31 && r == kPerLane - 1;
+        const int old_n = nq < 32 ? __shfl_sync(kFull, cur.old[nr], nq)
+                                  : __shfl_sync(kFull, nxt.old[0], 0);
         const float a = __shfl_sync(kFull, cur.a[r], q);
         int t;
         bool is_new = false;
         if (i < n) {
-          const bnpc::Pick p = bnpc::pick_reg<SPL>(sz, v, old, a, log_denom,
-                                                   lane);
+          const bool has_next = i + 1 < n && !(last && bpos < kNoBirth);
+          const bnpc::Pick p = bnpc::chain_step<SPL>(c, v, a, old_n, has_next,
+                                                     last, lane);
           t = p.t;
           is_new = p.is_new;
         } else {
-          t = first_argmax<SPL>(sz, v, log_denom, lane);
+          t = first_argmax<SPL>(c, v, lane);
         }
         if (lane == q) w[r] = (float)t;
         bpos = fminf(bpos, is_new ? (float)i : kNoBirth);
@@ -154,8 +149,7 @@ __global__ void __launch_bounds__(32, 1) vecflow_kernel(
     cur = nxt;
   }
 
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) sizes[s * 32 + lane] = sz[s];
+  bnpc::chain_store<SPL>(c, sizes, K, lane);
   if (lane == 0) info[0] = bpos >= kNoBirth ? n : (int)bpos;
 }
 

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "bnpc_vecflow": [_P] * 8 + [_I, _I, _P],
     # z, perm, sizes, out, info, n, k_pad, i0, stream
     "bnpc_while_exit": [_P] * 5 + [_I, _I, _I, _P],
+    # seed, out, iters, stream
+    "bnpc_chain_probe": [_P, _P, _I, _P],
 }
 
 _lib = None

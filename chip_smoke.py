@@ -12,13 +12,21 @@ Phases (any failure exits non-zero, and no result line is printed):
   3. kernels — each kernel against its plain torch twin on the card, at its
                path's shapes; outputs must match exactly; prints each
                kernel's median time beside its twin's and its bound:
-                 lazy_segment  5,000 x 256: no birth, a birth, a veto;
+                 lazy_segment  5,000 x 256: no birth, a birth, a veto; and
+                               crafted 300-cell sweeps from position 37 at
+                               k_pad 32 ... 1,024 (a tie for the best logit
+                               across lanes and within a lane, -0.0 against
+                               +0.0, a cell whose logits are all -inf, a
+                               death to size 0 and a later birth into the
+                               freed slot);
                  rg_scan       5,000 cells: s_count 0, 1, 37, 5,000;
                  lazy_stream   131,072 x 128 over the last 8,192 positions:
                                no birth, a birth, a veto; and k_max 2,000
                                (the shared-memory sizes row) at 4,096
                                cells; timed over the full segment beside
-                               lazy_segment on the same Z in cell order;
+                               lazy_segment on the same Z in cell order; the
+                               crafted sweeps at k_pad 32 ... 1,024 and at
+                               96, 160 and 992 (masked slots);
                  eager_sweep   5,000 x 256 with lf [5,000, 5,000]: no birth,
                                two births back to back (the stale-prefetch
                                trap), a veto;
@@ -55,7 +63,10 @@ Phases (any failure exits non-zero, and no result line is printed):
                vecflow_probe.main() (vecflow against lazy_segment at 5,000
                x 256) and while_probe.main() (the full no-birth run at 512 x
                256 beside lazy_segment there, and one relaunch: alone, until
-               the call returns, and with its host read).
+               the call returns, and with its host read); and
+               chain_probe.main(), the cycles of the links of the serial
+               chain, from which each kernel's chain bound is computed:
+               cells x the shortest dependent chain / the SM clock.
 
 Before each of phases 5-7, and before each probe in phase 8, every kernel's
 launch counter is set to 0; the counters read after it are that path's
@@ -220,6 +231,115 @@ def compare_segment(name, kernel, twin, expect_next, expect_b, veto_want):
     return [(kt, rt), (ks, rs), (ki, ri)]
 
 
+def crafted_case(k_pad, k_max, seed=0):
+    """A 300-cell sweep from position 37 (the middle of a 32-position chunk
+    and of a turn of the 8-row ring) that meets, in visit order: a tie for
+    the best logit between two slots of different lanes; between two slots
+    of one lane (k_max > 41); between -0.0 and +0.0; a cell whose logits are
+    all -inf; a cluster dying to size 0 at a low slot; and a birth, which
+    must take that slot. log_denom is 0 and the tied slots hold one
+    (phantom) cell each, so their weights are exactly 0. Returns numpy
+    inputs and {position: expected target}."""
+    n, i0 = 300, 37
+    rng = np.random.default_rng(seed)
+    z = (rng.standard_normal((n, k_pad)) * 3.0).astype(np.float32)
+    perm = rng.permutation(n).astype(np.int32)
+    lanes = [k_max - 9, k_max - 8]        # a tie across lanes
+    zeros = [k_max - 7, k_max - 6]        # -0.0 against +0.0
+    pair = [8, 40] if k_max > 41 else []  # a tie within lane 8
+    reserved = lanes + zeros + pair
+    free = [k_max - 3, k_max - 2, k_max - 1]
+    assign = rng.choice([0, 2, 3, 4, 5], n).astype(np.int32)
+    sizes = np.full(k_pad, 3.0, np.float32)  # phantom cells elsewhere
+    sizes[:6] = np.bincount(assign, minlength=6)[:6]
+    sizes[reserved] = 1.0
+    sizes[free] = 0.0
+    sizes[k_max:] = -1.0
+    z[:, reserved + [1]] = -100.0  # no other cell joins these slots
+    aux = np.full(n, -1e30, np.float32)
+    c_lanes, c_pair, c_zero, c_inf, c_die, c_born = perm[
+        [60, 90, 120, 150, 180, 230]]
+    want = {}
+    z[c_lanes] = -100.0
+    z[c_lanes, lanes] = 50.0
+    want[60] = lanes[0]
+    if pair:
+        z[c_pair] = -100.0
+        z[c_pair, pair] = 50.0
+        want[90] = pair[0]
+    z[c_zero] = -1000.0
+    z[c_zero, zeros[0]], z[c_zero, zeros[1]] = -0.0, 0.0
+    want[120] = zeros[0]
+    z[c_inf] = -np.inf
+    aux[c_inf] = -np.inf
+    want[150] = 0
+    # Slot 1 holds c_die alone; it leaves for slot 0, and c_born's winning
+    # new-cluster option must take slot 1, below the free slots at the top.
+    sizes[assign[c_die]] -= 1.0
+    assign[c_die], sizes[1] = 1, 1.0
+    z[c_die, 0] = 60.0
+    want[180] = 0
+    aux[c_born] = 1e30
+    want[230] = 1
+    return dict(z=z, aux=aux, assign=assign, perm=perm, sizes=sizes, n=n,
+                i0=i0, want=want)
+
+
+def crafted_check(name, dev, k_pad, k_max, stream_order):
+    """Kernel == twin on crafted_case, relaunched after the birth as the
+    drivers do (without their z patch), and the expected targets. Returns
+    the compared pairs."""
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_gibbs import lazy_segment, lazy_segment_ref
+    from bnpc_tpu_torch.ops.cuda_stream import (lazy_segment_stream,
+                                                lazy_segment_stream_ref)
+
+    c = crafted_case(k_pad, k_max)
+    n, order = c["n"], c["perm"].astype(np.int64)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)  # a copy each call
+
+    if stream_order:
+        args = (t(c["z"][order]), t(c["aux"][order]), t(c["assign"][order]))
+        fns = (lazy_segment_stream, lazy_segment_stream_ref)
+    else:
+        args = (t(c["z"]), t(c["aux"]), t(c["assign"]), t(c["perm"]))
+        fns = (lazy_segment, lazy_segment_ref)
+    log_denom = torch.zeros((), device=dev)
+    state = [t(c["sizes"]), t(c["sizes"])]
+    tgts = [torch.full((n,), -7, dtype=torch.int32, device=dev)
+            for _ in fns]
+    pairs, i, launches = [], c["i0"], 0
+    while i < n:
+        infos = []
+        for fn, sizes, tgt in zip(fns, state, tgts):
+            info = torch.zeros((4,), dtype=torch.int32, device=dev)
+            fn(*args, sizes, tgt, info, i, log_denom)
+            infos.append(info)
+        torch.cuda.synchronize()
+        if not (torch.equal(infos[0], infos[1])
+                and torch.equal(state[0], state[1])
+                and torch.equal(tgts[0], tgts[1])):
+            raise AssertionError(f"{name} crafted k_pad={k_pad} from {i}: "
+                                 f"kernel {infos[0].tolist()} != twin "
+                                 f"{infos[1].tolist()} or targets/sizes "
+                                 "differ")
+        pairs += [(infos[0], infos[1]), (state[0].clone(), state[1].clone())]
+        i, launches = int(infos[0][0]), launches + 1
+    pairs.append((tgts[0], tgts[1]))
+    got = tgts[0].tolist()
+    for pos, slot in c["want"].items():
+        if got[pos] != slot:
+            raise AssertionError(f"{name} crafted k_pad={k_pad}: position "
+                                 f"{pos} went to {got[pos]}, expected {slot}")
+    if launches != 2:
+        raise AssertionError(f"{name} crafted k_pad={k_pad}: {launches} "
+                             "launches, expected 2 (one birth)")
+    return pairs
+
+
 def phase_lazy_segment(dev):
     import torch
 
@@ -254,6 +374,14 @@ def phase_lazy_segment(dev):
         outs = [run_segment(fn, args, N, sizes0, i0, log_denom, dev)
                 for fn in (lazy_segment, lazy_segment_ref)]
         pairs += compare_segment(f"lazy_segment {name}", *outs, *want)
+
+    # Ties, zeros, -inf, a death and a birth into the freed slot, from the
+    # middle of a chunk, at every slots-per-lane width.
+    for kp in (32, 64, 128, 256, 512, 1024):
+        pairs += crafted_check("lazy_segment", dev, kp, kp - 3, False)
+    log("  lazy_segment crafted sweeps (ties across and within lanes, "
+        "-0.0/+0.0, all -inf, death then birth into the freed slot, from "
+        "position 37) at k_pad 32 ... 1,024 — kernel == twin")
 
     assign, aux, sizes0, _ = cases["no_birth"][0]
     buf = iter([sizes0.clone() for _ in range(21)])
@@ -364,6 +492,13 @@ def phase_lazy_stream(dev):
             for fn in (lazy_segment_stream, lazy_segment_stream_ref)]
     pairs += compare_segment(f"lazy_stream wide (n={n_w}, k_pad={kp_w})",
                              *outs, 3001, 3000, False)
+
+    # The crafted sweeps at every slots-per-lane width, and at widths that
+    # are not 32 x a power of two (masked slots in the last lane rows).
+    for kp in (32, 64, 96, 128, 160, 256, 512, 992, 1024):
+        pairs += crafted_check("lazy_stream", dev, kp, kp - 3, True)
+    log("  lazy_stream crafted sweeps (as lazy_segment's) at k_pad 32 ... "
+        "1,024 and 96, 160, 992 — kernel == twin")
 
     # Timing: the full no-birth segment, and the resident kernel on the same
     # Z read in cell order through a random permutation.
@@ -848,7 +983,30 @@ def phase_probes():
         check_launches(f"probe {name}", launches, used)
         out[name] = {**res, "launches_path": launches}
         log(f"  launches on this path: {launches}")
+    out["chain"] = chain_bounds()
     return out
+
+
+def chain_bounds():
+    """The chain probe's cycles and, from them, the least time each
+    kernel's serial chain can take at the shape phase 3 times it at."""
+    from bnpc_tpu_torch.probes import chain_probe, vecflow_probe, while_probe
+
+    res = chain_probe.main([])
+    argmax, scan = res["argmax_chain_cycles"], res["scan_chain_cycles"]
+    cells = {"lazy_segment": (N, argmax), "rg_scan": (N, scan),
+             "lazy_stream": (N_LARGE, argmax), "eager_sweep": (N, argmax),
+             "vecflow": (vecflow_probe.n_batches(N) * vecflow_probe.BATCH,
+                         argmax),
+             "while_exit": (while_probe.N, argmax)}
+    res["chain_bound_ms"] = {
+        name: chain_probe.chain_bound_ms(n, cycles, res["clock_ghz"])
+        for name, (n, cycles) in cells.items()}
+    for name, ms in res["chain_bound_ms"].items():
+        log(f"  chain bound {name}: {cells[name][0]:,} cells x "
+            f"{cells[name][1]:.1f} cycles / {res['clock_ghz']:.4f} GHz = "
+            f"{ms:.4f} ms")
+    return res
 
 
 def main():
@@ -896,6 +1054,7 @@ def main():
     log(f"[8/8] probes: their entry points on the card ({smi})")
     probes = phase_probes()
 
+    chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
                      "rg_scan": main_out["launches_path"],
                      "lazy_stream": large_out["launches_path"],
@@ -931,6 +1090,7 @@ def main():
         "lazy_segment_on_stream_z_ms": k["lazy_stream"][
             "resident_same_z_ms"],
         "vecflow_on_stream_z_ms": k["lazy_stream"]["vecflow_same_z_ms"],
+        "chain": chain,
         "probes": {name: {f: v for f, v in out.items()
                           if f != "launches_path"}
                    for name, out in probes.items()}}))
