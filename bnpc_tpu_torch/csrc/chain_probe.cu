@@ -19,6 +19,15 @@
 //   6 cmp_select     x = x > thr ? a : b
 //   7 fadd           x = x + c
 //   8 xor_add        u = (u ^ a) + b                 two integer ALU links
+//   9 icmp_select    i = i >= t ? a : b              integer compare + select
+//  10 cmp_pred_add   i = i + (i >= t)                as the compiler builds
+//                                                    it: a compare and a
+//                                                    predicated move
+//  11 scan_link      i = i + ((t - 1 - i) >>> 31)    the same function as the
+//                                                    restricted scan takes
+//                                                    it (rg_scan.cu): a
+//                                                    subtract, and the sign
+//                                                    bit added
 // out[2 * kChains] = cycles of the whole kernel, out[2 * kChains + 1] = its
 // nanoseconds by %globaltimer: their ratio is the SM clock during the run.
 //
@@ -30,7 +39,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kChains = 9;
+constexpr int kChains = 12;
 constexpr int kUnroll = 16;
 
 __device__ __forceinline__ long long global_ns() {
@@ -92,6 +101,13 @@ __global__ void __launch_bounds__(32, 1) chain_probe_kernel(
   BNPC_CHAIN(7, x, x = x + one)
   u = ua + lane;
   BNPC_CHAIN(8, u, u = (u ^ ua) + ub)
+  const int it = (int)seed[2], ia = (int)seed[1], ib = (int)seed[3];
+  i = ia;
+  BNPC_CHAIN(9, i, i = i >= it ? ia : ib)
+  i = ia;
+  BNPC_CHAIN(10, i, i += i >= it + r ? 1 : 0)
+  i = ia;
+  BNPC_CHAIN(11, i, i += (unsigned)(it + r - 1 - i) >> 31)
 
   const long long cy1 = clock64();
   const long long ns1 = global_ns();
@@ -104,7 +120,7 @@ __global__ void __launch_bounds__(32, 1) chain_probe_kernel(
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). Each chain
-// runs iters * 16 links; out holds 2 * 9 + 2 int64 values.
+// runs iters * 16 links; out holds 2 * 12 + 2 int64 values.
 extern "C" int bnpc_chain_probe(const float* seed, long long* out, int iters,
                                 cudaStream_t stream) {
   chain_probe_kernel<<<1, 32, 0, stream>>>(seed, out, iters);

@@ -190,6 +190,26 @@ __device__ __forceinline__ T pair_at(T cur, T nxt, int j) {
   return j < 32 ? x : y;
 }
 
+// perm, and assign / aux gathered through it, of 32 consecutive positions:
+// lane l holds position base + l (cell 0 and zeros past n). The kernels
+// that visit cells through a permutation (lazy_segment.cu, sweep.cu) keep
+// two of these, the current chunk and the next, and read them with pair_at,
+// so that no index load is on the chain or behind a branch.
+struct PermChunk {
+  int cell;
+  int o;
+  float a;
+  __device__ __forceinline__ void load(const int* __restrict__ perm,
+                                       const int* __restrict__ assign,
+                                       const float* __restrict__ aux,
+                                       int base, int n, int lane) {
+    const int p = base + lane;
+    cell = p < n ? perm[p] : 0;
+    o = p < n ? assign[cell] : 0;
+    a = p < n ? aux[cell] : 0.f;
+  }
+};
+
 template <int N>
 __device__ __forceinline__ float tree_fmax(const float* x) {
   if constexpr (N == 1) {

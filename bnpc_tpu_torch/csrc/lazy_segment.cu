@@ -43,23 +43,6 @@ namespace {
 
 using namespace bnpc;
 
-// perm, and assign / aux gathered through it, of 32 consecutive positions:
-// lane l holds position base + l.
-struct Chunk {
-  int cell;
-  int o;
-  float a;
-  __device__ __forceinline__ void load(const int* __restrict__ perm,
-                                       const int* __restrict__ assign,
-                                       const float* __restrict__ aux,
-                                       int base, int n, int lane) {
-    const int p = base + lane;
-    cell = p < n ? perm[p] : 0;
-    o = p < n ? assign[cell] : 0;
-    a = p < n ? aux[cell] : 0.f;
-  }
-};
-
 template <int SPL>  // slots per lane; k_pad = 32 * SPL
 __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
     const float* __restrict__ z,       // [n, k_pad]
@@ -80,7 +63,7 @@ __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
   int veto = 0, birth_pos = -1, birth_cell = -1, birth_slot = -1;
   if (i0 < n) {
     int cb = i0 & ~31;
-    Chunk cur, nxt;
+    PermChunk cur, nxt;
     cur.load(perm, assign, aux, cb, n, lane);
     nxt.load(perm, assign, aux, cb + 32, n, lane);
 

@@ -10,15 +10,47 @@
 //
 // where dtab[s1] = log(s1+1) - log(n_move-s1-2) (+inf where side 0 would
 // empty). Positions >= s_count are not written; the caller keeps their
-// launch sides.
+// launch sides. The plain twin (ops/cuda_rg.py::rg_scan_ref) is the
+// definition, for ANY dtab.
 //
-// What bounds it: a serial chain of dependent scalar steps, i.e. latency
-// per cell. Design: one thread. s_count and count1 are read from device
-// memory, so the host never synchronizes to launch the scan. dz and lau are
-// sequential streams; dtab is read straight from global memory because its
-// index moves by at most 1 per cell, so the reads stay in L1. The TPU's
-// 2C+128 SMEM window staging is not carried over: it only existed because
-// of the TPU's scalar-memory size.
+// What bounds it: a serial chain through count1, i.e. latency per cell. Read
+// as written, the chain holds a table load whose address is the carried
+// count, a float add and a compare. But everything except count1 is known
+// before the scan starts, so the load and the float add come off the chain:
+//
+//   * Thresholds. Where dtab is non-decreasing and NaN-free, the predicate
+//     P_i(s) = (dz[i] + dtab[s] > 0), evaluated in float32 exactly as the
+//     twin evaluates it, is false below some t_i and true from it on (float
+//     addition is monotone in each argument; a NaN or infinite dz[i] makes
+//     P_i constant or a step, never a bump). t_i is a binary search over the
+//     table that any thread can do for any position, ahead of the chain.
+//   * An integer chain. The recurrence is
+//     count1' = count1 - lau[i] + (count1 - lau[i] >= t_i). The launch
+//     sides are known ahead too, so their running sum L_i (over the
+//     positions of the chunk before i) comes off the chain as well: with
+//     y = count1 + L_i and U_i = t_i + lau[i] + L_i the link is
+//     y' = y + (y >= U_i), on registers, one integer an entry; count1 is y
+//     less the chunk's launch sides at its end. The link is taken as
+//     y + ((U_i - 1 - y) >>> 31), a subtract and the add of its sign bit:
+//     a compare with a predicated add takes more than twice as long
+//     (probes/chain_probe.py, cmp_pred_add against scan_link).
+//   * One block. Thread 0 runs the chain over chunk k while the threads of
+//     the other warps make the entries of chunk k + 1 (dz and lau read
+//     coalesced, a binary search each, the launch sides' prefix by ballot
+//     and one barrier among themselves; handed over in shared memory) and
+//     write the sides of chunk k - 1 (recomputed from the y the chain
+//     stored before each cell), coalesced. One __syncthreads() a chunk.
+//   * The table. With launch sides in {0, 1} the scan can only reach s1 in
+//     [count1 - s_count, count1 + s_count - 1]; that range of dtab is
+//     staged in shared memory where it fits (always at a few thousand
+//     cells), else it is read through L1/L2.
+//   * Any dtab. While staging, the block checks that the reachable range is
+//     non-decreasing and NaN-free (one __syncthreads_or). If it is not, no
+//     threshold exists and thread 0 runs the recurrence as written: the
+//     same kernel, the same result as the twin, at the old speed.
+// s_count and count1 are read from device memory, so the host never
+// synchronizes to launch the scan. The TPU's 2C+128 SMEM window staging is
+// not carried over: it only existed because of the TPU's scalar-memory size.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -26,19 +58,149 @@
 
 namespace {
 
-__global__ void __launch_bounds__(1, 1) rg_scan_kernel(
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 1024;
+// Positions a chunk: one for each thread outside the chain's warp.
+constexpr int kChunk = kThreads - 32;
+// The chain's loop handles positions in groups of kGroup, two groups a
+// turn; a chunk's tail is padded to a whole turn with neutral entries.
+constexpr int kGroup = 16;
+static_assert(kChunk % (2 * kGroup) == 0, "a chunk is whole turns");
+// Table entries staged in shared memory at most (160 KB).
+constexpr int kTabSmem = 40960;
+// An entry is U - 1. That of a position the scan does not reach: below
+// 2^30, so that the link's subtract cannot overflow, and never passed.
+constexpr int kNever = 0x3fffffff;
+
+__device__ __forceinline__ void load_group(int (&e)[kGroup], const int* src) {
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) e[r] = src[r];
+}
+
+// kGroup links of the chain, y' = y + (y > e) with e = U - 1. The y each
+// cell met is kept for the writers, who recompute its side from it.
+__device__ __forceinline__ void chain_group(const int (&e)[kGroup], int* seen,
+                                            int& y) {
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) {
+    seen[r] = y;
+    y += (int)((unsigned)(e[r] - y) >> 31);
+  }
+}
+
+// The producers' own barrier (the chain's warp does not take part).
+__device__ __forceinline__ void producers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kChunk) : "memory");
+}
+
+// First s in [0, len) with dz + tab[s] > 0, else len: the count of leading
+// false values of a predicate that is false, then true.
+__device__ __forceinline__ int threshold(const float* tab, int len,
+                                         int top_step, float x) {
+  int pos = 0;
+  for (int step = top_step; step > 0; step >>= 1) {
+    const int idx = pos + step - 1;
+    if (idx < len && !(x + tab[idx] > 0.f)) pos += step;
+  }
+  return pos;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) rg_scan_kernel(
     const float* __restrict__ dz,     // [n] decision margins, visit order
     const int* __restrict__ lau,      // [n] launch sides, visit order
     const float* __restrict__ dtab,   // [n + 2] count log-table
     const int* __restrict__ s_count_p, const int* __restrict__ count1_p,
-    int* __restrict__ out, int n) {
+    int* __restrict__ out, int n, int tab_cap) {
+  extern __shared__ float tab_s[];                          // [tab_cap]
+  __shared__ __align__(16) int entries[2][kChunk + kGroup];  // U - 1
+  __shared__ __align__(16) int seen[2][kChunk];  // y before each cell
+  __shared__ int warp_sides[2][32];  // launch sides a producer warp
+  __shared__ int chunk_sides[2];     // launch sides a chunk
+  const int tid = threadIdx.x;
   const int s_count = min(*s_count_p, n);
   int c1 = *count1_p;
-  for (int i = 0; i < s_count; ++i) {
-    const int s1 = c1 - lau[i];
-    const int side = (dz[i] + dtab[s1] > 0.f) ? 1 : 0;
-    out[i] = side;
-    c1 = s1 + side;
+  if (s_count <= 0) return;
+
+  // The table range the scan can reach, inside the table.
+  const int lo = max(c1 - s_count, 0);
+  const int hi = min(c1 + s_count - 1, n + 1);
+  const int len = hi - lo + 1;
+  const bool staged = len <= tab_cap;
+
+  // Stage and check: non-decreasing and NaN-free over [lo, hi].
+  bool bad = len <= 0;
+  for (int j = tid; j < len; j += kThreads) {
+    const float x = dtab[lo + j];
+    const float y = dtab[lo + min(j + 1, len - 1)];
+    bad |= !(x <= y);
+    if (staged) tab_s[j] = x;
+  }
+  if (__syncthreads_or(bad)) {
+    // No thresholds: the recurrence as written, on one thread.
+    if (tid == 0) {
+      for (int i = 0; i < s_count; ++i) {
+        const int s1 = c1 - lau[i];
+        const int side = (dz[i] + dtab[s1] > 0.f) ? 1 : 0;
+        out[i] = side;
+        c1 = s1 + side;
+      }
+    }
+    return;
+  }
+
+  const float* tab = staged ? tab_s : dtab + lo;
+  int top_step = 1;
+  while (top_step * 2 <= len) top_step *= 2;
+  const int chunks = (s_count + kChunk - 1) / kChunk;
+  const int j = tid - 32;  // this thread's position within every chunk
+  const int lane = tid & 31, warp = tid >> 5;
+
+  // Entries of chunk k into entries[k & 1] (every producer thread calls
+  // it); positions from s_count on get an entry that changes nothing.
+  auto produce = [&](int k) {
+    const int i = k * kChunk + j;
+    const bool live = i < s_count;
+    const int la = live ? lau[i] : 0;
+    const unsigned ones = __ballot_sync(kFull, la != 0);
+    if (lane == 0) warp_sides[k & 1][warp - 1] = __popc(ones);
+    const int t = live ? threshold(tab, len, top_step, dz[i]) : 0;
+    producers_sync();
+    const int earlier = lane < warp - 1 ? warp_sides[k & 1][lane] : 0;
+    const int before = __reduce_add_sync(kFull, earlier)
+        + __popc(ones & ((1u << lane) - 1u));
+    entries[k & 1][j] = live ? lo + t + la + before - 1 : kNever;
+    if (j == kChunk - 1) chunk_sides[k & 1] = before + la;
+  };
+
+  if (j >= 0) produce(0);
+  __syncthreads();
+
+  for (int k = 0; k <= chunks; ++k) {
+    if (tid == 0) {
+      if (k < chunks) {
+        const int cnt = min(kChunk, s_count - k * kChunk);
+        const int* src = entries[k & 1];
+        int* dst = seen[k & 1];
+        int y = c1;
+        int ea[kGroup], eb[kGroup];
+        load_group(ea, src);
+        for (int b = 0; b < cnt; b += 2 * kGroup) {
+          load_group(eb, src + b + kGroup);
+          chain_group(ea, dst + b, y);
+          load_group(ea, src + b + 2 * kGroup);  // the pad past a full chunk
+          chain_group(eb, dst + b + kGroup, y);
+        }
+        c1 = y - chunk_sides[k & 1];
+      }
+    } else if (j >= 0) {
+      if (k >= 1) {
+        const int i = (k - 1) * kChunk + j;
+        if (i < s_count)
+          out[i] = seen[(k - 1) & 1][j] > entries[(k - 1) & 1][j] ? 1 : 0;
+      }
+      if (k + 1 < chunks) produce(k + 1);
+    }
+    __syncthreads();
   }
 }
 
@@ -49,6 +211,14 @@ extern "C" int bnpc_rg_scan(const float* dz, const int* lau,
                             const float* dtab, const int* s_count,
                             const int* count1, int* out, int n,
                             cudaStream_t stream) {
-  rg_scan_kernel<<<1, 1, 0, stream>>>(dz, lau, dtab, s_count, count1, out, n);
+  const int tab_cap = n + 2 < kTabSmem ? n + 2 : kTabSmem;
+  const int bytes = tab_cap * (int)sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rg_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rg_scan_kernel<<<1, kThreads, bytes, stream>>>(dz, lau, dtab, s_count,
+                                                 count1, out, n, tab_cap);
   return (int)cudaGetLastError();
 }

@@ -13,22 +13,59 @@
 // read. assign_out[cell] receives the chosen slot. z is the caller's
 // working copy and is patched in place.
 //
-// What bounds it: the serial chain per cell (one warp, latency bound, as
-// lazy_segment.cu), plus O(n) strided loads and stores per birth (a column
-// of lf and gum in, a column of z out). Design: the sizes row in registers
-// (k_pad <= 1024, lane l owns slots l, l+32, ..., with the cached log
-// weights of gibbs_common.cuh::chain_step) or in shared memory (k_pad up to
-// 58,112); the next cell's perm/assign/aux/z row are loaded one cell ahead.
-// What the step caches (w, wp) follows the sizes only, never z, so a birth's
-// patch of a z column leaves it valid; a cache of anything read from z
-// would have to be refreshed after patch_birth. Two traps: (1) the lanes
-// that write the patched column are not the lanes that later read those
-// rows, so the patch ends in
-// __syncwarp(), which orders memory among the warp, and z is read with
-// plain (coherent) loads, never through the read-only path; (2) the row
-// prefetched for the next cell predates the patch, so after a birth its
-// element f is set in registers to the value just stored. First-index
-// tie-breaks as jnp.argmax in interpret mode.
+// What bounds it: the serial chain per cell through the sizes row (one warp,
+// latency bound, and a warp issues in order, so every instruction that does
+// not fit under the chain's waits adds to a cell), plus O(n) strided loads
+// and stores per birth (a column of lf and gum in, a column of z out).
+// What the register layout (k_pad <= 1024) does about it is the loop of
+// lazy_segment.cu: nothing a cell reads but the sizes depends on the cells
+// before it, and perm is known ahead, so
+//   * perm comes in 32-position chunks one chunk ahead, with assign[perm]
+//     and aux[perm] gathered behind it (gibbs_common.cuh::PermChunk, read
+//     back by warp shuffle): no index load is on the chain or behind a
+//     branch;
+//   * a cp.async ring keeps the rows z[perm[i + 1 .. i + kRing - 1]] in
+//     flight in shared memory, one commit group a row, issued unpredicated
+//     (a position past n copies cell 0's row). A row may be narrower than
+//     32 * SPL; then the copies read the clamped columns of row_cols. Where
+//     it is exactly 32 * SPL wide (FULL) the copies' offsets are
+//     compile-time constants, which saves two address instructions a slot
+//     a cell;
+//   * the inner loop's body is one basic block: position i + 1's row, aux
+//     and removed slot are in registers before position i's step,
+//     __syncwarp() sits at its top, and the only branches are the two cold
+//     exits after the step (a birth, the end). A birth handled inside the
+//     block (patch, then repair the rows already copied) made every cell
+//     slower, births or none; so the loop LEAVES at a birth, as the
+//     segment kernels do, and an outer loop patches and starts it again at
+//     the next position, the chain's state staying in registers;
+//   * assign_out[cell] is a scattered store off the chain; the cell index
+//     comes from the chunk by shuffle.
+// The step itself is gibbs_common.cuh::chain_step (lane l owns slots l,
+// l+32, ..., with cached log weights). What it caches (w, wp) follows the
+// sizes only, never z, so a birth's patch of a z column leaves it valid.
+//
+// The birth against rows already in flight. When a cell is born into slot f
+// at position i, up to kRing - 1 rows in the ring and the row of position
+// i + 1 in registers were copied before the patch, or race it. None of them
+// is used: the warp waits for ALL outstanding copies (a late one must not
+// land on a ring slot that is about to be filled again), patch_birth writes
+// the column and ends in __syncwarp(), which orders its stores among the
+// warp, and the rows of positions i + 1 .. i + kRing - 1 are copied anew
+// from z. Those copies are cp.async.ca, through this SM's L1, and the lanes
+// that wrote the column are not the lanes that copy it: what makes them
+// see the patch is that an SM's L1 never holds a line stale against the
+// SM's own stores (the same property that lets a block's threads exchange
+// data through global memory across a barrier with plain loads), and lines
+// of z were brought into L1 before the patch by the earlier copies, so the
+// crafted cases (births one and three positions apart) test exactly that.
+// z is written by the kernel, so it is neither __restrict__ const nor read
+// through the read-only path.
+//
+// Above 1024 slots the sizes row lives in shared memory (up to 58,112 slots)
+// and rows are read straight from z after the patch's __syncwarp(), so no
+// copied row can be stale. First-index tie-breaks as jnp.argmax in
+// interpret mode.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -38,6 +75,9 @@ namespace {
 
 using namespace bnpc;
 
+// The birth of `cell` into slot f: z[:, f] = lf[:, cell] + gum[:, f] and
+// params[f] = fresh[cell]. Ends in __syncwarp(), which orders the stores
+// among the warp. More rows a lane in flight (4 to 32) made it no faster.
 __device__ __forceinline__ void patch_birth(
     float* z, const float* __restrict__ gum, const float* __restrict__ lf,
     const float* __restrict__ fresh, float* __restrict__ params, int n,
@@ -50,16 +90,8 @@ __device__ __forceinline__ void patch_birth(
   __syncwarp();
 }
 
-template <int SPL>
-__device__ __forceinline__ void load_row(float (&v)[SPL], const float* z,
-                                         int cell, int k_pad,
-                                         const int (&col)[SPL]) {
-  const float* row = z + (size_t)cell * k_pad;
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) v[s] = row[col[s]];
-}
-
-template <int SPL>  // register layout; k_pad <= 32 * SPL
+// Register layout; k_pad <= 32 * SPL, and FULL says k_pad == 32 * SPL.
+template <int SPL, bool FULL>
 __global__ void __launch_bounds__(32, 1) sweep_reg_kernel(
     float* z,                          // [n, k_pad] working copy, patched
     const float* __restrict__ gum,     // [n, k_pad]
@@ -72,54 +104,103 @@ __global__ void __launch_bounds__(32, 1) sweep_reg_kernel(
     float* __restrict__ params,        // [*, m], updated in place
     int* __restrict__ assign_out,      // [n] cell order
     const float* __restrict__ log_denom_p, int n, int k_pad, int m) {
+  __shared__ __align__(16) float ring[kRing][32 * SPL];
   const int lane = threadIdx.x;
 
   Chain<SPL> c;
   chain_init<SPL>(c, sizes, k_pad, *log_denom_p, lane);
   int col[SPL];
   row_cols<SPL>(col, k_pad, lane);
-
-  int cell = 0;
-  float a = 0.f, v[SPL];
-  if (n > 0) {
-    cell = perm[0];
-    chain_remove_first<SPL>(c, assign[cell], lane);
-    a = aux[cell];
-    load_row<SPL>(v, z, cell, k_pad, col);
-  }
-  for (int i = 0; i < n; ++i) {
-    int cell_n = 0, old_n = 0;
-    float a_n = 0.f, v_n[SPL];
-    if (i + 1 < n) {
-      cell_n = perm[i + 1];
-      old_n = assign[cell_n];
-      a_n = aux[cell_n];
-      load_row<SPL>(v_n, z, cell_n, k_pad, col);
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(&ring[0][lane]);
+  constexpr unsigned kRowBytes = 32 * SPL * sizeof(float);
+  // This lane's part of position r's row (of cell cell_r) into the ring.
+  auto issue = [&](int r, int cell_r) {
+    const unsigned dst = ring_s + (unsigned)r % kRing * kRowBytes;
+    if constexpr (FULL) {
+      issue_row_full<SPL>(dst, z + lane + (size_t)cell_r * (32 * SPL));
+    } else {
+      issue_row<SPL>(dst, z + (size_t)cell_r * k_pad, col);
     }
-    // The sweep runs on past a birth: the step always removes the next cell.
-    const Pick p = chain_step<SPL>(c, v, a, old_n, i + 1 < n, false, lane);
-    if (p.is_new) {
-      patch_birth(z, gum, lf, fresh, params, n, k_pad, m, cell, p.t, lane);
-      // The next cell's row predates the patch: its owner lane sets element
-      // t to the value just stored (the same float add).
+    cp_async_commit();
+  };
+
+  if (n > 0) {
+    int cb = 0;
+    PermChunk cur, nxt;
+    cur.load(perm, assign, aux, 0, n, lane);
+    nxt.load(perm, assign, aux, 32, n, lane);
+    chain_remove_first<SPL>(c, __shfl_sync(kFull, cur.o, 0), lane);
+
+    // One turn for the start and one for every birth: the loop below runs
+    // from position i to the next birth or to n.
+    for (int i = 0;;) {
+      // Rows of positions i .. i + kRing - 2 in flight, one commit group
+      // per row. Iteration i issues the row of position i + kRing - 1 into
+      // the ring slot of position i - 1's row, which iteration i - 2 read
+      // into registers.
+      for (int r = i; r < i + kRing - 1; ++r)
+        issue(r, pair_at(cur.cell, nxt.cell, r - cb));
+
+      // What position i needs is in registers before its iteration starts:
+      // its row v, its aux a and the slot old_next that position i + 1
+      // leaves (0 past n).
+      float a = pair_at(cur.a, nxt.a, i - cb);
+      int old_next = pair_at(cur.o, nxt.o, i + 1 - cb);
+      float v[SPL];
+      cp_async_wait<kRing - 2>();  // row i has landed (this lane's part)
 #pragma unroll
       for (int s = 0; s < SPL; ++s)
-        if (i + 1 < n && s * 32 + lane == p.t)
-          v_n[s] = lf[(size_t)cell_n * n + cell]
-              + gum[(size_t)cell_n * k_pad + p.t];
-    }
-    if (lane == 0) assign_out[cell] = p.t;
-    cell = cell_n;
-    a = a_n;
+        v[s] = ring[(unsigned)i % kRing][s * 32 + lane];
+
+      int born_cell = -1, born_slot = 0;
+      for (;; ++i) {
+        if (i - cb == 32) {  // once in 32 positions, before the block below
+          cb = i;
+          cur = nxt;
+          nxt.load(perm, assign, aux, cb + 32, n, lane);
+        }
+        __syncwarp();
+        const int r = i + kRing - 1;
+        issue(r, pair_at(cur.cell, nxt.cell, r - cb));
+        const int cell = __shfl_sync(kFull, cur.cell, i - cb);
+        const float a_n = pair_at(cur.a, nxt.a, i + 1 - cb);
+        const int old_n2 = pair_at(cur.o, nxt.o, i + 2 - cb);
+        cp_async_wait<kRing - 2>();  // position i + 1's row has landed
+        float v_n[SPL];
 #pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
+        for (int s = 0; s < SPL; ++s)
+          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
+
+        // The sweep runs on past a birth: the step always removes the next
+        // cell.
+        const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, false,
+                                       lane);
+        if (lane == 0) assign_out[cell] = p.t;
+        if (p.is_new) {
+          born_cell = cell;
+          born_slot = p.t;
+          break;
+        }
+        if (i + 1 >= n) break;
+        a = a_n;
+        old_next = old_n2;
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
+      }
+      // No copy may land after this point: the ring is filled again below.
+      cp_async_wait_all();
+      if (born_cell < 0) break;
+      patch_birth(z, gum, lf, fresh, params, n, k_pad, m, born_cell,
+                  born_slot, lane);
+      if (++i >= n) break;
+    }
   }
 
   chain_store<SPL>(c, sizes, k_pad, lane);
 }
 
 // Shared-memory layout for k_pad > 1024: rows are read straight from z
-// after the patch's __syncwarp(), so no prefetched row can be stale.
+// after the patch's __syncwarp(), so no copied row can be stale.
 __global__ void __launch_bounds__(32, 1) sweep_smem_kernel(
     float* z, const float* __restrict__ gum, const float* __restrict__ lf,
     const float* __restrict__ fresh, const float* __restrict__ aux,
@@ -151,9 +232,15 @@ void launch_reg(float* z, const float* gum, const float* lf,
                 const int* perm, float* sizes, float* params, int* out,
                 const float* log_denom, int n, int k_pad, int m,
                 cudaStream_t stream) {
-  sweep_reg_kernel<SPL><<<1, 32, 0, stream>>>(z, gum, lf, fresh, aux, assign,
-                                              perm, sizes, params, out,
-                                              log_denom, n, k_pad, m);
+  if (k_pad == 32 * SPL) {
+    sweep_reg_kernel<SPL, true><<<1, 32, 0, stream>>>(
+        z, gum, lf, fresh, aux, assign, perm, sizes, params, out, log_denom,
+        n, k_pad, m);
+  } else {
+    sweep_reg_kernel<SPL, false><<<1, 32, 0, stream>>>(
+        z, gum, lf, fresh, aux, assign, perm, sizes, params, out, log_denom,
+        n, k_pad, m);
+  }
 }
 
 }  // namespace

@@ -6,8 +6,10 @@ Not a counterpart of a TPU kernel and not on the sampler's path. The kernel
 instructions with ``clock64()``: a warp shuffle, a shuffle + ``fmaxf`` (one
 round of a shuffle reduction), ``redux.sync``, a ballot, the accurate
 ``logf``, a shared-memory load whose address is the previous load's result,
-a compare + select, a float add and an integer ALU pair; and the SM clock
-during the run (cycles over ``%globaltimer`` nanoseconds).
+a compare + select, a float add, an integer ALU pair, an integer compare +
+select, and the restricted scan's link in two forms; and the SM clock during
+the run
+(cycles over ``%globaltimer`` nanoseconds).
 
 The per-cell step of the Gibbs kernels is serial by definition: the next
 cell's logits need this cell's size update. The shortest dependent chain
@@ -17,15 +19,21 @@ the algorithm allows per cell is
     -> first index holding the max -> select (the target)
 
 that is two compare + selects, one float add and two warp reductions
-(`argmax_chain_cycles`); for the restricted 2-way scan it is a table
-load-use, a float add, a compare + select and an integer add
-(`scan_chain_cycles`). ``cells x cycles / clock`` is the least time a sweep
-can take on the card (`chain_bound_ms`), whatever the kernel does around
-the chain; the bytes bound of a roofline is orders of magnitude below it.
+(`argmax_chain_cycles`). For the restricted 2-way scan read as written it is
+a table load-use, a float add, a compare + select and an integer add
+(`table_scan_chain_cycles`); but only the count depends on the cell before,
+and where the table is monotone each cell's comparison is a threshold on the
+count known ahead (csrc/rg_scan.cu), so the shortest chain is an integer
+compare and the add of its outcome, taken as a subtract and the add of its
+sign bit because a predicated add is more than twice as long
+(`scan_chain_cycles`, the measured `scan_link`; `cmp_pred_add` beside it).
+``cells x cycles / clock`` is the least time a sweep can take on the card
+(`chain_bound_ms`), whatever the kernel does around the chain; the bytes
+bound of a roofline is orders of magnitude below it.
 
     python -m bnpc_tpu_torch.probes.chain_probe
 
-prints the cycles per link, the clock, and the two per-cell chains. It needs
+prints the cycles per link, the clock, and the per-cell chains. It needs
 a CUDA device: there is nothing to measure on a CPU.
 """
 
@@ -38,7 +46,8 @@ from bnpc_tpu_torch.probes import card, parse_args
 
 # The kernel's chains, in the order of its output.
 CHAINS = ("shfl", "shfl_fmax", "redux_max", "ballot_test", "logf_fadd",
-          "smem_load_use", "cmp_select", "fadd", "xor_add")
+          "smem_load_use", "cmp_select", "fadd", "xor_add", "icmp_select",
+          "cmp_pred_add", "scan_link")
 UNROLL = 16
 ITERS = 1024
 
@@ -50,11 +59,19 @@ def argmax_chain_cycles(cycles: dict) -> float:
             + 2 * cycles["cmp_select"])
 
 
-def scan_chain_cycles(cycles: dict) -> float:
-    """Cycles of the shortest per-cell chain of the restricted 2-way scan:
-    table load-use, add, compare + select, integer add."""
+def table_scan_chain_cycles(cycles: dict) -> float:
+    """Cycles of the restricted 2-way scan's per-cell chain as the
+    recurrence is written: table load-use, add, compare + select, integer
+    add."""
     return (cycles["smem_load_use"] + cycles["fadd"] + cycles["cmp_select"]
             + cycles["iadd"])
+
+
+def scan_chain_cycles(cycles: dict) -> float:
+    """Cycles of the shortest per-cell chain of the restricted 2-way scan:
+    with each cell's threshold known ahead, a subtract and the add of its
+    sign bit (the kernel's link, measured whole)."""
+    return cycles["scan_link"]
 
 
 def chain_bound_ms(cells: int, cycles_per_cell: float,
@@ -103,7 +120,9 @@ def main(argv=None) -> dict:
     res = dict(cycles)
     res["argmax_chain_cycles"] = argmax_chain_cycles(cycles)
     res["scan_chain_cycles"] = scan_chain_cycles(cycles)
-    for name in ("argmax_chain_cycles", "scan_chain_cycles"):
+    res["table_scan_chain_cycles"] = table_scan_chain_cycles(cycles)
+    for name in ("argmax_chain_cycles", "scan_chain_cycles",
+                 "table_scan_chain_cycles"):
         print(f"  {name}: {res[name]:.1f} cycles a cell "
               f"({res[name] / clock / 1e3:.4f} us)", flush=True)
     return res

@@ -19,7 +19,16 @@ Phases (any failure exits non-zero, and no result line is printed):
                                +0.0, a cell whose logits are all -inf, a
                                death to size 0 and a later birth into the
                                freed slot);
-                 rg_scan       5,000 cells: s_count 0, 1, 37, 5,000;
+                 rg_scan       5,000 cells: s_count 0, 1, 37, 1,984 (two
+                               whole chunks of the kernel) and 5,000; a tie
+                               dz == -dtab[s1]; dz +inf / -inf / NaN; a small
+                               n_move (the table's +inf tail reached); a
+                               start count1 in the middle; a non-monotone
+                               table and one with a NaN (the kernel's serial
+                               route); 131,072 cells at s_count 131,072 (the
+                               table read from global memory) and 6,553;
+                               timed at s_count 5,000, on the serial route
+                               and at 131,072;
                  lazy_stream   131,072 x 128 over the last 8,192 positions:
                                no birth, a birth, a veto; and k_max 2,000
                                (the shared-memory sizes row) at 4,096
@@ -28,8 +37,13 @@ Phases (any failure exits non-zero, and no result line is printed):
                                crafted sweeps at k_pad 32 ... 1,024 and at
                                96, 160 and 992 (masked slots);
                  eager_sweep   5,000 x 256 with lf [5,000, 5,000]: no birth,
-                               two births back to back (the stale-prefetch
-                               trap), a veto;
+                               two births back to back (rows copied ahead
+                               of the patch), a veto; crafted 300-cell
+                               sweeps at k_pad 96, 160, 256 and 992 with
+                               births 1, 3 and 8 positions apart, at the
+                               first and the last position and into slots
+                               of the last lane row; timed without and with
+                               the two births;
                  vecflow       5,000 x 256 (the probe's shape): no birth, a
                                birth mid-batch (the rest of the batch
                                compared), a won new-cluster option with no
@@ -51,11 +65,15 @@ Phases (any failure exits non-zero, and no result line is printed):
                sm 0.33 / sm_steps 3 / dpa 0.25 / err 0.25), 256 warm-up and
                256 timed steps; state invariants, lazy_segment and rg_scan
                launched, steps/s, launches per sweep, host syncs per step,
-               cluster count and ARI against the planted truth;
+               cluster count and ARI against the planted truth; the mean
+               and the largest s_count of its rg_scan launches (kept on the
+               device, read once after the timed block);
   6. large   — the large-n path: MCMCRunner at 131,072 x 200, k_max 128
                (benchmarks/scale_bench.py's data and configuration), 16
                warm-up and 64 timed steps; the same invariants, lazy_stream
-               and rg_scan launched and lazy_segment never;
+               and rg_scan launched and lazy_segment never; then rg_scan
+               timed at 131,072 cells with the mean and the largest s_count
+               this path gave it;
   7. eager   — the step body with gibbs_impl="eager" at the bench
                configuration, 64 warm-up and 256 timed steps; the same
                invariants, eager_sweep launched; steps/s beside phase 5's;
@@ -402,44 +420,154 @@ def phase_lazy_segment(dev):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def rg_table(n, n_move, dev):
+    """The count log-table as models/splitmerge.py builds it."""
+    import torch
+
+    s1r = torch.arange(n + 2, dtype=torch.float32, device=dev)
+    n_move = torch.tensor(float(n_move), device=dev)
+    return torch.log(s1r + 1.0) \
+        - torch.log(torch.clamp(n_move - s1r - 2.0, min=0.0))
+
+
+def rg_inputs(n, seed, dev):
+    """Random margins and launch sides of n cells."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dz = torch.from_numpy(
+        (rng.standard_normal(n) * 3.0).astype(np.float32)).to(dev)
+    lau = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+    return dz, lau
+
+
+def rg_check(name, dz, lau, dtab, s_count, count1, twin_dev=None):
+    """Kernel == twin below s_count (the twin on `twin_dev` copies of the
+    same inputs where given). Returns the compared pair."""
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_rg import rg_scan, rg_scan_ref
+
+    dev = dz.device
+    sc = torch.tensor(s_count, dtype=torch.int32, device=dev)
+    c1 = torch.tensor(count1, dtype=torch.int32, device=dev)
+    out_k = rg_scan(dz, lau, dtab, sc, c1)[:s_count]
+    torch.cuda.synchronize()
+    args = (dz, lau, dtab, sc, c1)
+    if twin_dev is not None:
+        args = tuple(t.to(twin_dev) for t in args)
+    out_r = rg_scan_ref(*args)[:s_count].to(dev)
+    if not torch.equal(out_k, out_r):
+        raise AssertionError(f"rg_scan {name}: kernel != twin")
+    log(f"  rg_scan {name}: {int(out_k.sum())} of {s_count} cells on side 1 "
+        "— kernel == twin")
+    return out_k, out_r
+
+
+def rg_time(n, s_count, seed, dev, reps):
+    """Median ms of the scan at n cells and s_count, on the table and the
+    start count a move of that size has."""
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_rg import rg_scan
+
+    dz, lau = rg_inputs(n, seed, dev)
+    dtab = rg_table(n, s_count + 2, dev)
+    sc = torch.tensor(s_count, dtype=torch.int32, device=dev)
+    c1 = lau[:s_count].sum().to(torch.int32)
+    rg_scan(dz, lau, dtab, sc, c1)
+    return cuda_ms(lambda: rg_scan(dz, lau, dtab, sc, c1), reps)
+
+
 def phase_rg_scan(dev):
     import torch
 
     from bnpc_tpu_torch.ops.cuda_rg import rg_scan, rg_scan_ref
 
-    rng = np.random.default_rng(1)
-    dz = torch.from_numpy(
-        (rng.standard_normal(N) * 3.0).astype(np.float32)).to(dev)
-    lau = torch.from_numpy(rng.integers(0, 2, N).astype(np.int32)).to(dev)
-    s1r = torch.arange(N + 2, dtype=torch.float32, device=dev)
+    dz, lau = rg_inputs(N, 1, dev)
+    lau_h = lau.cpu().numpy()
 
-    def inputs(s_count):
-        n_move = torch.tensor(float(s_count + 2), device=dev)
-        dtab = torch.log(s1r + 1.0) \
-            - torch.log(torch.clamp(n_move - s1r - 2.0, min=0.0))
-        return (dtab, torch.tensor(s_count, dtype=torch.int32, device=dev),
-                lau[:s_count].sum().to(torch.int32))
+    def start(s_count):
+        return int(lau_h[:s_count].sum())
 
     pairs = []
-    for s_count in (0, 1, 37, N):
-        dtab, sc, c1 = inputs(s_count)
-        out_k = rg_scan(dz, lau, dtab, sc, c1)
-        out_r = rg_scan_ref(dz, lau, dtab, sc, c1)
-        torch.cuda.synchronize()
-        if not torch.equal(out_k[:s_count], out_r[:s_count]):
-            raise AssertionError(f"rg_scan s_count={s_count}: kernel != twin")
-        pairs.append((out_k[:s_count], out_r[:s_count]))
-        log(f"  rg_scan s_count={s_count}: {int(out_k[:s_count].sum())} "
-            "cells on side 1 — kernel == twin")
-    dtab, sc, c1 = inputs(N)
+    # 1,984 is two whole chunks of the kernel; the others end inside one.
+    for s_count in (0, 1, 37, 1984, N):
+        pairs.append(rg_check(f"s_count={s_count}", dz, lau,
+                              rg_table(N, s_count + 2, dev), s_count,
+                              start(s_count)))
+
+    # A tie at the s1 the scan really meets: dz == -dtab[s1], side 0.
+    n_c = 600
+    dz_c, lau_c = rg_inputs(n_c, 4, dev)
+    dtab_c = rg_table(n_c, n_c + 2, dev)
+    c1_c = int(lau_c.sum())
+    dz_h, lau_ch, tab_h = (t.cpu().numpy() for t in (dz_c, lau_c, dtab_c))
+    c1, ties = c1_c, []
+    for i in range(n_c):
+        s1 = c1 - int(lau_ch[i])
+        if i % 97 == 50 and np.isfinite(tab_h[s1]):
+            dz_h[i] = -tab_h[s1]
+            ties.append(i)
+        c1 = s1 + int(np.float32(dz_h[i]) + tab_h[s1] > 0)
+    dz_t = torch.from_numpy(dz_h).to(dev)
+    out_k, out_r = rg_check(f"{len(ties)} ties", dz_t, lau_c, dtab_c, n_c,
+                            c1_c)
+    if not ties or int(out_k[ties].sum()) != 0:
+        raise AssertionError("rg_scan ties: a tie must go to side 0")
+    pairs.append((out_k, out_r))
+    # Margins that are not finite, on the full table and on one whose +inf
+    # tail (side 0 would empty) the scan reaches.
+    dz_n = dz_c.clone()
+    dz_n[[4, 140, 390]] = float("inf")
+    dz_n[[9, 141, 400]] = float("-inf")
+    dz_n[[10, 142, 410]] = float("nan")
+    pairs.append(rg_check("dz +inf/-inf/NaN", dz_n, lau_c, dtab_c, n_c,
+                          c1_c))
+    pairs.append(rg_check("dz +inf/-inf/NaN, n_move 40", dz_n, lau_c,
+                          rg_table(n_c, 40, dev), n_c, 30))
+    pairs.append(rg_check("+inf tail reached, n_move 40", dz_c.abs() + 5.0,
+                          lau_c, rg_table(n_c, 40, dev), n_c, 30))
+    pairs.append(rg_check("count1 in the middle", dz_c, lau_c, dtab_c, 150,
+                          170))
+    # Tables without thresholds: the kernel's serial route.
+    for fault in ("swapped pair", "NaN"):
+        bad = dtab_c.clone()
+        if fault == "NaN":
+            bad[c1_c] = float("nan")
+        else:
+            bad[[c1_c, c1_c + 3]] = bad[[c1_c + 3, c1_c]]
+        pairs.append(rg_check(f"serial route ({fault} in the table)",
+                              dz_c * 0.1, lau_c, bad, n_c, c1_c))
+    # 131,072 cells: the whole table (read from global memory) and a move
+    # of one planted clone's size (its range staged). The twin's loop runs
+    # on CPU copies of the same tensors there: 131,072 host reads.
+    dz_l, lau_l = rg_inputs(N_LARGE, 5, dev)
+    lau_lh = lau_l.cpu().numpy()
+    for s_count in (N_LARGE, N_LARGE // 20):
+        pairs.append(rg_check(
+            f"n={N_LARGE} s_count={s_count}", dz_l, lau_l,
+            rg_table(N_LARGE, s_count + 2, dev), s_count,
+            int(lau_lh[:s_count].sum()), twin_dev="cpu"))
+
+    dtab = rg_table(N, N + 2, dev)
+    sc = torch.tensor(N, dtype=torch.int32, device=dev)
+    c1 = torch.tensor(start(N), dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: rg_scan(dz, lau, dtab, sc, c1), 51)
     plain_ms = cuda_ms(lambda: rg_scan_ref(dz, lau, dtab, sc, c1), 3)
+    bad = dtab.clone()
+    bad[[start(N), start(N) + 3]] = bad[[start(N) + 3, start(N)]]
+    serial_ms = cuda_ms(lambda: rg_scan(dz, lau, bad, sc, c1), 21)
+    large_ms = rg_time(N_LARGE, N_LARGE, 5, dev, 11)
     # dz, lau and dtab in, the sides out; four operations per cell.
     bound_ms, bound_by = bound(4 * (4 * N + 4), 4 * N)
     log(f"  rg_scan s_count={N}: kernel {ms:.4f} ms, plain twin "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms ({bound_by}); on the "
+        f"serial route (a swapped pair in the table) {serial_ms:.4f} ms; at "
+        f"n={N_LARGE} with s_count=n {large_ms:.4f} ms")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "serial_route_ms": serial_ms, "large_full_ms": large_ms}
 
 
 def phase_lazy_stream(dev):
@@ -547,6 +675,53 @@ def phase_lazy_stream(dev):
             "resident_same_z_ms": resident_ms, "vecflow_same_z_ms": vecflow_ms}
 
 
+def eager_crafted_check(dev, k_pad):
+    """Kernel == twin on a 300-cell sweep at row width k_pad with births
+    forced 1, 3 and 8 positions apart (inside and at the edge of the reach
+    of the kernel's 8-row ring), at the first and the last position; the
+    two lowest free slots are 3 and 5, the others lie in the last lane row
+    that holds real slots. Every newborn column of lf is large, so the
+    cells after a birth follow it only if the row they read holds the
+    patch. Returns the compared pairs."""
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_sweep import eager_sweep, eager_sweep_ref
+
+    n, m, k_max = 300, 7, k_pad - 3
+    births = [0, 1, 4, 12, 150, 151, 299]
+    free = [3, 5] + list(range(k_max - 5, k_max))
+    rng = np.random.default_rng(k_pad)
+    z = (rng.standard_normal((n, k_pad)) * 3.0).astype(np.float32)
+    gum = rng.gumbel(size=(n, k_pad)).astype(np.float32)
+    lf = (rng.standard_normal((n, n)) * 3.0).astype(np.float32)
+    fresh = rng.uniform(1e-5, 1 - 1e-5, (n, m)).astype(np.float32)
+    params = rng.uniform(1e-5, 1 - 1e-5, (k_max, m)).astype(np.float32)
+    perm = rng.permutation(n).astype(np.int32)
+    assign = rng.choice([0, 1, 2, 4, 6, 7], n).astype(np.int32)
+    sizes = np.full(k_pad, 2.0, np.float32)  # phantom cells elsewhere
+    sizes[:8] = np.bincount(assign, minlength=8) + 2.0
+    sizes[free] = 0.0
+    sizes[k_max:] = -1.0
+    aux = np.full(n, -1e30, np.float32)
+    aux[perm[births]] = 1e30
+    lf[:, perm[births]] = 30.0
+    args = [torch.from_numpy(x).to(dev)
+            for x in (z, gum, lf, fresh, aux, assign, perm, sizes, params)]
+    args.append(torch.tensor(np.log(n - 1.0 + 10.0), dtype=torch.float32,
+                             device=dev))
+    (ka, ks, kp), (ra, rs, rp) = eager_sweep(*args), eager_sweep_ref(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(ka, ra) and torch.equal(ks, rs)
+            and torch.equal(kp, rp)):
+        raise AssertionError(f"eager_sweep crafted k_pad={k_pad}: kernel != "
+                             "twin")
+    born = ka[args[6][births].long()].tolist()
+    if born != free:
+        raise AssertionError(f"eager_sweep crafted k_pad={k_pad}: births "
+                             f"into {born}, expected {free}")
+    return [(ka, ra), (ks, rs), (kp, rp)]
+
+
 def phase_eager_sweep(dev):
     import torch
 
@@ -607,6 +782,15 @@ def phase_eager_sweep(dev):
         log(f"  eager_sweep {name}: {int((ks > 0).sum())} live slots — "
             "kernel == twin")
 
+    for kp in (96, 160, 256, 992):
+        pairs += eager_crafted_check(dev, kp)
+    log("  eager_sweep crafted sweeps (births 1, 3 and 8 positions apart, "
+        "at the first and the last position, into slots 3 and 5 and the "
+        "last lane row) at k_pad 96, 160, 256, 992 — kernel == twin")
+
+    (assign, aux, sizes0, _), lf_c, _ = cases["two_births"]
+    args = (z, gum, lf_c, fresh, aux, assign, perm, sizes0, params, log_denom)
+    births_ms = cuda_ms(lambda: eager_sweep(*args), 21)
     (assign, aux, sizes0, _), _, _ = cases["no_birth"]
     args = (z, gum, lf, fresh, aux, assign, perm, sizes0, params, log_denom)
     ms = cuda_ms(lambda: eager_sweep(*args), 21)
@@ -619,9 +803,10 @@ def phase_eager_sweep(dev):
         OPS_PER_SLOT * N * k_pad)
     log(f"  eager_sweep no birth (n={N}, k_pad={k_pad}): kernel {ms:.4f} ms,"
         f" plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"({bound_by}); the sweep with two births {births_ms:.4f} ms")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "two_births_ms": births_ms}
 
 
 def phase_vecflow(dev):
@@ -856,6 +1041,40 @@ def syncs_per_step(run, steps):
     return sum("synchroniz" in str(w.message) for w in caught) / steps
 
 
+class ScanLengths:
+    """While active, notes the s_count of every rg_scan launch of the
+    split-merge move in a device buffer (one small device copy a launch,
+    no host read); `read()` fetches them once, afterwards."""
+
+    def __init__(self, dev, cap=4096):
+        import torch
+
+        self.buf = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        self.count = 0
+
+    def __enter__(self):
+        from bnpc_tpu_torch.models import splitmerge
+
+        self.scan = splitmerge.rg_scan
+
+        def noting(dz_v, lau_v, dtab, s_count, count1):
+            if self.count < self.buf.shape[0]:
+                self.buf[self.count].copy_(s_count)
+            self.count += 1
+            return self.scan(dz_v, lau_v, dtab, s_count, count1)
+
+        splitmerge.rg_scan = noting
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.models import splitmerge
+
+        splitmerge.rg_scan = self.scan
+
+    def read(self):
+        return self.buf[:min(self.count, self.buf.shape[0])].cpu().numpy()
+
+
 def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
                sweep_kernel):
     """Warm up, time, check and summarize one path. `run_block(state,
@@ -863,14 +1082,19 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
     import torch
 
     reset_launches()
-    state, warm_rows, draws = run_block(state, draws, warm)
-    torch.cuda.synchronize()
-    warm_launches = read_launches()
-    t0 = time.perf_counter()
-    state, rows, draws = run_block(state, draws, timed)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with ScanLengths(state.assignment.device) as scans:
+        state, warm_rows, draws = run_block(state, draws, warm)
+        torch.cuda.synchronize()
+        warm_launches = read_launches()
+        t0 = time.perf_counter()
+        state, rows, draws = run_block(state, draws, timed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     launches = read_launches()
+    s_counts = scans.read()
+    if s_counts.size != launches["rg_scan"]:
+        raise AssertionError(f"{name}: {s_counts.size} scan lengths noted, "
+                             f"{launches['rg_scan']} rg_scan launches")
     check_launches(name, launches, {sweep_kernel, "rg_scan"})
     a, sizes = check_state(state, [warm_rows, rows], n, k_max)
 
@@ -889,6 +1113,9 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
             lambda k: run_block(state, draws, k), 16),
         "clusters": int((sizes > 0).sum()),
         "ari": adjusted_rand(truth, a),
+        "s_count_mean": float(s_counts.mean()),
+        "s_count_median": float(np.median(s_counts)),
+        "s_count_max": int(s_counts.max()),
     }
     log(f"  steps/s {out['steps_per_s']:.3f} ({timed} timed steps, "
         f"{seconds:.3f} s, after {warm} warm-up; {sweeps} Gibbs sweeps, "
@@ -898,6 +1125,9 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
         f"{out['rg_launches_per_sm_move']:.3f}")
     log(f"  host syncs per step {out['host_syncs_per_step']:.3f}; clusters "
         f"{out['clusters']}; ARI vs truth {out['ari']:.4f}")
+    log(f"  s_count over the {s_counts.size} rg_scan launches: mean "
+        f"{out['s_count_mean']:.1f}, median {out['s_count_median']:.1f}, "
+        f"max {out['s_count_max']}")
     return out
 
 
@@ -935,10 +1165,18 @@ def phase_large(dev):
         raise AssertionError("the large-n path must resolve to 'stream'")
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                         block_size=64)
-    return timed_path("large", runner.run_block,
-                      runner.init_chains(TorchDraws(0, dev)),
-                      TorchDraws(1, dev), 16, 64, N_LARGE, K_LARGE, truth,
-                      "lazy_stream")
+    out = timed_path("large", runner.run_block,
+                     runner.init_chains(TorchDraws(0, dev)),
+                     TorchDraws(1, dev), 16, 64, N_LARGE, K_LARGE, truth,
+                     "lazy_stream")
+    # The scan alone at the lengths this path really gave it.
+    for key in ("mean", "max"):
+        s_count = int(out[f"s_count_{key}"])
+        out[f"rg_scan_ms_at_s_count_{key}"] = rg_time(N_LARGE, s_count, 6,
+                                                      dev, 21)
+        log(f"  rg_scan at n={N_LARGE}, s_count={s_count} (this path's "
+            f"{key}): {out[f'rg_scan_ms_at_s_count_{key}']:.4f} ms")
+    return out
 
 
 def phase_eager(dev):
@@ -1084,9 +1322,18 @@ def main():
         for name, (src, rep) in meta.items()]
     log(json.dumps({"paths": {
         name: {f: out[f] for f in ("steps_per_s", "launches_per_sweep",
-                                   "host_syncs_per_step", "clusters", "ari")}
+                                   "host_syncs_per_step", "clusters", "ari",
+                                   "s_count_mean", "s_count_median",
+                                   "s_count_max")}
         for name, out in (("main", main_out), ("large", large_out),
                           ("eager", eager_out))},
+        "rg_scan": {"serial_route_ms": k["rg_scan"]["serial_route_ms"],
+                    "n_large_s_count_n_ms": k["rg_scan"]["large_full_ms"],
+                    "n_large_s_count_mean_ms": large_out[
+                        "rg_scan_ms_at_s_count_mean"],
+                    "n_large_s_count_max_ms": large_out[
+                        "rg_scan_ms_at_s_count_max"]},
+        "eager_sweep_two_births_ms": k["eager_sweep"]["two_births_ms"],
         "lazy_segment_on_stream_z_ms": k["lazy_stream"][
             "resident_same_z_ms"],
         "vecflow_on_stream_z_ms": k["lazy_stream"]["vecflow_same_z_ms"],

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of the Gibbs segment kernels' per-cell step on one CUDA device.
+"""A/B of the sampler kernels' designs on one CUDA device.
 
     python3 scripts/ab_gibbs_step.py [--parent DIR] [--rounds 2]
-                                     [--json FILE]
+                                     [--json FILE] [--only step,k4,k2]
+                                     [--sass DIR]
 
 Builds variants of bnpc_tpu_torch/csrc/{gibbs_common.cuh, lazy_segment.cu,
 lazy_stream.cu} into scratch libraries (nothing in the package changes),
@@ -30,12 +31,51 @@ by a text patch (the script fails if a patch no longer applies):
                       redesign, 35957c4) its sources as they are
     parent_redux      the parent's step (SPL logf a lane a cell) with its
                       shuffle trees replaced by redux.sync: lazy_stream only
+
+`--only k4` does the same for the eager sweep (sweep.cu), at 5,000 x 256
+with lf [5,000, 5,000]: every variant must give the tree's assignment,
+sizes and params on a no-birth, a two-births and a veto sweep, and is timed
+on the no-birth and the two-births sweep (z warm in L2, as after the
+likelihood product):
+
+    k4_tree           the sources as they are
+    k4_runtime_cols   the run-time columns of row_cols also where the row is
+                      exactly 32 * SPL wide (no compile-time offsets)
+    k4_no_ring        no cp.async ring: the next cell's row by plain loads
+                      one cell ahead, in the same one-block loop
+    k4_branchy        the ring's copy and the next cell's loads behind
+                      `if (i + 1 < n)`, as the loop before the redesign had
+                      its loads
+    k4_no_chunks      perm, assign and aux loaded straight from global
+                      memory every cell instead of from the chunk registers
+    k4_birth_in_loop  the birth handled inside the loop's block (patch, then
+                      element t of every row in the ring set anew) instead
+                      of leaving the loop and starting it again
+    k4_patch_wide<D>  the birth's column patch with D rows a lane in
+                      flight instead of one
+    k4_parent         (--parent DIR: a checkout of the commit before this
+                      kernel's redesign, 83beae6) its sweep.cu and header
+
+`--only k2` does it for the restricted scan (rg_scan.cu), at 5,000 cells
+(s_count 5,000 and 1,000, and 5,000 on a non-monotone table, the serial
+route) and at 131,072 cells (s_count = n and 6,553); every variant must
+give the tree's sides on all five:
+
+    k2_tree           the sources as they are
+    k2_t<T>_g<G>      T threads a block (a chunk is T - 32 positions) and
+                      groups of G positions in the chain's loop
+    k2_parent         (--parent DIR, 83beae6 likewise) its rg_scan.cu, one
+                      thread
+
+`--sass DIR` writes `cuobjdump -sass` of the tree's sweep and scan kernels
+there.
 """
 
 import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -53,6 +93,7 @@ from bnpc_tpu_torch.probes import card, cuda_ms  # noqa: E402
 
 CSRC = ROOT / "bnpc_tpu_torch" / "csrc"
 HEADER, SEG, STREAM = "gibbs_common.cuh", "lazy_segment.cu", "lazy_stream.cu"
+SWEEP, RG = "sweep.cu", "rg_scan.cu"
 
 
 def patch(text, pairs):
@@ -196,7 +237,7 @@ def variants(parent):
     """{name: ({file: text}, has lazy_segment)}."""
     src = {f: (CSRC / f).read_text() for f in (HEADER, SEG, STREAM)}
     seg = src[SEG]
-    no_ring = (seg[:seg.index("// perm, and assign / aux gathered")]
+    no_ring = (seg[:seg.index("template <int SPL>  // slots per lane")]
                + NO_RING_KERNEL
                + seg[seg.index("template <int SPL>\nvoid launch("):])
 
@@ -221,6 +262,156 @@ def variants(parent):
             STREAM: old[STREAM]}, False)
     return out
 
+# ---------------------------------------------------------------------------
+# Kernel 4 (sweep.cu): one part of the loop taken out at a time
+# ---------------------------------------------------------------------------
+
+K4_RUNTIME_COLS = [("  if (k_pad == 32 * SPL) {", "  if (false) {")]
+K4_NO_CHUNKS = [
+    ("        issue(r, pair_at(cur.cell, nxt.cell, r - cb));\n"
+     "        const int cell = __shfl_sync(kFull, cur.cell, i - cb);",
+     "        issue(r, perm[min(r, n - 1)]);\n"
+     "        const int cell = perm[i];"),
+    ("        const float a_n = pair_at(cur.a, nxt.a, i + 1 - cb);",
+     "        const float a_n = aux[perm[min(i + 1, n - 1)]];"),
+    ("        const int old_n2 = pair_at(cur.o, nxt.o, i + 2 - cb);",
+     "        const int old_n2 = assign[perm[min(i + 2, n - 1)]];"),
+]
+K4_BRANCHY = [
+    ("        __syncwarp();\n        const int r = i + kRing - 1;",
+     "        __syncwarp();\n        int old_n2 = 0;\n"
+     "        float a_n = 0.f, v_n[SPL];\n"
+     "        const int cell = __shfl_sync(kFull, cur.cell, i - cb);\n"
+     "        if (i + 1 < n) {\n        const int r = i + kRing - 1;"),
+    ("        const int cell = __shfl_sync(kFull, cur.cell, i - cb);\n"
+     "        const float a_n = pair_at(", "        a_n = pair_at("),
+    ("        const int old_n2 = pair_at(", "        old_n2 = pair_at("),
+    ("        float v_n[SPL];\n#pragma unroll\n"
+     "        for (int s = 0; s < SPL; ++s)\n"
+     "          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n",
+     "#pragma unroll\n"
+     "        for (int s = 0; s < SPL; ++s)\n"
+     "          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n"
+     "        }\n"),
+]
+# No ring: the next cell's row by plain loads at the clamped columns, one
+# cell ahead; a restart reads its first row the same way.
+K4_NO_RING = [
+    ("      for (int r = i; r < i + kRing - 1; ++r)\n"
+     "        issue(r, pair_at(cur.cell, nxt.cell, r - cb));\n", ""),
+    ("      cp_async_wait<kRing - 2>();  // row i has landed (this lane's "
+     "part)\n#pragma unroll\n"
+     "      for (int s = 0; s < SPL; ++s)\n"
+     "        v[s] = ring[(unsigned)i % kRing][s * 32 + lane];",
+     "      {\n        const float* row0 =\n"
+     "            z + (size_t)pair_at(cur.cell, nxt.cell, i - cb) * k_pad;\n"
+     "#pragma unroll\n"
+     "        for (int s = 0; s < SPL; ++s) v[s] = row0[col[s]];\n      }"),
+    ("        const int r = i + kRing - 1;\n"
+     "        issue(r, pair_at(cur.cell, nxt.cell, r - cb));\n",
+     "        const float* row_n =\n"
+     "            z + (size_t)pair_at(cur.cell, nxt.cell, i + 1 - cb) * k_pad;"
+     "\n"),
+    ("        cp_async_wait<kRing - 2>();  // position i + 1's row has landed"
+     "\n", ""),
+    ("          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n",
+     "          v_n[s] = row_n[col[s]];\n"),
+]
+# The birth handled inside the loop's block instead of leaving it: patch,
+# land every copy, set element t of the rows already in the ring (a lane a
+# row) and take the register row anew.
+K4_BIRTH_IN_LOOP = [
+    ("        if (p.is_new) {\n          born_cell = cell;\n"
+     "          born_slot = p.t;\n          break;\n        }\n",
+     "        if (p.is_new) {\n"
+     "          patch_birth(z, gum, lf, fresh, params, n, k_pad, m, cell, "
+     "p.t,\n                      lane);\n"
+     "          cp_async_wait_all();\n          __syncwarp();\n"
+     "          const int d = min(max(lane, 1), kRing - 1);\n"
+     "          const int cell_d = pair_at(cur.cell, nxt.cell, i + d - cb);\n"
+     "          if (lane >= 1 && lane < kRing)\n"
+     "            ring[(unsigned)(i + d) % kRing][p.t] =\n"
+     "                lf[(size_t)cell_d * n + cell]\n"
+     "                + gum[(size_t)cell_d * k_pad + p.t];\n"
+     "          __syncwarp();\n#pragma unroll\n"
+     "          for (int s = 0; s < SPL; ++s)\n"
+     "            v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n"
+     "        }\n"),
+]
+
+
+def k4_patch_wide(depth):
+    """The column patch with `depth` rows a lane in flight (clamped,
+    unpredicated loads; predicated stores)."""
+    return [(
+        "  for (int j = lane; j < n; j += 32)\n"
+        "    z[(size_t)j * k_pad + f] = lf[(size_t)j * n + cell]\n"
+        "        + gum[(size_t)j * k_pad + f];\n",
+        f"  for (int j0 = lane; j0 < n; j0 += 32 * {depth}) {{\n"
+        f"    float x[{depth}], g[{depth}];\n#pragma unroll\n"
+        f"    for (int u = 0; u < {depth}; ++u) {{\n"
+        "      const int j = min(j0 + 32 * u, n - 1);\n"
+        "      x[u] = lf[(size_t)j * n + cell];\n"
+        "      g[u] = gum[(size_t)j * k_pad + f];\n    }\n#pragma unroll\n"
+        f"    for (int u = 0; u < {depth}; ++u) {{\n"
+        "      const int j = j0 + 32 * u;\n"
+        "      if (j < n) z[(size_t)j * k_pad + f] = x[u] + g[u];\n    }\n"
+        "  }\n")]
+
+
+def variants_k4(parent):
+    """{name: ({file: text}, the cases its outputs are compared on)}."""
+    src = {f: (CSRC / f).read_text() for f in (HEADER, SWEEP)}
+    every = ("no_birth", "two_births", "veto")
+
+    def with_sweep(pairs):
+        return {**src, SWEEP: patch(src[SWEEP], pairs)}
+
+    out = {
+        "k4_tree": (src, every),
+        "k4_runtime_cols": (with_sweep(K4_RUNTIME_COLS), every),
+        "k4_no_ring": (with_sweep(K4_NO_RING), every),
+        "k4_branchy": (with_sweep(K4_BRANCHY), every),
+        "k4_no_chunks": (with_sweep(K4_NO_CHUNKS), every),
+        "k4_birth_in_loop": (with_sweep(K4_BIRTH_IN_LOOP), every),
+    }
+    for depth in (4, 8, 16, 32):
+        out[f"k4_patch_wide{depth}"] = (with_sweep(k4_patch_wide(depth)),
+                                        every)
+    if parent:
+        pdir = Path(parent) / "bnpc_tpu_torch" / "csrc"
+        out["k4_parent"] = ({f: (pdir / f).read_text()
+                             for f in (HEADER, SWEEP)}, every)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2 (rg_scan.cu): block and group sizes, the form of the link
+# ---------------------------------------------------------------------------
+
+def k2_sizes(text, threads, group):
+    """rg_scan.cu with another block size and group size."""
+    for name, value in (("kThreads", threads), ("kGroup", group)):
+        text, hits = re.subn(rf"constexpr int {name} = \d+;",
+                             f"constexpr int {name} = {value};", text)
+        if hits != 1:
+            raise SystemExit(f"patch no longer applies: {name}")
+    return text
+
+
+def variants_k2(parent):
+    src = {RG: (CSRC / RG).read_text()}
+
+    out = {"k2_tree": (src, None)}
+    for threads, group in ((1024, 8), (512, 16), (512, 8), (256, 16),
+                           (256, 8), (128, 16)):
+        out[f"k2_t{threads}_g{group}"] = (
+            {RG: k2_sizes(src[RG], threads, group)}, None)
+    if parent:
+        out["k2_parent"] = ({RG: (Path(parent) / "bnpc_tpu_torch" / "csrc"
+                                  / RG).read_text()}, None)
+    return out
+
 
 def build(vs, work):
     """One nvcc per source of every variant, all at once; returns
@@ -243,15 +434,17 @@ def build(vs, work):
         log = p.communicate()[0]
         if p.returncode:
             raise SystemExit(f"nvcc failed on {name}/{f}:\n{log}")
-        if name in ("tree", "parent"):
+        if name in ("tree", "parent", "k4_tree", "k2_tree"):
             lines = log.splitlines()
             for i, line in enumerate(lines):
                 if "Compiling entry" in line and (
-                        "ILi4E" in line or "ILi8E" in line):
-                    spl = 4 if "ILi4E" in line else 8
+                        "ILi4E" in line or "ILi8E" in line
+                        or "rg_scan_kernel" in line):
+                    what = ("SPL 4" if "ILi4E" in line else
+                            "SPL 8" if "ILi8E" in line else "scan")
                     use = [x.strip() for x in lines[i + 1:i + 4]
                            if "registers" in x or "spill" in x]
-                    print(f"  {name}/{f} SPL {spl}: " + "; ".join(use))
+                    print(f"  {name}/{f} {what}: " + "; ".join(use))
     libs = {}
     for name in vs:
         d = work / name
@@ -259,7 +452,8 @@ def build(vs, work):
         subprocess.run([nvcc, "-shared", "-o", str(so),
                         *map(str, d.glob("*.o"))], check=True)
         lib = ctypes.CDLL(str(so))
-        for fn in ("bnpc_lazy_segment", "bnpc_lazy_stream"):
+        for fn in ("bnpc_lazy_segment", "bnpc_lazy_stream",
+                   "bnpc_eager_sweep", "bnpc_rg_scan"):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
@@ -307,104 +501,276 @@ def run(fn, lib, args, n, sizes0, i0, ld, dev):
     return tgt, sizes, info
 
 
+def run_step(args, dev, work):
+    """The per-cell step's parts on kernels 1 and 3 (module docstring)."""
+    vs = variants(args.parent)
+    libs = build(vs, work)
+    has_seg = {name: v[1] for name, v in vs.items()}
+
+    rng = np.random.default_rng(2)
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    def ld_of(n):
+        return torch.tensor(np.log(n - 1.0 + 10.0), dtype=torch.float32,
+                            device=dev)
+
+    n_l, k_l, n_s, k_s = 131072, 128, 5000, 256
+    z_l = t((rng.standard_normal((n_l, k_l)) * 4.0).astype(np.float32))
+    z_s = t((rng.standard_normal((n_s, k_s)) * 4.0).astype(np.float32))
+    perm_l = t(rng.permutation(n_l).astype(np.int32))
+    perm_s = t(rng.permutation(n_s).astype(np.int32))
+    ps = perm_s.cpu().numpy()
+    zp_s = z_s[perm_s.long()].contiguous()
+    cases_l = {"no_birth": (case(rng, n_l, k_l, 100, [], dev), 0),
+               "birth": (case(rng, n_l, k_l, 100, [n_l - 4000], dev),
+                         n_l - 8192 + 13)}
+    cases_s = {"no_birth": (case(rng, n_s, k_s, 200, [], dev), 0),
+               "birth": (case(rng, n_s, k_s, 200, ps[[2600]], dev), 1003),
+               "veto": (case(rng, n_s, k_s, 256, ps[:5], dev), 0)}
+
+    def outputs(name):
+        lib, out = libs[name], []
+        for (assign, aux, s0), i0 in cases_l.values():
+            out.append(run(stream, lib, (z_l, aux, assign), n_l, s0, i0,
+                           ld_of(n_l), dev))
+            if has_seg[name]:
+                out.append(run(seg, lib, (z_l, aux, assign, perm_l), n_l,
+                               s0, i0, ld_of(n_l), dev))
+        for (assign, aux, s0), i0 in cases_s.values():
+            pl = perm_s.long()
+            out.append(run(stream, lib, (zp_s, aux[pl], assign[pl]), n_s,
+                           s0, i0, ld_of(n_s), dev))
+            if has_seg[name]:
+                out.append(run(seg, lib, (z_s, aux, assign, perm_s), n_s,
+                               s0, i0, ld_of(n_s), dev))
+        return out
+
+    want = outputs("tree")
+    for name in libs:
+        got = outputs(name)
+        ref = want if has_seg[name] else [
+            w for w, keep in zip(want, [True, False] * 5) if keep]
+        same = all(torch.equal(x, y) for g, r in zip(got, ref)
+                   for x, y in zip(g, r))
+        print(f"  {name}: outputs {'==' if same else '!='} tree "
+              f"({len(got)} segments)")
+        if not same:
+            raise SystemExit(f"{name} disagrees with the tree")
+
+    (a_l, x_l, s_l), _ = cases_l["no_birth"]
+    (a_s, x_s, s_s), _ = cases_s["no_birth"]
+    pl = perm_s.long()
+    tgt_l = torch.empty((n_l,), dtype=torch.int32, device=dev)
+    tgt_s = torch.empty((n_s,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    res = {name: {} for name in libs}
+    for _ in range(args.rounds):
+        for name, lib in libs.items():
+            def timed(fn, fargs, s0, tgt, n, reps):
+                buf = iter([s0.clone() for _ in range(reps)])
+                return cuda_ms(lambda: fn(lib, *fargs, next(buf), tgt,
+                                          info, 0, ld_of(n)), reps)
+            r = res[name]
+            r.setdefault("k3_131072x128", []).append(
+                timed(stream, (z_l, x_l, a_l), s_l, tgt_l, n_l, 7))
+            r.setdefault("k3_5000x256", []).append(
+                timed(stream, (zp_s, x_s[pl], a_s[pl]), s_s, tgt_s, n_s,
+                      21))
+            if has_seg[name]:
+                r.setdefault("k1_5000x256", []).append(
+                    timed(seg, (z_s, x_s, a_s, perm_s), s_s, tgt_s, n_s,
+                          21))
+                r.setdefault("k1_131072x128", []).append(
+                    timed(seg, (z_l, x_l, a_l, perm_l), s_l, tgt_l, n_l,
+                          7))
+    return res
+
+
+def sweep(lib, z, gum, lf, fresh, aux, assign, perm, sizes, params, out,
+          ld):
+    """One launch of the eager sweep; z, sizes and params are changed in
+    place."""
+    rc = lib.bnpc_eager_sweep(
+        z.data_ptr(), gum.data_ptr(), lf.data_ptr(), fresh.data_ptr(),
+        aux.data_ptr(), assign.data_ptr(), perm.data_ptr(), sizes.data_ptr(),
+        params.data_ptr(), out.data_ptr(), ld.data_ptr(), z.shape[0],
+        z.shape[1], params.shape[1], _stream())
+    _build.check_launch(rc, "bnpc_eager_sweep")
+
+
+def run_k4(args, dev, work):
+    """The eager sweep's loop, one part taken out at a time."""
+    vs = variants_k4(args.parent)
+    libs = build(vs, work)
+    n, k, m = 5000, 256, 200
+    rng = np.random.default_rng(3)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    z = t((rng.standard_normal((n, k)) * 4.0).astype(np.float32))
+    gum = t(rng.gumbel(size=(n, k)).astype(np.float32))
+    lf_np = (rng.standard_normal((n, n)) * 4.0).astype(np.float32)
+    fresh = t(rng.uniform(1e-5, 1 - 1e-5, (n, m)).astype(np.float32))
+    params = t(rng.uniform(1e-5, 1 - 1e-5, (k, m)).astype(np.float32))
+    perm_h = rng.permutation(n).astype(np.int32)
+    perm = t(perm_h)
+    ld = torch.tensor(np.log(n - 1.0 + 10.0), dtype=torch.float32,
+                      device=dev)
+    lf_b = lf_np.copy()
+    lf_b[:, perm_h[[2600, 2601]]] = 30.0
+    lf, lf_b = t(lf_np), t(lf_b)
+    cases = {"no_birth": (case(rng, n, k, 200, [], dev), lf),
+             "two_births": (case(rng, n, k, 200, perm_h[[2600, 2601]], dev),
+                            lf_b),
+             "veto": (case(rng, n, k, 256, perm_h[:5], dev), lf)}
+
+    def outputs(lib, name):
+        (assign, aux, s0), lf_c = cases[name]
+        zc, sc, pc = z.clone(), s0.clone(), params.clone()
+        out = torch.full((n,), -7, dtype=torch.int32, device=dev)
+        sweep(lib, zc, gum, lf_c, fresh, aux, assign, perm, sc, pc, out, ld)
+        torch.cuda.synchronize()
+        return out, sc, pc
+
+    want = {name: outputs(libs["k4_tree"], name) for name in cases}
+    if int((want["two_births"][2] != params).any(dim=1).sum()) != 2:
+        raise SystemExit("k4: the two-births case did not give two births")
+    for name, lib in libs.items():
+        for c in vs[name][1]:
+            if not all(torch.equal(x, y)
+                       for x, y in zip(outputs(lib, c), want[c])):
+                raise SystemExit(f"{name} disagrees with the tree on {c}")
+        print(f"  {name}: outputs == tree on {', '.join(vs[name][1])}")
+
+    res = {name: {} for name in libs}
+    reps = 21
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    for _ in range(args.rounds):
+        for name, lib in libs.items():
+            for c in ("no_birth", "two_births"):
+                if c not in vs[name][1]:
+                    continue
+                (assign, aux, s0), lf_c = cases[c]
+                # One z for every launch, as warm in L2 as the sweep finds
+                # it after the likelihood product: a patched column belongs
+                # to a slot that is empty until its birth, so the next
+                # launch's cells before the birth never read it.
+                zc = z.clone()
+                bufs = iter([(s0.clone(), params.clone())
+                             for _ in range(reps)])
+
+                def once():
+                    sc, pc = next(bufs)
+                    sweep(lib, zc, gum, lf_c, fresh, aux, assign, perm, sc,
+                          pc, out, ld)
+
+                res[name].setdefault(f"k4_{c}_5000x256", []).append(
+                    cuda_ms(once, reps))
+    return res
+
+
+def scan(lib, dz, lau, dtab, sc, c1, out):
+    rc = lib.bnpc_rg_scan(dz.data_ptr(), lau.data_ptr(), dtab.data_ptr(),
+                          sc.data_ptr(), c1.data_ptr(), out.data_ptr(),
+                          dz.shape[0], _stream())
+    _build.check_launch(rc, "bnpc_rg_scan")
+
+
+def run_k2(args, dev, work):
+    """The restricted scan: block and group sizes, the form of the link."""
+    vs = variants_k2(args.parent)
+    libs = build(vs, work)
+    rng = np.random.default_rng(1)
+
+    def inputs(n, s_count, swap=False):
+        dz = torch.from_numpy(
+            (rng.standard_normal(n) * 3.0).astype(np.float32)).to(dev)
+        lau = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+        s1r = torch.arange(n + 2, dtype=torch.float32, device=dev)
+        dtab = torch.log(s1r + 1.0) - torch.log(
+            torch.clamp(s_count - s1r, min=0.0))
+        c1 = lau[:s_count].sum().to(torch.int32)
+        if swap:
+            k = int(c1)
+            dtab[[k, k + 3]] = dtab[[k + 3, k]]
+        return (dz, lau, dtab,
+                torch.tensor(s_count, dtype=torch.int32, device=dev), c1)
+
+    shapes = {"k2_s5000": inputs(5000, 5000),
+              "k2_s1000_of_5000": inputs(5000, 1000),
+              "k2_s131072": inputs(131072, 131072),
+              "k2_s6553_of_131072": inputs(131072, 6553),
+              "k2_serial_s5000": inputs(5000, 5000, swap=True)}
+
+    def outputs(lib):
+        got = []
+        for dz, lau, dtab, sc, c1 in shapes.values():
+            out = torch.full((dz.shape[0],), -7, dtype=torch.int32,
+                             device=dev)
+            scan(lib, dz, lau, dtab, sc, c1, out)
+            torch.cuda.synchronize()
+            got.append(out)
+        return got
+
+    want = outputs(libs["k2_tree"])
+    for name, lib in libs.items():
+        if not all(torch.equal(x, y) for x, y in zip(outputs(lib), want)):
+            raise SystemExit(f"{name} disagrees with the tree")
+        print(f"  {name}: outputs == tree ({len(want)} scans)")
+
+    res = {name: {} for name in libs}
+    for _ in range(args.rounds):
+        for name, lib in libs.items():
+            for shape, (dz, lau, dtab, sc, c1) in shapes.items():
+                out = torch.empty((dz.shape[0],), dtype=torch.int32,
+                                  device=dev)
+                reps = 11 if dz.shape[0] > 5000 else 51
+                res[name].setdefault(shape, []).append(cuda_ms(
+                    lambda: scan(lib, dz, lau, dtab, sc, c1, out), reps))
+    return res
+
+
+def write_sass(libs_dir, dest):
+    """cuobjdump -sass of the tree's sweep and scan objects into `dest`."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    os.makedirs(dest, exist_ok=True)
+    for name, obj in (("k4_tree", "sweep.o"), ("k2_tree", "rg_scan.o")):
+        path = libs_dir / name / obj
+        if path.exists():
+            text = subprocess.run([str(tool), "-sass", str(path)],
+                                  capture_output=True, text=True).stdout
+            (Path(dest) / f"{name}.sass").write_text(text)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of the commit to compare with")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", help="also write the times to this file")
+    ap.add_argument("--only", default="step,k4,k2",
+                    help="which A/Bs to run: step, k4, k2 (comma-separated)")
+    ap.add_argument("--sass", help="write the tree's SASS of kernels 4 and 2 "
+                                   "into this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_gibbs_step: no CUDA device")
     dev = "cuda"
     print(card())
-    vs = variants(args.parent)
+    runs = {"step": run_step, "k4": run_k4, "k2": run_k2}
+    res = {}
     work = Path(tempfile.mkdtemp(prefix="ab_gibbs_step_"))
     try:
-        libs = build(vs, work)
-        has_seg = {name: v[1] for name, v in vs.items()}
-
-        rng = np.random.default_rng(2)
-
-        def t(x):
-            return torch.from_numpy(x).to(dev)
-
-        def ld_of(n):
-            return torch.tensor(np.log(n - 1.0 + 10.0), dtype=torch.float32,
-                                device=dev)
-
-        n_l, k_l, n_s, k_s = 131072, 128, 5000, 256
-        z_l = t((rng.standard_normal((n_l, k_l)) * 4.0).astype(np.float32))
-        z_s = t((rng.standard_normal((n_s, k_s)) * 4.0).astype(np.float32))
-        perm_l = t(rng.permutation(n_l).astype(np.int32))
-        perm_s = t(rng.permutation(n_s).astype(np.int32))
-        ps = perm_s.cpu().numpy()
-        zp_s = z_s[perm_s.long()].contiguous()
-        cases_l = {"no_birth": (case(rng, n_l, k_l, 100, [], dev), 0),
-                   "birth": (case(rng, n_l, k_l, 100, [n_l - 4000], dev),
-                             n_l - 8192 + 13)}
-        cases_s = {"no_birth": (case(rng, n_s, k_s, 200, [], dev), 0),
-                   "birth": (case(rng, n_s, k_s, 200, ps[[2600]], dev), 1003),
-                   "veto": (case(rng, n_s, k_s, 256, ps[:5], dev), 0)}
-
-        def outputs(name):
-            lib, out = libs[name], []
-            for (assign, aux, s0), i0 in cases_l.values():
-                out.append(run(stream, lib, (z_l, aux, assign), n_l, s0, i0,
-                               ld_of(n_l), dev))
-                if has_seg[name]:
-                    out.append(run(seg, lib, (z_l, aux, assign, perm_l), n_l,
-                                   s0, i0, ld_of(n_l), dev))
-            for (assign, aux, s0), i0 in cases_s.values():
-                pl = perm_s.long()
-                out.append(run(stream, lib, (zp_s, aux[pl], assign[pl]), n_s,
-                               s0, i0, ld_of(n_s), dev))
-                if has_seg[name]:
-                    out.append(run(seg, lib, (z_s, aux, assign, perm_s), n_s,
-                                   s0, i0, ld_of(n_s), dev))
-            return out
-
-        want = outputs("tree")
-        for name in libs:
-            got = outputs(name)
-            ref = want if has_seg[name] else [
-                w for w, keep in zip(want, [True, False] * 5) if keep]
-            same = all(torch.equal(x, y) for g, r in zip(got, ref)
-                       for x, y in zip(g, r))
-            print(f"  {name}: outputs {'==' if same else '!='} tree "
-                  f"({len(got)} segments)")
-            if not same:
-                raise SystemExit(f"{name} disagrees with the tree")
-
-        (a_l, x_l, s_l), _ = cases_l["no_birth"]
-        (a_s, x_s, s_s), _ = cases_s["no_birth"]
-        pl = perm_s.long()
-        tgt_l = torch.empty((n_l,), dtype=torch.int32, device=dev)
-        tgt_s = torch.empty((n_s,), dtype=torch.int32, device=dev)
-        info = torch.empty((4,), dtype=torch.int32, device=dev)
-        res = {name: {} for name in libs}
-        for _ in range(args.rounds):
-            for name, lib in libs.items():
-                def timed(fn, fargs, s0, tgt, n, reps):
-                    buf = iter([s0.clone() for _ in range(reps)])
-                    return cuda_ms(lambda: fn(lib, *fargs, next(buf), tgt,
-                                              info, 0, ld_of(n)), reps)
-                r = res[name]
-                r.setdefault("k3_131072x128", []).append(
-                    timed(stream, (z_l, x_l, a_l), s_l, tgt_l, n_l, 7))
-                r.setdefault("k3_5000x256", []).append(
-                    timed(stream, (zp_s, x_s[pl], a_s[pl]), s_s, tgt_s, n_s,
-                          21))
-                if has_seg[name]:
-                    r.setdefault("k1_5000x256", []).append(
-                        timed(seg, (z_s, x_s, a_s, perm_s), s_s, tgt_s, n_s,
-                              21))
-                    r.setdefault("k1_131072x128", []).append(
-                        timed(seg, (z_l, x_l, a_l, perm_l), s_l, tgt_l, n_l,
-                              7))
-        print(f"median ms per full no-birth segment, one value a round "
-              f"({card()}):")
+        for key in args.only.split(","):
+            (work / key).mkdir()
+            res.update(runs[key](args, dev, work / key))
+            if args.sass:
+                write_sass(work / key, args.sass)
+        print(f"median ms per launch, one value a round ({card()}):")
         for name, r in res.items():
-            print(f"  {name:14s} " + "  ".join(
+            print(f"  {name:17s} " + "  ".join(
                 f"{k} {'/'.join(f'{x:.4f}' for x in v)}"
                 for k, v in r.items()))
         if args.json:

@@ -11,7 +11,8 @@ first. Then prints:
   * per-step wall time by move kind (Gibbs / split / merge), each step
     ending in torch.cuda.synchronize();
   * a torch.profiler window: wall time, device self time and the device's
-    busy share, and the top operators by device and by host time.
+    busy share, each hand-written kernel's device time and share, and the
+    top operators by device and by host time.
 """
 
 import argparse
@@ -87,6 +88,14 @@ def main():
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     print(f"profiled {args.profiled} steps: wall {wall_ms:.1f} ms, device "
           f"self time {dev_ms:.1f} ms, busy share {dev_ms / wall_ms:.4f}")
+    # The hand-written kernels by name, however small their share.
+    for e in sorted(table, key=lambda e: -e.self_device_time_total):
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key.startswith("void (anonymous namespace)::")):
+            ms = e.self_device_time_total / 1e3
+            print(f"  {e.key.split('::')[1].split('(')[0]}: {ms:.3f} ms, "
+                  f"{ms / dev_ms:.4%} of device time, {e.count} launches of "
+                  f"{ms / e.count:.4f} ms")
     print(table.table(sort_by="self_device_time_total", row_limit=20))
     print(table.table(sort_by="self_cpu_time_total", row_limit=20))
 

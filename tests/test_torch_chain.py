@@ -442,11 +442,15 @@ def test_model_runs_on_past_a_birth(seed):
 def test_chain_bound_arithmetic():
     cycles = {"shfl_fmax": 30.0, "redux_max": 20.0, "logf": 90.0,
               "smem_load_use": 25.0, "cmp_select": 8.0, "fadd": 4.0,
-              "iadd": 4.0}
+              "iadd": 4.0, "icmp_select": 8.0, "scan_link": 9.0}
     per_cell = chain_probe.argmax_chain_cycles(cycles)
     # select, add, two reductions, select
     assert per_cell == 2 * 20.0 + 4.0 + 2 * 8.0
-    assert chain_probe.scan_chain_cycles(cycles) == 25.0 + 4.0 + 8.0 + 4.0
+    # The scan as written: load-use, add, compare + select, integer add;
+    # with thresholds known ahead: the measured integer link.
+    assert chain_probe.table_scan_chain_cycles(cycles) \
+        == 25.0 + 4.0 + 8.0 + 4.0
+    assert chain_probe.scan_chain_cycles(cycles) == 9.0
     ms = chain_probe.chain_bound_ms(5000, per_cell, clock_ghz=2.0)
     assert ms == pytest.approx(5000 * 60.0 / 2.0e9 * 1e3)
 
