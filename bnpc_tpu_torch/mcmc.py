@@ -8,12 +8,13 @@ move, the alpha resample, the cluster-parameter MH and the error-rate MH,
 and emits one trace row. The runner loops over steps in Python, copies each
 block's rows to the host, and assembles the reference's per-chain results.
 Steps mode with one chain only; the time and lugsail modes, checkpoints and
-multi-chain runs are not ported yet.
+multi-chain runs are not ported yet (ROADMAP.md queue 1, items 8 and 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -47,14 +48,17 @@ class TraceRow(NamedTuple):
 def _trace_dtypes(cfg: ModelConfig):
     """(assignment, params) dtypes of trace rows (bnpc_tpu/mcmc.py:54-79):
     the assignment cast is lossless (slot ids < k_max); params are recorded
-    in f16 (<= 2^-11 relative rounding of the RECORDED values only)."""
+    in f16 (<= 2^-11 relative rounding of the RECORDED values only), or in
+    f32 under BNPC_TPU_TRACE_F32=1."""
     if cfg.k_max <= 256:
         a = torch.uint8
     elif cfg.k_max <= 65536:
         a = torch.uint16
     else:
         a = torch.int32
-    return a, torch.float16
+    p = (torch.float32 if os.environ.get("BNPC_TPU_TRACE_F32") == "1"
+         else torch.float16)
+    return a, p
 
 
 def resolve_trace_k(cfg: ModelConfig, mcmc_cfg: MCMCConfig) -> int:
@@ -152,6 +156,14 @@ class ChainResult:
     burn_in: int
     mh_counts: np.ndarray     # [5, 2]
 
+    def as_dict(self) -> dict:
+        """The reference's results dict (bnpc_tpu's ChainResult.as_dict)."""
+        return {
+            "ML": self.ML, "MAP": self.MAP, "DP_alpha": self.DP_alpha,
+            "FN": self.FN, "FP": self.FP, "assignments": self.assignments,
+            "params": self.params, "burn_in": self.burn_in,
+        }
+
 
 def _rows_to_host(rows: list[TraceRow]) -> dict:
     """Stack a block's device rows and copy them to the host."""
@@ -172,14 +184,18 @@ class MCMCRunner:
         self.block_size = block_size
         self.trace_k = resolve_trace_k(cfg, mcmc_cfg)
         self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
+        # The seed of each chain of the last run() (args.txt's chain_seeds).
+        self.seeds: np.ndarray | None = None
 
-    def init_chains(self, draws: Draws, n_chains: int = 1) -> CRPState:
-        """Random initial state of the one chain (init_state mode
-        'random'), from the first of `n_chains` keys as in bnpc_tpu."""
+    def init_chains(self, draws: Draws, n_chains: int = 1,
+                    assign=None) -> CRPState:
+        """Initial state of the one chain, from the first of `n_chains` keys
+        as in bnpc_tpu: `assign` relabelled to compact slots, else random
+        (init_state mode 'random')."""
         if n_chains != 1:
             raise ValueError("the port runs one chain")
         return init_state(draws.split(n_chains)[0], self.cfg, self.data,
-                          self.device, mode="random")
+                          self.device, mode="random", assign=assign)
 
     def run_block(self, state: CRPState, draws: Draws, n_steps: int):
         """Run `n_steps` steps. Returns (state, rows, next_draws): rows is a
@@ -192,15 +208,22 @@ class MCMCRunner:
             rows.append(row)
         return state, _rows_to_host(rows), keys[0]
 
-    def run(self, run_var, seed: int, n_chains: int = 1):
-        """run_var = (steps, burn_in). Returns [ChainResult]."""
+    def run(self, run_var, seed: int, n_chains: int = 1, assign=None,
+            verbosity: int = 1):
+        """run_var = (steps, burn_in); a seed below 0 (or None) draws one.
+        `assign` fixes the initial assignment (-fa); at verbosity 2 each
+        block prints its MH acceptance rates. Returns [ChainResult]."""
         steps, burn_in = run_var
         if not isinstance(steps, (int, np.integer)) or n_chains != 1:
             raise ValueError("the port runs steps mode with one chain")
         steps, burn_in = int(steps), int(burn_in)
+        if seed is None or seed < 0:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        # The one chain's stream is this seed's: it is the chain's seed.
+        self.seeds = np.array([seed], dtype=np.int64)
         root = TorchDraws(seed, self.device)
         k_init, k_run = root.split(2)
-        state = self.init_chains(k_init, n_chains)
+        state = self.init_chains(k_init, n_chains, assign=assign)
         draws = k_run.split(n_chains)[0]
 
         init = _rows_to_host([summarize(state, self.data, self.cfg,
@@ -216,6 +239,8 @@ class MCMCRunner:
             rows["params"] = rows["params"][lo:]
             blocks.append(rows)
             done += b
+            if verbosity > 1:
+                self._print_progress(done, steps, rows["mh_counts"])
         if burn_in > 0:
             blocks[0]["params"] = blocks[0]["params"][:0]
         full = {f: np.concatenate([blk[f] for blk in blocks])
@@ -227,3 +252,17 @@ class MCMCRunner:
             params=full["params"].astype(np.float32), burn_in=burn_in,
             mh_counts=full["mh_counts"].sum(axis=0),
         )]
+
+    def _print_progress(self, done, steps, mh_counts):
+        """Per-block progress + mean MH acceptance (libs/MCMC.py:369-379)."""
+        from bnpc_tpu_torch import io
+
+        counts = mh_counts.sum(axis=0)
+        print(f"\tstep:\t{done} / {steps}\n\t\tmean MH accept. ratio:")
+        io.show_mh_acceptance(counts[0], "parameters", 1)
+        if not self.mcmc_cfg.fix_assign:
+            io.show_mh_acceptance(counts[1], "splits")
+            io.show_mh_acceptance(counts[2], "merges")
+        if self.cfg.learn_errors:
+            io.show_mh_acceptance(counts[3], "FP")
+            io.show_mh_acceptance(counts[4], "FN")

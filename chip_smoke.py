@@ -84,16 +84,33 @@ Phases (any failure exits non-zero, and no result line is printed):
                the call returns, and with its host read); and
                chain_probe.main(), the cycles of the links of the serial
                chain, from which each kernel's chain bound is computed:
-               cells x the shortest dependent chain / the SM clock.
+               cells x the shortest dependent chain / the SM clock;
+  9. cli     — the port's entry point, bnpc_tpu_torch.cli.main, on the card:
+               the main cell's data written as the reference's input file
+               (mutations x cells, 3 for missing) and run with -s 512 -e
+               posterior ML MAP (lazy_segment and rg_scan launched,
+               lazy_stream not), then the 131,072-cell data with -s 64
+               --max_clusters 128 (lazy_stream and rg_scan, never
+               lazy_segment); args.txt, errors.txt, assignment.txt and every
+               genotypes_<est>_mean.tsv parsed (n entries, m x n finite); a
+               line of stage seconds per cell, each stage ending in
+               torch.cuda.synchronize(); the posterior's ARI against the
+               planted clones. Then the main cell's chain result through
+               io.infer_results on the card and on the CPU, on the landmark
+               MPEAR path and on the exact one (BNPC_TPU_MPEAR_EXACT_MAX
+               8192): assignments equal exactly, floats to rtol 1e-5, PSRF
+               equal.
 
-Before each of phases 5-7, and before each probe in phase 8, every kernel's
-launch counter is set to 0; the counters read after it are that path's
-launches (the probes' paths are their main()s). The last three lines
+Before each of phases 5-7, before each probe in phase 8 and before each CLI
+run of phase 9, every kernel's launch counter is set to 0; the counters
+read after it are that path's launches (the probes' paths are their
+main()s). The last three lines
 are the nvidia-smi line, a JSON line with one entry per kernel, and
 {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import time
 import warnings
 
@@ -132,22 +149,6 @@ def make_data(n, m, k_clones, missing, seed=0, fp=0.001):
     data[(data == 0) & (rng.random((n, m)) < fp)] = 1
     data[rng.random((n, m)) < missing] = np.nan
     return data, assign
-
-
-def adjusted_rand(a, b) -> float:
-    """Adjusted Rand index of two labelings (numpy only)."""
-    _, ai = np.unique(a, return_inverse=True)
-    _, bi = np.unique(b, return_inverse=True)
-    table = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
-    np.add.at(table, (ai, bi), 1)
-
-    def comb2(x):
-        return (x * (x - 1) // 2).sum()
-
-    s_ij = comb2(table)
-    s_a, s_b = comb2(table.sum(1)), comb2(table.sum(0))
-    expected = s_a * s_b / comb2(np.array([len(a)]))
-    return float((s_ij - expected) / (0.5 * (s_a + s_b) - expected))
 
 
 def bench_configs(n=N, k_max=K_MAX):
@@ -1081,6 +1082,8 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
     draws, steps)` returns (state, rows, draws)."""
     import torch
 
+    from bnpc_tpu_torch.estimators import ari
+
     reset_launches()
     with ScanLengths(state.assignment.device) as scans:
         state, warm_rows, draws = run_block(state, draws, warm)
@@ -1112,7 +1115,7 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
         "host_syncs_per_step": syncs_per_step(
             lambda k: run_block(state, draws, k), 16),
         "clusters": int((sizes > 0).sum()),
-        "ari": adjusted_rand(truth, a),
+        "ari": ari(a, truth),
         "s_count_mean": float(s_counts.mean()),
         "s_count_median": float(np.median(s_counts)),
         "s_count_max": int(s_counts.max()),
@@ -1247,6 +1250,249 @@ def chain_bounds():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the CLI
+# ---------------------------------------------------------------------------
+
+
+def write_input(path, data):
+    """The reference's input file: mutations x cells, space-separated, 3
+    for missing; every cell one digit, so the text is built as bytes."""
+    x = np.where(np.isnan(data), 3, data).astype(np.uint8).T
+    buf = np.full((x.shape[0], 2 * x.shape[1]), ord(" "), np.uint8)
+    buf[:, 0::2] = x + ord("0")
+    buf[:, -1] = ord("\n")
+    buf.tofile(path)
+
+
+class Stages:
+    """While active, times the CLI's stages: each function of `TARGETS` is
+    wrapped so that its call ends in torch.cuda.synchronize() and its
+    seconds add to its stage (nested stages count in both). Also keeps the
+    arguments of the last generate_output call."""
+
+    def __init__(self):
+        from bnpc_tpu_torch import cli, diagnostics, estimators, io, mcmc
+
+        self.targets = [
+            (io, "load_data", "load"),
+            (cli, "pack_data", "pack"),
+            (mcmc.MCMCRunner, "run", "sample"),
+            (diagnostics, "lugsail_psrf", "psrf"),
+            (estimators, "mpear_assignment", "mpear"),
+            (estimators, "_sim_to_cols_device", "similarity"),
+            (estimators, "_ward_cuts", "ward_tree"),
+            (estimators, "_extend", "extend_score"),
+            (estimators, "_mpear_scores_pairs", "extend_score"),
+            (estimators, "_mpear_scores_batch", "extend_score"),
+            (estimators, "consensus_genotypes", "consensus"),
+            (estimators, "latents_point", "point"),
+            (io, "save_run", "write"),
+        ]
+        self.seconds = {}
+        self.output_args = None
+        self._cli = cli
+
+    def _wrap(self, fn, stage):
+        import torch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = stage
+            if stage == "point":  # latents_point(results, est, ...)
+                key = f"point_{args[1]}"
+            self.seconds[key] = (self.seconds.get(key, 0.0)
+                                 + time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def __enter__(self):
+        self._saved = [(o, a, getattr(o, a)) for o, a, _ in self.targets]
+        for owner, attr, stage in self.targets:
+            setattr(owner, attr, self._wrap(getattr(owner, attr), stage))
+        generate = self._cli.generate_output
+
+        def keep(*args):
+            self.output_args = args
+            return generate(*args)
+
+        self._saved.append((self._cli, "generate_output", generate))
+        self._cli.generate_output = keep
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+    def line(self):
+        """One line of stage seconds; consensus and MPEAR without the
+        stages inside them."""
+        s = dict(self.seconds)
+        inner = sum(s.get(k, 0.0) for k in ("similarity", "ward_tree",
+                                              "extend_score"))
+        s["mpear_rest"] = s.get("mpear", 0.0) - inner
+        s["consensus_rest"] = s.get("consensus", 0.0) - s.get("mpear", 0.0)
+        order = ["load", "pack", "sample", "psrf", "similarity", "ward_tree",
+                 "extend_score", "mpear_rest", "consensus_rest", "point_ML",
+                 "point_MAP", "write"]
+        return {k: round(s[k], 4) for k in order if k in s}
+
+
+def read_geno(path, n, m):
+    """A genotypes_*.tsv as written: a header of n cell labels, m rows of
+    a mutation label and n numbers."""
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        rows = [np.fromstring(line.split("\t", 1)[1], sep="\t")
+                for line in fh]
+    if len(header) != n + 1 or len(rows) != m \
+            or any(r.size != n for r in rows):
+        raise AssertionError(f"{path}: not {m} x {n}")
+    geno = np.stack(rows)
+    if not np.isfinite(geno).all():
+        raise AssertionError(f"{path}: non-finite genotypes")
+    return geno
+
+
+def check_outputs(out_dir, estimators_, n, m):
+    """The files of bnpc_tpu's generate_output, parsed: one assignment of
+    n cells and one finite m x n genotype table per estimator."""
+    import pandas as pd
+
+    names = set(os.listdir(out_dir))
+    need = {"args.txt", "errors.txt", "assignment.txt"} | {
+        f"genotypes_{e}_mean.tsv" for e in estimators_}
+    if not need <= names:
+        raise AssertionError(f"{out_dir}: missing {sorted(need - names)}")
+    with open(os.path.join(out_dir, "args.txt")) as fh:
+        keys = {ln.split(":", 1)[0] for ln in fh if ":" in ln}
+    if not {"input", "steps", "PSRF", "chain_seeds", "time"} <= keys:
+        raise AssertionError("args.txt lacks run keys")
+    errors = pd.read_csv(os.path.join(out_dir, "errors.txt"), sep="\t")
+    table = pd.read_csv(os.path.join(out_dir, "assignment.txt"), sep="\t")
+    if list(errors["estimator"]) != list(estimators_) \
+            or list(table["estimator"]) != list(estimators_):
+        raise AssertionError("errors.txt / assignment.txt rows")
+    assigns = {}
+    for est, text in zip(table["estimator"], table["Assignment"]):
+        a = np.array(text.split(" "), dtype=np.int64)
+        if a.size != n:
+            raise AssertionError(f"{est}: {a.size} assignments, not {n}")
+        assigns[est] = a
+        read_geno(os.path.join(out_dir, f"genotypes_{est}_mean.tsv"), n, m)
+    return assigns
+
+
+def compare_inferred(tag, gpu, cpu, psrf_gpu, psrf_cpu):
+    """GPU against CPU estimators: assignments exactly, every float to
+    rtol 1e-5, PSRF equal."""
+    if psrf_gpu != psrf_cpu:
+        raise AssertionError(f"{tag}: PSRF {psrf_gpu} != {psrf_cpu}")
+    for chain in cpu:
+        for est, want in cpu[chain].items():
+            got = gpu[chain][est]
+            if not np.array_equal(np.asarray(got["assignment"]),
+                                  np.asarray(want["assignment"])):
+                raise AssertionError(f"{tag} {est}: assignments differ")
+            np.testing.assert_allclose(got["genotypes"].values,
+                                       want["genotypes"].values, rtol=1e-5)
+            for key in ("a", "FN", "FP", "FN_geno", "FP_geno"):
+                np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
+                                           err_msg=f"{tag} {est} {key}")
+
+
+def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi):
+    """One CLI run through bnpc_tpu_torch.cli.main on the card; its
+    launches, outputs and stage times."""
+    import torch
+
+    from bnpc_tpu_torch import cli
+    from bnpc_tpu_torch.estimators import ari
+
+    t0 = time.perf_counter()
+    data, truth = make_data(n, M, k_clones, 0.1, seed=0)
+    path = os.path.join(tmp, f"{cell}.txt")
+    write_input(path, data)
+    made = time.perf_counter() - t0
+    out_dir = os.path.join(tmp, f"{cell}_out")
+    args = cli.parse_args([path, *argv, "-b", "0.33", "-np", "--seed", "0",
+                           "-o", out_dir, "-v", "0", "--device", dev])
+    reset_launches()
+    with Stages() as stages:
+        t0 = time.perf_counter()
+        cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches(f"cli {cell}", launches, {sweep, "rg_scan"})
+    assigns = check_outputs(out_dir, estimators_, n, M)
+    score = ari(assigns["posterior"], truth)
+    line = stages.line()
+    log(f"  {cell}: {n:,} x {M}, argv {' '.join(argv)}; input made and "
+        f"written in {made:.1f} s; cli.main {wall:.3f} s; launches {launches}"
+        f"; posterior ARI vs planted clones {score:.4f}")
+    log(f"  stage seconds ({cell}; {smi}): {json.dumps(line)}")
+    return {"wall_s": wall, "stages_s": line, "launches": launches,
+            "ari_posterior": score, "output_args": stages.output_args}
+
+
+def phase_cli(dev, smi):
+    """Phase 9: the port's entry point on the card at the main cell and the
+    large cell; then the main cell's chain result through infer_results
+    on the card and on the CPU, on the landmark and on the exact MPEAR
+    path."""
+    import tempfile
+
+    from bnpc_tpu_torch import io
+
+    ests = ["posterior", "ML", "MAP"]
+    with tempfile.TemporaryDirectory() as tmp:
+        main_cell = cli_run(dev, tmp, "main", N, 10,
+                            ["-s", "512", "-e", *ests], ests,
+                            "lazy_segment", smi)
+        args, results, data, _ = main_cell.pop("output_args")
+        knob = "BNPC_TPU_MPEAR_EXACT_MAX"
+        for path_name, exact_max in (("landmark", None), ("exact", "8192")):
+            saved = os.environ.get(knob)
+            if exact_max is not None:
+                os.environ[knob] = exact_max
+            try:
+                secs, out = {}, {}
+                for d in (dev, "cpu"):
+                    t0 = time.perf_counter()
+                    out[d] = io.infer_results(args, results, data, device=d)
+                    secs[d] = time.perf_counter() - t0
+            finally:
+                if saved is None:
+                    os.environ.pop(knob, None)
+                else:
+                    os.environ[knob] = saved
+            compare_inferred(path_name, out[dev][0], out["cpu"][0],
+                             out[dev][1], out["cpu"][1])
+            main_cell[f"infer_{path_name}_s"] = secs
+            post = out[dev][0]["mean"]["posterior"]["assignment"]
+            main_cell[f"{path_name}_assignment"] = post
+            log(f"  infer_results, {path_name} MPEAR path: GPU == CPU "
+                f"(assignments exactly, floats rtol 1e-5, PSRF equal); "
+                f"{secs[dev]:.3f} s on {dev}, {secs['cpu']:.3f} s on the "
+                f"CPU; {np.unique(post).size} clusters")
+        from bnpc_tpu_torch.estimators import ari
+
+        main_cell["ari_landmark_vs_exact"] = ari(
+            main_cell.pop("landmark_assignment"),
+            main_cell.pop("exact_assignment"))
+        log(f"  landmark against exact consensus at {N:,} cells: ARI "
+            f"{main_cell['ari_landmark_vs_exact']:.4f}")
+        large_cell = cli_run(dev, tmp, "large", N_LARGE, 20,
+                             ["-s", "64", "--max_clusters", str(K_LARGE)],
+                             ["posterior"], "lazy_stream", smi)
+        large_cell.pop("output_args")
+    return {"main": main_cell, "large": large_cell}
+
+
 def main():
     import torch
 
@@ -1254,43 +1500,45 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/8] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/9] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
     from bnpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/8] build: {time.perf_counter() - t0:.1f} s "
+    log(f"[2/9] build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/8] kernels against their plain twins (exact match)")
+    log("[3/9] kernels against their plain twins (exact match)")
     k = {"lazy_segment": phase_lazy_segment(dev),
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev),
          "while_exit": phase_while_exit(dev)}
-    log("[4/8] small input: GPU against CPU on identical draws")
+    log("[4/9] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager"):
         phase_small(dev, impl)
-    log(f"[5/8] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    log(f"[5/9] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} ({smi})")
     main_out = phase_main(dev)
-    log(f"[6/8] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+    log(f"[6/9] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
         f"{K_LARGE} ({smi})")
     large_out = phase_large(dev)
-    log(f"[7/8] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+    log(f"[7/9] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
         f"{K_MAX} ({smi})")
     eager_out = phase_eager(dev)
     log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
         f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
         "configuration")
-    log(f"[8/8] probes: their entry points on the card ({smi})")
+    log(f"[8/9] probes: their entry points on the card ({smi})")
     probes = phase_probes()
+    log(f"[9/9] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
+    cli_out = phase_cli(dev, smi)
 
     chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
@@ -1340,7 +1588,8 @@ def main():
         "chain": chain,
         "probes": {name: {f: v for f, v in out.items()
                           if f != "launches_path"}
-                   for name, out in probes.items()}}))
+                   for name, out in probes.items()},
+        "cli": cli_out}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     # The port runs on one device.
