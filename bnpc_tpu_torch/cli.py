@@ -6,9 +6,9 @@ defaults, and the same output files.
 
 The JAX package's ``tpu`` group becomes the ``device`` group: ``--device``
 (cuda unless the caller asks for the CPU), ``--profile`` (a torch.profiler
-trace), and the capacity knobs with their meaning. Flags whose run mode is
-not ported yet are parsed and refused before anything runs, each naming
-the ROADMAP.md item that ports it.
+trace), and the capacity knobs with their meaning. --mesh (multi-GPU) is
+parsed and refused before anything runs, naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -25,19 +25,6 @@ from bnpc_tpu_torch import io
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import pack_data
 from bnpc_tpu_torch.mcmc import MCMCRunner
-
-# Flags parsed for the JAX package's flag table but not ported yet: how to
-# tell one is used, and the item of ROADMAP.md's queue 1 that ports it.
-UNPORTED = (
-    ("-r/--runtime", lambda a: a.runtime > 0, 8),
-    ("-ls/--lugsail", lambda a: a.lugsail > 0, 8),
-    ("--checkpoint_dir", lambda a: bool(a.checkpoint_dir), 8),
-    ("-n/--chains above 1", lambda a: a.chains > 1, 9),
-    ("--coupled_moves", lambda a: a.coupled_moves, 9),
-    ("--blocked_gibbs", lambda a: a.blocked_gibbs > 0, 10),
-    ("--mesh", lambda a: bool(a.mesh), 11),
-)
-
 
 def ratio(val):
     val = float(val)
@@ -115,16 +102,15 @@ def parse_args(argv=None):
 
     mcmc = parser.add_argument_group("MCMC")
     mcmc.add_argument("-n", "--chains", type=int, default=1,
-                      help="Number of chains. Default = 1 (the only value "
-                           "ported yet).")
+                      help="Number of chains, run one after another on "
+                           "the device. Default = 1.")
     mcmc.add_argument("-s", "--steps", type=int, default=5000,
                       help="Number of MCMC steps. Default = 5000.")
     mcmc.add_argument("-r", "--runtime", type=int, default=-1,
-                      help="Runtime in minutes; overrides steps. Not "
-                           "ported yet.")
+                      help="Runtime in minutes; overrides steps.")
     mcmc.add_argument("-ls", "--lugsail", type=psrf_cutoff, default=-1,
                       help="Terminate when the lugsail PSRF undercuts this "
-                           "threshold (e.g. 1.05). Not ported yet.")
+                           "threshold (e.g. 1.05).")
     mcmc.add_argument("-b", "--burn_in", type=percent, default=0.33,
                       help="Ratio of steps discarded as burn-in.")
     mcmc.add_argument("-cup", "--conc_update_prob", type=percent,
@@ -185,28 +171,27 @@ def parse_args(argv=None):
                         help="Write a torch.profiler trace of the sampling "
                              "run to this directory (chrome trace JSON).")
     device.add_argument("--checkpoint_dir", type=str, default="",
-                        help="Sampler checkpoints. Not ported yet.")
+                        help="Directory for sampler checkpoints; a run "
+                             "resumes from the checkpoint found there.")
     device.add_argument("--mesh", type=str, default="",
                         help="Device-mesh shape CHAINS,MUTS. Not ported yet.")
     device.add_argument("--blocked_gibbs", type=int, default=0,
-                        help="Approximate blocked Gibbs sweep. Not ported "
-                             "yet.")
+                        help="Approximate blocked Gibbs sweep with this "
+                             "many cells a block (0 = the exact sweep).")
     device.add_argument("--coupled_moves", action="store_true",
                         default=False,
-                        help="Shared move selection across chains. Not "
-                             "ported yet.")
+                        help="One move selection a step shared by all "
+                             "chains.")
 
     return parser.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
-    """Exit with an error naming the first flag whose mode is not ported."""
-    for flag, used, item in UNPORTED:
-        if used(args):
-            raise SystemExit(
-                f"error: {flag} is not ported to bnpc_tpu_torch yet "
-                f"(ROADMAP.md queue 1, item {item})"
-            )
+    """--mesh (multi-GPU) is parsed for bnpc_tpu's flag table but not
+    ported: exit before anything runs, naming the ROADMAP.md item."""
+    if args.mesh:
+        raise SystemExit("error: --mesh is not ported to bnpc_tpu_torch yet "
+                         "(ROADMAP.md queue 1, item 11)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -281,6 +266,8 @@ def build_mcmc_config(args) -> MCMCConfig:
         sm_steps=args.split_merge_steps,
         fix_assign=bool(args.fixed_assignment),
         trace_k=max(args.trace_clusters, 0),
+        gibbs_block=max(args.blocked_gibbs, 0),
+        coupled_moves=args.coupled_moves,
     )
 
 
@@ -408,11 +395,14 @@ def main(args) -> None:
         print(f"Run MCMC with ({args.chains} chains {run_str}):")
 
     if args.debug:
+        # One chain, one step a block (bnpc_tpu/cli.py's --debug).
+        args.chains = 1
         args.block_size = 1
 
     packed = pack_data(data, device)
     runner = MCMCRunner(cfg, mcmc_cfg, packed, device=device,
-                        block_size=args.block_size)
+                        block_size=args.block_size,
+                        checkpoint_dir=args.checkpoint_dir or None)
     assign = (
         io.load_assignment_txt(args.fixed_assignment)
         if args.fixed_assignment else None

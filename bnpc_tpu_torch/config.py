@@ -98,3 +98,11 @@ class MCMCConfig:
     # Cluster rows of the parameter trace kept per recorded step
     # (0 -> min(k_max, 128)).
     trace_k: int = 0
+    # Opt-in APPROXIMATE blocked Gibbs sweep (models/gibbs._blocked_impl):
+    # 0 = the exact sweep; N > 0 = N cells decide a block against frozen
+    # sizes, birth blocks replayed exactly. Deviates from the reference.
+    gibbs_block: int = 0
+    # One move-type selection per step shared by every chain (the moves'
+    # own randomness stays per chain); chains are then no longer
+    # independent processes. Opt-in; honoured whenever n_chains > 1.
+    coupled_moves: bool = False

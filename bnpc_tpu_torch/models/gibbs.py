@@ -23,12 +23,18 @@ the same result:
     patches births in-kernel. No host read.
   * ``scan`` — a plain sequential loop with the semantics of bnpc_tpu's
     ``_scan_impl``. The default on the CPU.
+  * ``blocked`` — the opt-in APPROXIMATE blocked sweep (bnpc_tpu's
+    ``_blocked_impl``; ``MCMCConfig.gibbs_block``): cells decide in blocks
+    against frozen cluster sizes, and a block that would birth a cluster
+    is replayed exactly. Plain torch ops on every device.
 
 On a CPU tensor ``lazy``, ``stream`` and ``eager`` run their kernels' plain
 twins, so the CPU tests hold each path against its bnpc_tpu counterpart.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -90,12 +96,16 @@ def resolve_impl(impl: str, cfg: ModelConfig, on_cuda: bool) -> str:
 
 
 def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
-                cfg: ModelConfig, impl: str = "auto") -> CRPState:
+                cfg: ModelConfig, impl: str = "auto",
+                block: int = 0) -> CRPState:
     """One full Gibbs sweep. impl: "auto" (see resolve_impl), "lazy",
-    "stream", "eager" or "scan"."""
+    "stream", "eager", "scan" or "blocked" (``block`` cells a block,
+    default 128)."""
     impl = resolve_impl(impl, cfg, state.assignment.is_cuda)
     run = {"lazy": _lazy_impl, "stream": _stream_impl, "eager": _eager_impl,
-           "scan": _scan_impl}.get(impl)
+           "scan": _scan_impl,
+           "blocked": functools.partial(_blocked_impl,
+                                        block=block or 128)}.get(impl)
     if run is None:
         raise ValueError(f"unknown Gibbs impl {impl!r}")
     if impl == "eager":
@@ -246,3 +256,104 @@ def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
         log_denom.to(torch.float32).contiguous())
     return state._replace(assignment=assignment, params=params,
                           cluster_size=sizes[:k_max].to(torch.int32))
+
+
+def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+                  block):
+    """Opt-in APPROXIMATE blocked sweep (bnpc_tpu _blocked_impl; no
+    reference counterpart). Cells are visited in the permuted order in
+    blocks of ``block``: every cell of a block decides against the cluster
+    sizes frozen at block entry (minus its own membership), and the block's
+    moves are applied at once. A block whose frozen pass holds a birth is
+    replayed exactly, cell by cell, as ``_scan_impl`` does, with its newborn
+    Z columns patched in for every later block. block=1 is the exact sweep.
+
+    A frozen pass runs from a block to the end of the sweep as [block, k]
+    tensor work per block with no host read; only its first birth block
+    comes back to the host, once a pass (bnpc_tpu's scan / while_loop
+    structure). The approximation and its O(block / n) bias are bnpc_tpu's
+    (tests/test_blocked.py); its veto channel is not ported."""
+    n, k_max = cfg.n_cells, cfg.k_max
+    dev = z.device
+    B = max(1, int(block))
+    G = -(-n // B)
+    pad = G * B - n
+    order = perm.long()
+    # Visit-order staging, one gather a sweep; padded positions are
+    # inactive (aux -inf, assignment 0, never applied).
+    z3 = torch.nn.functional.pad(z[order], (0, 0, 0, pad)).view(G, B, k_max)
+    aux3 = torch.nn.functional.pad(aux[order], (0, pad),
+                                   value=NEG_INF).view(G, B)
+    old3 = torch.nn.functional.pad(state.assignment[order].long(),
+                                   (0, pad)).view(G, B)
+    act3 = (torch.arange(G * B, device=dev) < n).view(G, B)
+    iota_k = torch.arange(k_max, device=dev)
+    tgt3 = old3.clone()
+    sizes = state.cluster_size.clone()
+    params = state.params.clone()
+
+    def frozen_pass(g0, sizes):
+        """Apply blocks g0, g0+1, ... up to (not including) the first one
+        whose frozen pass holds a birth; return the sizes and that block's
+        index (G when none)."""
+        stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        first = torch.full((), G, dtype=torch.long, device=dev)
+        for g in range(g0, G):
+            oldb, actb = old3[g], act3[g]
+            oh_old = ((oldb[:, None] == iota_k) & actb[:, None]).to(
+                sizes.dtype)
+            sizes_excl = sizes - oh_old
+            live = sizes_excl > 0
+            prior = torch.log(torch.clamp(sizes_excl, min=1).to(
+                torch.float32)) - log_denom
+            post_old = torch.where(live, z3[g] + prior, NEG_INF)
+            best, choice = torch.max(post_old, dim=1)
+            has_free = (~live).any(dim=1)
+            cand = (aux3[g] > best) & actb
+            birth = (cand & has_free).any()
+            apply = ~(stopped | birth)
+            tgt = torch.where(actb, choice, oldb)
+            oh_new = ((tgt[:, None] == iota_k) & actb[:, None]).to(
+                sizes.dtype)
+            d = oh_new.sum(0, dtype=sizes.dtype) \
+                - oh_old.sum(0, dtype=sizes.dtype)
+            sizes = torch.where(apply, sizes + d, sizes)
+            tgt3[g] = torch.where(apply, tgt, tgt3[g])
+            first = torch.where(birth & ~stopped, g, first)
+            stopped = stopped | birth
+        return sizes, int(first)  # one host read a pass
+
+    def exact_block(g, sizes):
+        """The exact sequential replay of block g (``_scan_impl``'s body,
+        one host read a cell)."""
+        olds = old3[g].tolist()
+        for j in range(min(B, n - g * B)):
+            sizes[olds[j]] -= 1
+            live = sizes > 0
+            prior = torch.log(torch.clamp(sizes, min=1).to(torch.float32)) \
+                - log_denom
+            post_old = torch.where(live, z3[g, j] + prior, NEG_INF)
+            best, choice = torch.max(post_old, dim=0)
+            # First max, as jnp.argmax over [post_old, post_new].
+            is_new = (~live).any() & (aux3[g, j] > best)
+            free = torch.argmax((sizes == 0).to(torch.int32))
+            is_new, choice, free = torch.stack(
+                [is_new.long(), choice, free]).tolist()
+            target = free if is_new else choice
+            if is_new:
+                theta = fresh_row(k_beta, int(perm[g * B + j]), data, cfg)
+                params[target] = theta
+                col = _birth_column(theta, target, state, data, gumbel)
+                z3.view(G * B, k_max)[:n, target] = col[order]
+            sizes[target] += 1
+            tgt3[g, j] = target
+        return sizes
+
+    sizes, g = frozen_pass(0, sizes)
+    while g < G:
+        sizes = exact_block(g, sizes)
+        sizes, g = frozen_pass(g + 1, sizes)
+    assignment = torch.empty_like(state.assignment)
+    assignment[order] = tgt3.view(-1)[:n].to(assignment.dtype)
+    return state._replace(assignment=assignment, params=params,
+                          cluster_size=sizes)

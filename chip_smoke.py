@@ -56,7 +56,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                                birth from position 200;
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
-               lazy, "stream", "eager"): assignments, sizes and MH counts
+               lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
+               ops on both devices): assignments, sizes and MH counts
                exactly, every float to rtol 1e-4 (the two devices' ndtri and
                log differ in the last ulps, and the inverse-CDF proposals
                amplify that in the tails: measured 1.8e-5 on an H100);
@@ -100,11 +101,33 @@ Phases (any failure exits non-zero, and no result line is printed):
                MPEAR path and on the exact one (BNPC_TPU_MPEAR_EXACT_MAX
                8192): assignments equal exactly, floats to rtol 1e-5, PSRF
                equal.
+ 10. modes   — the other run modes at the main cell (5,000 x 200, k_max
+               256, the bench mixture), each check on its own line:
+               (a) 4 chains x 256 steps through MCMCRunner.run: total
+               chain-steps/s beside the one-chain steps/s of this call,
+               each chain's state invariants, lazy_segment and rg_scan
+               launched (lazy_stream never), chain 1 == the one-chain run
+               with its seed, bit for bit; (b) 2 coupled chains x 64 steps:
+               invariants and launches; (c) 2 chains, block 64, a
+               checkpoint every block: 128 steps, then fresh runners
+               resume to 192 and (a partial final block) to 160, each ==
+               the uninterrupted run bit for bit; each save's seconds and
+               bytes; (d) time mode, 2 chains, a 10 s deadline and 3 s of
+               burn-in: steps, burn-in, and the last block's end past the
+               deadline (at most one block's time); (e) lugsail, 2 chains,
+               cutoff 1.1: the PSRF log, the stop step and the burn-in;
+               (f) gibbs_block 128 at the main cell and 512 at the large-n
+               cell: steps/s beside the exact path's from the same state
+               in this call, no Gibbs kernel launched by a blocked move,
+               ARI against the planted clones; (g) cli.main with -n 2 -s
+               256 --checkpoint_dir -e posterior: the files, two
+               chain_seeds and a PSRF in args.txt, the checkpoint written.
 
-Before each of phases 5-7, before each probe in phase 8 and before each CLI
-run of phase 9, every kernel's launch counter is set to 0; the counters
-read after it are that path's launches (the probes' paths are their
-main()s). The last three lines
+Before each of phases 5-7, before each probe in phase 8, before each CLI
+run of phase 9 and before each run of phase 10 that is checked for its
+launches, every kernel's launch counter is set to 0; the counters read
+after it are that path's launches (the probes' paths are their main()s).
+The kernel line's launches are those of phases 5-8. The last three lines
 are the nvidia-smi line, a JSON line with one entry per kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -971,7 +994,8 @@ def phase_small(dev, gibbs_impl):
     cfg = ModelConfig(n_cells=n, n_muts=m, k_max=n, p=0.25, q=0.25,
                       fp=0.01, fn=0.2, learn_errors=True, fp_sd=0.01,
                       fn_sd=0.1)
-    mc = MCMCConfig(**MIX)
+    # "blocked": the step's Gibbs move is the blocked sweep, 8 cells a block.
+    mc = MCMCConfig(**MIX, gibbs_block=8 if gibbs_impl == "blocked" else 0)
     trace_k = resolve_trace_k(cfg, mc)
     packed = {d: pack_data(data, d) for d in ("cpu", dev)}
     steps = {d: _make_step_body(cfg, mc, packed[d], trace_k, gibbs_impl)
@@ -1151,7 +1175,7 @@ def phase_main(dev):
         raise AssertionError("run(): unexpected result shapes or values")
 
     return timed_path("main", runner.run_block,
-                      runner.init_chains(TorchDraws(0, dev)),
+                      runner.init_chains(TorchDraws(0, dev))[0],
                       TorchDraws(1, dev), 256, 256, N, K_MAX, truth,
                       "lazy_segment")
 
@@ -1169,7 +1193,7 @@ def phase_large(dev):
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                         block_size=64)
     out = timed_path("large", runner.run_block,
-                     runner.init_chains(TorchDraws(0, dev)),
+                     runner.init_chains(TorchDraws(0, dev))[0],
                      TorchDraws(1, dev), 16, 64, N_LARGE, K_LARGE, truth,
                      "lazy_stream")
     # The scan alone at the lengths this path really gave it.
@@ -1493,6 +1517,328 @@ def phase_cli(dev, smi):
     return {"main": main_cell, "large": large_cell}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the run modes
+# ---------------------------------------------------------------------------
+
+
+def same_results(tag, got, want):
+    """Two runs' ChainResults, bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} chains, not {len(want)}")
+    for c, (g, w) in enumerate(zip(got, want)):
+        for f in ("ML", "MAP", "DP_alpha", "FN", "FP", "assignments",
+                  "params", "mh_counts"):
+            if not np.array_equal(getattr(g, f), getattr(w, f)):
+                raise AssertionError(f"{tag}: chain {c} {f} differs")
+        if (g.burn_in, g.PSRF) != (w.burn_in, w.PSRF):
+            raise AssertionError(f"{tag}: chain {c} burn-in or PSRF differs")
+
+
+class KeepStates:
+    """Wraps runner.run_chains: the chain states of its last block stay in
+    `states`, the seconds of each block in `block_s`."""
+
+    def __init__(self, runner):
+        import torch
+
+        self.states, self.block_s = None, []
+        run_chains = runner.run_chains
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = run_chains(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.block_s.append(time.perf_counter() - t0)
+            self.states = out[0]
+            return out
+
+        runner.run_chains = wrapped
+
+
+class CheckpointCost:
+    """Wraps runner.save_checkpoint: seconds and file bytes of each save."""
+
+    def __init__(self, runner):
+        self.saves = []
+        save = runner.save_checkpoint
+
+        def timed(path, *args, **kwargs):
+            t0 = time.perf_counter()
+            save(path, *args, **kwargs)
+            self.saves.append({"done": int(args[3]),
+                               "s": time.perf_counter() - t0,
+                               "bytes": os.path.getsize(path)})
+
+        runner.save_checkpoint = timed
+
+
+def check_results(tag, results, states, n, k_max, rows):
+    """Each chain's final state invariants (check_state) and its trace:
+    `rows` finite ML / MAP rows, assignments inside the slots, params
+    inside [0, 1] (recorded in f16)."""
+    for c, (res, st) in enumerate(zip(results, states)):
+        check_state(st, [], n, k_max)
+        if res.ML.shape != (rows,) or res.assignments.shape != (rows, n) \
+                or not (np.isfinite(res.ML).all()
+                        and np.isfinite(res.MAP).all()):
+            raise AssertionError(f"{tag}: chain {c} trace shapes / values")
+        if res.assignments.min() < 0 or res.assignments.max() >= k_max \
+                or not ((res.params >= 0) & (res.params <= 1)).all():
+            raise AssertionError(f"{tag}: chain {c} assignments / params")
+        if res.params.shape[0] != rows - res.burn_in:
+            raise AssertionError(f"{tag}: chain {c} kept params rows")
+
+
+def modes_runner(data, cfg, mc, dev, **kwargs):
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.mcmc import MCMCRunner
+
+    return MCMCRunner(cfg, mc, pack_data(data, dev), device=dev, **kwargs)
+
+
+def mode_chains(dev, data, cfg, mc):
+    """(a) 4 chains x 256 steps through run(); chain 1 against the
+    one-chain run with its seed."""
+    import torch
+
+    runner = modes_runner(data, cfg, mc, dev)
+    kept = KeepStates(runner)
+    # Each chain's block seconds inside the 4-chain run (the chains' own
+    # trajectories differ in cost: births, split-merge lengths).
+    chain_s = []
+    run_block = runner.run_block
+
+    def timed_block(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = run_block(*args, **kwargs)
+        torch.cuda.synchronize()
+        chain_s.append(time.perf_counter() - t0)
+        return out
+
+    runner.run_block = timed_block
+    reset_launches()
+    t0 = time.perf_counter()
+    res = runner.run((256, 85), seed=7, n_chains=4)
+    chains_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches("chains", launches, {"lazy_segment", "rg_scan"})
+    check_results("chains", res, kept.states, N, K_MAX, 257)
+    seeds = runner.seeds.tolist()
+    one = modes_runner(data, cfg, mc, dev)
+    t0 = time.perf_counter()
+    alone = one.run((256, 85), seed=seeds[1])
+    one_s = time.perf_counter() - t0
+    same_results("chain 1 against its one-chain run", [res[1]], alone)
+    out = {"chain_steps_per_s": 4 * 256 / chains_s,
+           "one_chain_steps_per_s": 256 / one_s, "seeds": seeds,
+           "chain_block_s": chain_s, "one_chain_s": one_s,
+           "launches": launches}
+    log(f"  (a) chains: 4 x 256 steps in {chains_s:.3f} s, "
+        f"{out['chain_steps_per_s']:.3f} chain-steps/s; one chain "
+        f"{out['one_chain_steps_per_s']:.3f} steps/s in the same call; "
+        f"invariants hold for each chain; launches {launches}; chain 1 == "
+        f"the one-chain run with seed {seeds[1]}: ok")
+    log(f"      each chain's 256 steps inside the run: "
+        f"{[round(x, 3) for x in chain_s]} s; chain 1 alone {one_s:.3f} s")
+    return out
+
+
+def mode_coupled(dev, data, cfg, mc):
+    """(b) 2 coupled chains x 64 steps."""
+    import dataclasses
+
+    runner = modes_runner(data, cfg, dataclasses.replace(
+        mc, coupled_moves=True), dev, block_size=64)
+    kept = KeepStates(runner)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = runner.run((64, 21), seed=8, n_chains=2)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches("coupled", launches, {"lazy_segment", "rg_scan"})
+    check_results("coupled", res, kept.states, N, K_MAX, 65)
+    out = {"chain_steps_per_s": 2 * 64 / secs, "launches": launches}
+    log(f"  (b) coupled: 2 x 64 steps, {out['chain_steps_per_s']:.3f} "
+        f"chain-steps/s; invariants hold; launches {launches}: ok")
+    return out
+
+
+def mode_checkpoint(dev, data, cfg, mc, tmp):
+    """(c) 2 chains, block 64, a checkpoint every block: 128 steps, then a
+    fresh runner resumes to 192 (aligned) and, from the same 128-step
+    checkpoint, to 160 (a partial block); each against an uninterrupted
+    run."""
+    import shutil
+
+    ck, ck2 = os.path.join(tmp, "ck"), os.path.join(tmp, "ck160")
+    kw = dict(block_size=64, checkpoint_every=1)
+    first = modes_runner(data, cfg, mc, dev, checkpoint_dir=ck, **kw)
+    cost = CheckpointCost(first)
+    first.run((128, 43), seed=9, n_chains=2)
+    os.makedirs(ck2)
+    shutil.copy(os.path.join(ck, "mcmc_state.npz"), ck2)
+    out = {}
+    for steps, path in ((192, ck), (160, ck2)):
+        resumed = modes_runner(data, cfg, mc, dev, checkpoint_dir=path, **kw)
+        again = CheckpointCost(resumed)
+        got = resumed.run((steps, 43), seed=9, n_chains=2)
+        want = modes_runner(data, cfg, mc, dev, **kw).run(
+            (steps, 43), seed=9, n_chains=2)
+        same_results(f"resume to {steps}", got, want)
+        cost.saves += again.saves
+        out[f"resume_{steps}"] = "ok"
+    out["saves"] = cost.saves
+    log(f"  (c) checkpoint: 128 steps resumed to 192 (aligned) and to 160 "
+        "(partial final block) == the uninterrupted runs, bit for bit: ok")
+    for save in cost.saves:
+        log(f"      checkpoint at step {save['done']}: {save['s']:.3f} s, "
+            f"{save['bytes']:,} bytes")
+    return out
+
+
+def mode_time(dev, data, cfg, mc):
+    """(d) 2 chains, a 10 s deadline, 3 s of burn-in, blocks of 32."""
+    from datetime import datetime, timedelta
+
+    runner = modes_runner(data, cfg, mc, dev, block_size=32)
+    kept = KeepStates(runner)
+    readings = []
+    runner._now = lambda: readings.append(datetime.now()) or readings[-1]
+    start = datetime.now()
+    end = start + timedelta(seconds=10)
+    res = runner.run((end, start + timedelta(seconds=3)), seed=10,
+                     n_chains=2)
+    returned = datetime.now()
+    steps = res[0].ML.size - 1
+    check_results("time", res, kept.states, N, K_MAX, steps + 1)
+    # The last block's end is the last t_after reading before the loop
+    # check that stopped the run.
+    block_end = readings[-2]
+    overshoot = (block_end - end).total_seconds()
+    if not 0 <= overshoot <= max(kept.block_s):
+        raise AssertionError(f"time: overshoot {overshoot:.3f} s against "
+                             f"blocks of up to {max(kept.block_s):.3f} s")
+    out = {"steps": steps, "burn_in": res[0].burn_in,
+           "overshoot_s": overshoot,
+           "return_after_deadline_s": (returned - end).total_seconds(),
+           "block_s_max": max(kept.block_s), "blocks": len(kept.block_s)}
+    log(f"  (d) time: {steps} steps kept, burn-in {res[0].burn_in}; "
+        f"{len(kept.block_s)} blocks of up to {out['block_s_max']:.3f} s; "
+        f"the last block ended {overshoot:.3f} s past the deadline, run() "
+        f"returned {out['return_after_deadline_s']:.3f} s past it: ok")
+    return out
+
+
+def mode_lugsail(dev, data, cfg, mc):
+    """(e) 2 chains until the lugsail PSRF of ML is below 1.1."""
+    runner = modes_runner(data, cfg, mc, dev)
+    kept = KeepStates(runner)
+    t0 = time.perf_counter()
+    res = runner.run((1.1, 0), seed=11, n_chains=2)
+    secs = time.perf_counter() - t0
+    rows = res[0].ML.size
+    check_results("lugsail", res, kept.states, N, K_MAX, rows)
+    if res[0].PSRF[-1][1] > 1.1 or res[0].burn_in != rows // 2 + 1:
+        raise AssertionError(f"lugsail: PSRF {res[0].PSRF}, burn-in "
+                             f"{res[0].burn_in} of {rows} rows")
+    log(f"  (e) lugsail: cutoff 1.1, PSRF log {res[0].PSRF}; stopped at "
+        f"step {rows - 1}, burn-in {res[0].burn_in}, {secs:.3f} s: ok")
+    return {"psrf": [(st, v if np.isfinite(v) else None)
+                     for st, v in res[0].PSRF], "steps": rows - 1,
+            "burn_in": res[0].burn_in, "seconds": secs}
+
+
+def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
+    """(f) steps/s of the blocked sweep (gibbs_block = `block`) beside the
+    exact path's, the same steps from the same state in this call;
+    launches (the blocked Gibbs move launches no Gibbs kernel); ARI."""
+    import dataclasses
+
+    import torch
+
+    from bnpc_tpu_torch.draws import TorchDraws
+    from bnpc_tpu_torch.estimators import ari
+
+    data, truth = make_data(n, M, k_clones, 0.1, seed=0)
+    cfg, mc = bench_configs(n, k_max)
+    out = {}
+    for name, blk in (("exact", 0), ("blocked", block)):
+        runner = modes_runner(data, cfg, dataclasses.replace(
+            mc, gibbs_block=blk), dev, block_size=warm + timed)
+        (state,) = runner.init_chains(TorchDraws(0, dev))
+        draws = TorchDraws(1, dev)
+        state, _, draws = runner.run_block(state, draws, warm)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, rows, _ = runner.run_block(state, draws, timed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        gibbs = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) == 0).sum())
+        a, sizes = check_state(state, [rows], n, k_max)
+        used = {"rg_scan"} if gibbs < timed else set()
+        if name == "exact" and gibbs:
+            used.add(sweep)
+        check_launches(f"blocked {n} {name}", launches, used)
+        out[name] = {"steps_per_s": timed / secs, "gibbs_sweeps": gibbs,
+                     "launches": launches, "ari": ari(a, truth),
+                     "clusters": int((sizes > 0).sum())}
+    log(f"  (f) blocked at {n:,} x {M}, k_max {k_max}, gibbs_block {block}: "
+        f"{out['blocked']['steps_per_s']:.3f} steps/s against the exact "
+        f"path's {out['exact']['steps_per_s']:.3f} ({timed} steps after "
+        f"{warm}, {out['blocked']['gibbs_sweeps']} / "
+        f"{out['exact']['gibbs_sweeps']} Gibbs sweeps); launches blocked "
+        f"{out['blocked']['launches']}, exact {out['exact']['launches']}; "
+        f"ARI vs planted clones {out['blocked']['ari']:.4f} (exact "
+        f"{out['exact']['ari']:.4f}): ok")
+    return out
+
+
+def mode_cli(dev, tmp, smi):
+    """(g) bnpc_tpu_torch.cli.main with -n 2 and a checkpoint directory."""
+    ck = os.path.join(tmp, "cli_ck")
+    cell = cli_run(dev, tmp, "modes", N, 10,
+                   ["-n", "2", "-s", "256", "--checkpoint_dir", ck, "-e",
+                    "posterior"], ["posterior"], "lazy_segment", smi)
+    args = cell.pop("output_args")[0]
+    if len(args.chain_seeds) != 2 or not np.isfinite(args.PSRF) \
+            or not os.path.exists(os.path.join(ck, "mcmc_state.npz")):
+        raise AssertionError(f"cli modes: chain_seeds {args.chain_seeds}, "
+                             f"PSRF {args.PSRF}, checkpoint files "
+                             f"{os.listdir(ck) if os.path.isdir(ck) else []}")
+    log(f"  (g) cli -n 2 --checkpoint_dir: files parsed, chain_seeds "
+        f"{args.chain_seeds}, PSRF {args.PSRF:.5f}, checkpoint written: ok")
+    return {"wall_s": cell["wall_s"], "psrf": float(args.PSRF),
+            "ari_posterior": cell["ari_posterior"]}
+
+
+def phase_modes(dev, smi):
+    """Phase 10: multi-chain, coupled, checkpoint / resume, time and
+    lugsail modes and the blocked sweep at the main cell's width, and one
+    CLI run of them."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    data, _ = make_data(N, M, 10, 0.1, seed=0)
+    cfg, mc = bench_configs(N, K_MAX)
+    out = {"chains": mode_chains(dev, data, cfg, mc),
+           "coupled": mode_coupled(dev, data, cfg, mc)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["checkpoint"] = mode_checkpoint(dev, data, cfg, mc, tmp)
+        out["time"] = mode_time(dev, data, cfg, mc)
+        out["lugsail"] = mode_lugsail(dev, data, cfg, mc)
+        out["blocked_main"] = mode_blocked(dev, N, 10, K_MAX, 128, 16, 64,
+                                           "lazy_segment")
+        out["blocked_large"] = mode_blocked(dev, N_LARGE, 20, K_LARGE, 512,
+                                            4, 16, "lazy_stream")
+        out["cli"] = mode_cli(dev, tmp, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 10: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -1500,45 +1846,48 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/9] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/10] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
     from bnpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/9] build: {time.perf_counter() - t0:.1f} s "
+    log(f"[2/10] build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/9] kernels against their plain twins (exact match)")
+    log("[3/10] kernels against their plain twins (exact match)")
     k = {"lazy_segment": phase_lazy_segment(dev),
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev),
          "while_exit": phase_while_exit(dev)}
-    log("[4/9] small input: GPU against CPU on identical draws")
-    for impl in ("auto", "stream", "eager"):
+    log("[4/10] small input: GPU against CPU on identical draws")
+    for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
-    log(f"[5/9] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    log(f"[5/10] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
+        f"({smi})")
     main_out = phase_main(dev)
-    log(f"[6/9] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+    log(f"[6/10] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
         f"{K_LARGE} ({smi})")
     large_out = phase_large(dev)
-    log(f"[7/9] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+    log(f"[7/10] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
         f"{K_MAX} ({smi})")
     eager_out = phase_eager(dev)
     log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
         f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
         "configuration")
-    log(f"[8/9] probes: their entry points on the card ({smi})")
+    log(f"[8/10] probes: their entry points on the card ({smi})")
     probes = phase_probes()
-    log(f"[9/9] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
+    log(f"[9/10] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
     cli_out = phase_cli(dev, smi)
+    log(f"[10/10] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    modes_out = phase_modes(dev, smi)
 
     chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
@@ -1589,7 +1938,7 @@ def main():
         "probes": {name: {f: v for f, v in out.items()
                           if f != "launches_path"}
                    for name, out in probes.items()},
-        "cli": cli_out}))
+        "cli": cli_out, "run_modes": modes_out}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     # The port runs on one device.
