@@ -15,64 +15,32 @@
 //     rows are not written), info[0] the first birth's position, or n.
 //
 // What bounds it: the serial chain through `sizes` (two dependent warp
-// reductions a cell), as in lazy_segment.cu; not bandwidth. The design
-// carries the TPU probe's ideas to this card: lane l holds the targets of
-// the batch's
-// positions 4l .. 4l+3 in registers and writes them with one 16-byte store
-// per batch (one coalesced 512-byte store), not one store per cell; the
-// batch's perm, assign and aux entries come in one batch ahead, four a lane,
-// and reach the chain by warp shuffle; the next cell's z row is loaded one
-// cell ahead; the birth is tracked as a warp-uniform float (the TPU
-// kernel's 1e9 sentinel) and tested once per batch, with no break inside it.
+// reductions a cell), as in lazy_segment.cu; not bandwidth. It runs
+// kernel 1's loop, so that it differs from lazy_segment.cu only in the TPU
+// probe's two ideas: a batch's 128 targets stay in registers (lane l holds
+// positions l, l + 32, l + 64, l + 96) and leave as four coalesced 128-byte
+// stores a batch, not one store a cell; and the birth is tracked
+// warp-uniformly and tested once a batch, to decide whether the next batch
+// runs. Kernel 1's loop: perm, assign[perm] and aux[perm] in 32-position
+// chunks a chunk ahead; a cp.async ring of kRing rows; the next position's
+// row, aux and removed slot in registers one iteration ahead; a loop body
+// of one basic block. The last batch, when n % 128 != 0, runs the same loop
+// to position n - 1; its inert positions share one target (the sizes do not
+// change there), the first argmax of perm[n - 1]'s row read once, so no
+// inert test sits in the loop.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (no fast
 // math: the logits use the accurate logf of the plain torch twin,
 // bnpc_tpu_torch/probes/vecflow_probe.py::vecflow_ref).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
 #include "gibbs_common.cuh"
 
 namespace {
 
-using bnpc::kFull;
+using namespace bnpc;
 
-constexpr int kBatch = 128;                 // positions per batch
-constexpr int kPerLane = kBatch / 32;       // targets a lane holds
-constexpr float kNoBirth = 1e9f;
-
-// One batch's inputs, lane l holding positions base + 4l + r, r = 0..3,
-// each clamped to n - 1 (the TPU kernel's read of the tail positions).
-struct Batch {
-  int cell[kPerLane];
-  int old[kPerLane];
-  float a[kPerLane];
-};
-
-__device__ __forceinline__ void load_batch(Batch& bt, const int* perm,
-                                           const int* assign,
-                                           const float* aux, int base, int n,
-                                           int lane) {
-#pragma unroll
-  for (int r = 0; r < kPerLane; ++r)
-    bt.cell[r] = perm[min(base + kPerLane * lane + r, n - 1)];
-#pragma unroll
-  for (int r = 0; r < kPerLane; ++r) {
-    bt.old[r] = assign[bt.cell[r]];
-    bt.a[r] = aux[bt.cell[r]];
-  }
-}
-
-// First slot holding the best logit, sizes unchanged (an inert position).
-template <int SPL>
-__device__ __forceinline__ int first_argmax(const bnpc::Chain<SPL>& c,
-                                            const float (&v)[SPL], int lane) {
-  float best;
-  int idx;
-  bnpc::best_and_first<SPL>(c, v, lane, best, idx);
-  return idx;
-}
+constexpr int kBatch = 128;            // positions per batch
+constexpr int kChunks = kBatch / 32;   // 32-position chunks a batch
 
 template <int SPL>  // slots per lane; k_pad = 32 * SPL
 __global__ void __launch_bounds__(32, 1) vecflow_kernel(
@@ -85,72 +53,102 @@ __global__ void __launch_bounds__(32, 1) vecflow_kernel(
     int* __restrict__ info,            // [1]
     const float* __restrict__ log_denom_p, int n) {
   constexpr int K = 32 * SPL;
+  __shared__ __align__(16) float ring[kRing][K];
   const int lane = threadIdx.x;
   const int nb = (n + kBatch - 1) / kBatch;
 
-  bnpc::Chain<SPL> c;
-  bnpc::chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
+  Chain<SPL> c;
+  chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
 
-  Batch cur, nxt;
-  load_batch(cur, perm, assign, aux, 0, n, lane);
-  bnpc::chain_remove_first<SPL>(c, __shfl_sync(kFull, cur.old[0], 0), lane);
-  float v[SPL];
-  {
-    const int cell0 = __shfl_sync(kFull, cur.cell[0], 0);
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = z[(size_t)cell0 * K + s * 32 + lane];
+  int cb = 0;  // first position of the chunk `cur`
+  PermChunk cur, nxt;
+  cur.load(perm, assign, aux, 0, n, lane);
+  nxt.load(perm, assign, aux, 32, n, lane);
+
+  // Rows of positions 0 .. kRing - 2 in flight, one commit group per row (a
+  // position past n reads cell 0's row); position i issues position
+  // i + kRing - 1's row into the ring slot that position i - 1's row left.
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(&ring[0][lane]);
+  constexpr unsigned kRowBytes = K * sizeof(float);
+  const float* z_lane = z + lane;
+  for (int d = 0; d < kRing - 1; ++d) {
+    issue_row_full<SPL>(ring_s + d * kRowBytes,
+                        z_lane + (size_t)pair_at(cur.cell, nxt.cell, d) * K);
+    cp_async_commit();
   }
+  chain_remove_first<SPL>(c, __shfl_sync(kFull, cur.o, 0), lane);
 
-  float bpos = kNoBirth;  // first birth position; warp-uniform
-  for (int b = 0; b < nb && bpos >= kNoBirth; ++b) {
-    const int base = b * kBatch;
-    load_batch(nxt, perm, assign, aux, base + kBatch, n, lane);
-    float w[kPerLane];
-    for (int q = 0; q < 32; ++q) {
+  // What position i needs is in registers before its iteration starts: its
+  // row v, its aux a and the slot old_next that position i + 1 leaves.
+  float a = __shfl_sync(kFull, cur.a, 0);
+  int old_next = pair_at(cur.o, nxt.o, 1);
+  float v[SPL];
+  cp_async_wait<kRing - 2>();  // row 0 has landed (this lane's part)
 #pragma unroll
-      for (int r = 0; r < kPerLane; ++r) {
-        const int i = base + kPerLane * q + r;
-        // The next position's row: independent of the carried sizes.
-        const int nr = (r + 1) % kPerLane;
-        const int nq = r + 1 < kPerLane ? q : q + 1;
-        const int cell_n = nq < 32 ? __shfl_sync(kFull, cur.cell[nr], nq)
-                                   : __shfl_sync(kFull, nxt.cell[0], 0);
+  for (int s = 0; s < SPL; ++s) v[s] = ring[0][s * 32 + lane];
+
+  int bpos = n;  // first birth's position; warp-uniform
+  for (int b = 0; b < nb && bpos == n; ++b) {
+    float w[kChunks];  // w[q] on lane l: position b * 128 + 32 q + l
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const int end = min(32, n - cb);  // 32 but in the ragged last batch
+      for (int j = 0; j < end; ++j) {
+        __syncwarp();
+        const int i = cb + j;
+        const int r = i + kRing - 1;
+        issue_row_full<SPL>(
+            ring_s + (unsigned)r % kRing * kRowBytes,
+            z_lane + (size_t)pair_at(cur.cell, nxt.cell, j + kRing - 1) * K);
+        cp_async_commit();
+        const float a_n = pair_at(cur.a, nxt.a, j + 1);
+        const int old_n2 = pair_at(cur.o, nxt.o, j + 2);
+        cp_async_wait<kRing - 2>();  // position i + 1's row has landed
         float v_n[SPL];
 #pragma unroll
         for (int s = 0; s < SPL; ++s)
-          v_n[s] = z[(size_t)cell_n * K + s * 32 + lane];
+          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
 
-        // The next position's slot: the step removes it, and runs on past
-        // a birth, but not past the end of a birth's batch, where the sweep
+        // The step removes the next position's cell, and runs on past a
+        // birth, but not past the end of a birth's batch, where the sweep
         // ends.
-        const bool last = q == 31 && r == kPerLane - 1;
-        const int old_n = nq < 32 ? __shfl_sync(kFull, cur.old[nr], nq)
-                                  : __shfl_sync(kFull, nxt.old[0], 0);
-        const float a = __shfl_sync(kFull, cur.a[r], q);
-        int t;
-        bool is_new = false;
-        if (i < n) {
-          const bool has_next = i + 1 < n && !(last && bpos < kNoBirth);
-          const bnpc::Pick p = bnpc::chain_step<SPL>(c, v, a, old_n, has_next,
-                                                     last, lane);
-          t = p.t;
-          is_new = p.is_new;
-        } else {
-          t = first_argmax<SPL>(c, v, lane);
-        }
-        if (lane == q) w[r] = (float)t;
-        bpos = fminf(bpos, is_new ? (float)i : kNoBirth);
+        const bool last = q == kChunks - 1 && j == 31;
+        const Pick p = chain_step<SPL>(c, v, a, old_next,
+                                       i + 1 < n && !(last && bpos < n),
+                                       last, lane);
+        if (lane == j) w[q] = (float)p.t;
+        bpos = min(bpos, p.is_new ? i : n);
+        a = a_n;
+        old_next = old_n2;
 #pragma unroll
         for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
       }
+      cb += 32;
+      cur = nxt;
+      nxt.load(perm, assign, aux, cb + 32, n, lane);
     }
-    reinterpret_cast<float4*>(tgt_out + base)[lane] =
-        make_float4(w[0], w[1], w[2], w[3]);
-    cur = nxt;
+    const int base = b * kBatch;
+    if (base + kBatch > n) {
+      // The ragged batch's inert positions: the first argmax of perm[n -
+      // 1]'s row on the sizes as they stand, one target for all of them.
+      const float* row = z_lane + (size_t)perm[n - 1] * K;
+      float vi[SPL];
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) vi[s] = row[s * 32];
+      float best;
+      int idx;
+      best_and_first<SPL>(c, vi, lane, best, idx);
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q)
+        if (base + 32 * q + lane >= n) w[q] = (float)idx;
+    }
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) tgt_out[base + 32 * q + lane] = w[q];
   }
+  cp_async_wait_all();
 
-  bnpc::chain_store<SPL>(c, sizes, K, lane);
-  if (lane == 0) info[0] = bpos >= kNoBirth ? n : (int)bpos;
+  chain_store<SPL>(c, sizes, K, lane);
+  if (lane == 0) info[0] = bpos;
 }
 
 template <int SPL>
@@ -165,7 +163,6 @@ void launch(const float* z, const float* aux, const int* assign,
 
 // Returns cudaGetLastError() after the launch (0 on success); an
 // unsupported k_pad (not 32 * {1, 2, 4, 8, 16, 32}) is cudaErrorInvalidValue.
-// tgt must be 16-byte aligned (the wrapper checks).
 extern "C" int bnpc_vecflow(const float* z, const float* aux,
                             const int* assign, const int* perm, float* sizes,
                             float* tgt, int* info, const float* log_denom,

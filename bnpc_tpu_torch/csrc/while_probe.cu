@@ -17,39 +17,109 @@
 //
 // NaN follows JAX, whose probe may start from NaN sizes: jnp.maximum and
 // jnp.max propagate a NaN and jnp.argmax returns the first NaN's index,
-// where fmaxf would drop it. So max(sizes, 0) is `s < 0 ? 0 : s`, the best
-// logit is a NaN-propagating warp reduction, and idx is the first NaN slot
-// when the best is NaN.
+// where fmaxf would drop it. So max(sizes, 0) is `s < 0 ? 0 : s`, and every
+// NaN logit, whatever its sign or payload, crosses the warp as the one key
+// 0xffffffff, above +inf's: the max key is NaN iff a logit is, and the first
+// slot holding it is the first NaN.
 //
 // What bounds it: the serial chain through `sizes`, as in lazy_segment.cu,
-// whose design it keeps: one warp, lane l owns slots l, l+32, ... in
-// registers, warp-shuffle reductions, the next cell's perm entry and z row
-// loaded one cell ahead, and a warp-uniform break. It measures what a
-// data-dependent exit and a relaunch at i_next cost the lazy driver.
+// whose loop and step it keeps (gibbs_common.cuh), with this probe's
+// arithmetic:
+//   * the log weights w = log(max(sz, 0)) and wp = log(max(sz + 1, 0)) are
+//     carried beside the sizes; only the gaining slot changes, by +1, so its
+//     new w is wp, and its stale wp is refreshed by one logf a cell started
+//     before the pick, off the chain. Sizes are integers or NaN, and
+//     NaN + 1 is NaN, so the cache gives the twin's bits;
+//   * best and first index are two redux.sync reductions of the NaN-aware
+//     keys; the first free slot is a third, only when cand holds;
+//   * perm comes in 32-position chunks a chunk ahead, and a cp.async ring
+//     keeps the rows of the next kRing - 1 positions in flight; the loop
+//     body is one basic block (a position past n copies cell 0's row), and
+//     the exit after a birth is a warp-uniform test at its bottom.
+// It measures what a data-dependent exit and a relaunch at i_next cost the
+// lazy driver.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (no fast
 // math: the accurate logf of the plain torch twin,
 // bnpc_tpu_torch/probes/while_probe.py::while_exit_ref).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
 #include "gibbs_common.cuh"
 
 namespace {
 
-using bnpc::kFull;
+using namespace bnpc;
 
-// max(a, b) that returns a NaN if either is one (jnp.maximum).
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
+// log(max(s, 0)) with jnp.maximum's NaN: a NaN size gives a NaN weight.
+__device__ __forceinline__ float nan_log_weight(float s) {
+  return logf(s < 0.f ? 0.f : s);
 }
 
-__device__ __forceinline__ float warp_nan_max(float x) {
+// key_of with every NaN mapped to 0xffffffff, above +inf's 0xff800000.
+__device__ __forceinline__ unsigned nan_key(float x) {
+  return x != x ? 0xffffffffu : key_of(x);
+}
+
+template <int N>
+__device__ __forceinline__ unsigned tree_umax(const unsigned* x) {
+  if constexpr (N == 1) {
+    return x[0];
+  } else {
+    return max(tree_umax<N / 2>(x), tree_umax<N - N / 2>(x + N / 2));
+  }
+}
+
+// The probe's carried state: lane l's element s belongs to slot s * 32 + l.
+template <int SPL>
+struct NanChain {
+  float sz[SPL];
+  float w[SPL];   // nan_log_weight(sz)
+  float wp[SPL];  // nan_log_weight(sz + 1), stale at slot `pend`
+  int pend;       // the slot the last step added to (-1: none)
+};
+
+// One cell: picks its slot from row v, whose slot 0 holds v0 (the
+// new-cluster value), and adds it there. Returns the slot; is_new says it
+// was a birth.
+template <int SPL>
+__device__ __forceinline__ int nan_step(NanChain<SPL>& c,
+                                        const float (&v)[SPL], float v0,
+                                        int lane, bool& is_new) {
+  constexpr int KT = 32 * SPL;
+  // Off the chain: reads the sizes as they stand before the pick.
+  const float wp_fix = nan_log_weight(lane_value<SPL>(c.sz, c.pend) + 1.f);
+  // v0 > best as keys: a NaN v0 gets the least key, and nothing is above
+  // a NaN best's, so cand is false on either NaN.
+  const unsigned v0_key = v0 != v0 ? 0u : key_of(v0);
+  unsigned key[SPL];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = nan_max(x, __shfl_xor_sync(kFull, x, off));
-  return x;
+  for (int s = 0; s < SPL; ++s) key[s] = nan_key(v[s] + c.w[s]);
+  const unsigned best = __reduce_max_sync(kFull, tree_umax<SPL>(key));
+  int hit[SPL];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) hit[s] = key[s] == best ? s * 32 + lane : KT;
+  int t = __reduce_min_sync(kFull, tree_min<SPL>(hit));
+  is_new = false;
+  if (v0_key > best) {
+    // Rare, and the same on every lane: only now is the free slot needed.
+    int zero[SPL];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s)
+      zero[s] = c.sz[s] == 0.f ? s * 32 + lane : KT;
+    const int free_slot = __reduce_min_sync(kFull, tree_min<SPL>(zero));
+    is_new = free_slot < KT;
+    if (is_new) t = free_slot;
+  }
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    const int slot = s * 32 + lane;
+    if (slot == c.pend) c.wp[s] = wp_fix;
+    if (slot == t) {
+      c.sz[s] += 1.f;
+      c.w[s] = c.wp[s];
+    }
+  }
+  c.pend = t;
+  return t;
 }
 
 template <int SPL>  // slots per lane; k_pad = 32 * SPL
@@ -61,74 +131,83 @@ __global__ void __launch_bounds__(32, 1) while_exit_kernel(
     int* __restrict__ info,          // [4]
     int n, int i0) {
   constexpr int K = 32 * SPL;
+  __shared__ __align__(16) float ring[kRing][K];
   const int lane = threadIdx.x;
 
-  float sz[SPL];
+  NanChain<SPL> c;
+  c.pend = -1;
 #pragma unroll
-  for (int s = 0; s < SPL; ++s) sz[s] = sizes[s * 32 + lane];
-
-  int i = i0, birth_cell = -1;
-  int cell = 0;
-  float v[SPL];
-  if (i0 < n) {
-    cell = perm[i0];
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = z[(size_t)cell * K + s * 32 + lane];
+  for (int s = 0; s < SPL; ++s) {
+    c.sz[s] = sizes[s * 32 + lane];
+    c.w[s] = nan_log_weight(c.sz[s]);
+    c.wp[s] = nan_log_weight(c.sz[s] + 1.f);
   }
 
-  while (i < n) {
-    // Prefetch the next cell: independent of the carried sizes.
-    int cell_n = 0;
-    float v_n[SPL];
-    if (i + 1 < n) {
-      cell_n = perm[i + 1];
+  int i_next = n, birth_cell = -1;
+  if (i0 < n) {
+    // perm of 32 positions a lane each, this chunk and the next (cell 0
+    // past n).
+    int cb = i0 & ~31;
+    int cur = cb + lane < n ? perm[cb + lane] : 0;
+    int nxt = cb + 32 + lane < n ? perm[cb + 32 + lane] : 0;
+
+    // Rows of positions i0 .. i0 + kRing - 2 in flight, one commit group
+    // per row; iteration i issues position i + kRing - 1's row into the
+    // ring slot that position i - 1's row left.
+    const unsigned ring_s =
+        (unsigned)__cvta_generic_to_shared(&ring[0][lane]);
+    constexpr unsigned kRowBytes = K * sizeof(float);
+    const float* z_lane = z + lane;
+    for (int d = 0; d < kRing - 1; ++d) {
+      const int r = i0 + d;
+      issue_row_full<SPL>(ring_s + (unsigned)r % kRing * kRowBytes,
+                          z_lane + (size_t)pair_at(cur, nxt, r - cb) * K);
+      cp_async_commit();
+    }
+    float v[SPL];
+    cp_async_wait<kRing - 2>();  // row i0 has landed (this lane's part)
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) v[s] = ring[i0 % kRing][s * 32 + lane];
+
+    for (int i = i0;; ++i) {
+      if (i - cb == 32) {  // once in 32 positions, before the block below
+        cb = i;
+        cur = nxt;
+        nxt = cb + 32 + lane < n ? perm[cb + 32 + lane] : 0;
+      }
+      __syncwarp();
+      const int r = i + kRing - 1;
+      issue_row_full<SPL>(ring_s + (unsigned)r % kRing * kRowBytes,
+                          z_lane + (size_t)pair_at(cur, nxt, r - cb) * K);
+      cp_async_commit();
+      cp_async_wait<kRing - 2>();  // position i + 1's row has landed
+      float v_n[SPL];
 #pragma unroll
       for (int s = 0; s < SPL; ++s)
-        v_n[s] = z[(size_t)cell_n * K + s * 32 + lane];
-    }
+        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
 
-    float logit[SPL];
-    float best = -CUDART_INF_F;
+      bool is_new;
+      const int t = nan_step<SPL>(c, v, __shfl_sync(kFull, v[0], 0), lane,
+                                  is_new);
+      if (lane == 0) out[i] = t;
+      if (is_new || i + 1 >= n) {
+        i_next = i + 1;
+        if (is_new) birth_cell = __shfl_sync(kFull, cur, i - cb);
+        break;
+      }
 #pragma unroll
-    for (int s = 0; s < SPL; ++s) {
-      logit[s] = v[s] + logf(sz[s] < 0.f ? 0.f : sz[s]);
-      best = nan_max(best, logit[s]);
+      for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
     }
-    best = warp_nan_max(best);
-    const bool best_nan = best != best;
-
-    int free_l = K, idx_l = K;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) {
-      const int slot = s * 32 + lane;
-      if (sz[s] == 0.f) free_l = min(free_l, slot);
-      if (best_nan ? logit[s] != logit[s] : logit[s] == best)
-        idx_l = min(idx_l, slot);
-    }
-    const int free_slot = bnpc::warp_min(free_l);
-    const int idx = bnpc::warp_min(idx_l);
-
-    const float v0 = __shfl_sync(kFull, v[0], 0);  // slot 0's raw z value
-    const bool is_new = v0 > best && free_slot < K;
-    const int t = is_new ? free_slot : idx;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) sz[s] += (s * 32 + lane == t) ? 1.f : 0.f;
-    if (lane == 0) out[i] = t;
-    ++i;
-
-    if (is_new) {
-      birth_cell = cell;
-      break;
-    }
-    cell = cell_n;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
+    cp_async_wait_all();
   }
 
+  // The twin adds 0.0 to every other slot of a visited cell, which turns a
+  // -0.0 size into +0.0; the same here, once.
 #pragma unroll
-  for (int s = 0; s < SPL; ++s) sizes[s * 32 + lane] = sz[s];
+  for (int s = 0; s < SPL; ++s)
+    sizes[s * 32 + lane] = i0 < n ? c.sz[s] + 0.f : c.sz[s];
   if (lane == 0) {
-    info[0] = i;
+    info[0] = i_next;
     info[1] = birth_cell;
     info[2] = -1;
     info[3] = -1;

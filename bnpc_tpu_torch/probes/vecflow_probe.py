@@ -4,7 +4,10 @@ shipped kernel (csrc/lazy_segment.cu).
 
 Counterpart of benchmarks/vecflow_probe.py (its kernel ``_vecflow_kernel``,
 called through ``vecflow``). The kernel (csrc/vecflow_probe.cu) runs
-lazy_segment's per-cell step over positions 0, 1, ... in batches of 128:
+lazy_segment's loop and per-cell step over positions 0, 1, ... in batches
+of 128, and differs from lazy_segment only in the TPU probe's two ideas: a
+batch's targets leave registers once a batch, and the birth is tested once
+a batch. So its time beside lazy_segment's is what those two ideas buy.
 
 * a position i >= n of the last batch is inert (cell perm[n - 1], nothing
   removed or added, no birth); its target, the first argmax, is written too;
@@ -99,8 +102,6 @@ def vecflow(z, aux, assign, perm, sizes, tgt, info, log_denom):
     _build.check_tensor(tgt, "tgt", f32, (n_batches(n), BATCH), dev)
     _build.check_tensor(info, "info", i32, (1,), dev)
     _build.check_tensor(log_denom, "log_denom", f32, (), dev)
-    if tgt.data_ptr() % 16:
-        raise ValueError("vecflow: tgt must be 16-byte aligned")
     lib = _build.load_library()
     global launches
     launches += 1
@@ -124,6 +125,36 @@ def make_inputs(n, k_pad, device, seed=0):
     return (*(torch.from_numpy(x).to(device)
               for x in (z, aux, assign, perm, sizes)),
             torch.tensor(LOG_DENOM, dtype=torch.float32, device=device))
+
+
+# Crafted inputs on which the kernel must equal the twin: (n, k_pad, birth
+# positions) of crafted_inputs.
+CRAFTED = {"n_multiple_of_128": (256, 64, []),
+           "n_1": (1, 32, []),
+           "n_below_ring": (5, 64, [3]),
+           "birth_at_0": (200, 64, [0]),
+           "birth_in_last_full_batch": (300, 64, [200]),
+           "birth_in_tail": (300, 128, [280]),
+           "two_births_one_batch": (300, 64, [130, 140])}
+
+
+def crafted_inputs(name, k_pad=None):
+    """One crafted case as numpy arrays: (z, aux, assign, perm, sizes,
+    log_denom, info[0] it must give). 12 live slots, 20-23 free, aux +1e30
+    at the case's birth positions and -inf elsewhere."""
+    n, k, births = CRAFTED[name]
+    k = k_pad or k
+    rng = np.random.default_rng(len(name))
+    z = (rng.standard_normal((-(-n // 8) * 8, k)) * 3.0).astype(np.float32)
+    assign = rng.integers(0, 12, n).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    sizes = np.full(k, -1.0, np.float32)
+    sizes[:12] = np.bincount(assign, minlength=12)
+    sizes[20:24] = 0.0
+    aux = np.full(n, -np.inf, np.float32)
+    aux[perm[births]] = 1e30
+    return (z, aux, assign, perm, sizes, np.float32(LOG_DENOM),
+            births[0] if births else n)
 
 
 def main(argv=None) -> dict:

@@ -12,7 +12,11 @@ arithmetic:
 
 NaN propagates as in JAX (the TPU probe starts from an output it never
 wrote, NaN in interpret mode): a NaN logit is the max, and idx is the first
-NaN slot. ``sizes`` [k_pad] f32 is the explicit initial row, updated in
+NaN slot. The kernel runs lazy_segment's loop (a cp.async row ring, perm a
+chunk ahead, one basic block) and its step's devices (log weights cached
+beside the sizes, best and first index as two integer warp reductions, the
+free slot only when v[0] wins), with a key map that sends every NaN above
++inf. ``sizes`` [k_pad] f32 is the explicit initial row, updated in
 place; ``out`` [n] i32 receives the targets of positions [i0, info[0]);
 ``info`` [4] i32 receives (i_next, birth_cell, -1, -1), birth_cell -1 when
 the loop ran to n.
@@ -119,6 +123,91 @@ def make_inputs(n, k_pad, device, seed=0):
     sizes = np.full(k_pad, -1.0, np.float32)
     sizes[:12] = np.bincount(np.arange(n) % 12, minlength=12)
     return tuple(torch.from_numpy(x).to(device) for x in (z, perm, sizes))
+
+
+# NaNs of both signs and several payloads.
+NANS = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFBFFFFF, 0x7FFFFFFF,
+                 0xFFFFFFFF], np.uint32).view(np.float32)
+
+# Crafted inputs on which the kernel must equal the twin (crafted_inputs).
+CRAFTED = ("tpu_nan_start", "nan_slot0", "nan_later_slot",
+           "nan_signs_payloads", "signed_zero_ties", "all_minus_inf",
+           "sizes_minus_one", "birth_at_i0", "birth_at_last", "random")
+
+
+def crafted_inputs(name, n=64, k_pad=64):
+    """One crafted case as numpy arrays: (z, perm, sizes, i0, info[:2] it
+    must give, or None). n >= 40, k_pad >= 32. Where a birth is wanted,
+    slot 0 is empty or masked and z[:, 0] is -5 elsewhere, so that v[0]
+    wins only there."""
+    rng = np.random.default_rng(100 + len(name))
+    z = rng.normal(size=(n, k_pad)).astype(np.float32)
+    perm = rng.permutation(n).astype(np.int32)
+    sizes = np.full(k_pad, -1.0, np.float32)
+    sizes[:12] = rng.integers(1, 30, 12)
+    k, i0, want = k_pad, 0, None
+    if name == "tpu_nan_start":  # the TPU probe's start: NaN sizes
+        sizes[:] = np.nan
+        want = [n, -1]
+    elif name == "nan_slot0":
+        sizes[0] = np.nan
+    elif name == "nan_later_slot":
+        sizes[k - 27] = np.nan
+    elif name == "nan_signs_payloads":
+        # NaN logits from z, of both signs and several payloads, at slots
+        # of different lanes and rows; a NaN v[0] (no birth); then a birth.
+        sizes[0] = -1.0
+        sizes[[5, 40 % k]] = 0.0
+        z[:, 0] = -5.0
+        for j, cell in enumerate(perm[3:40:4]):
+            z[cell, [7 + j, (33 + 3 * j) % k][j % 2]] = NANS[j % len(NANS)]
+            z[cell, (2 * j + 50) % k] = NANS[(j + 3) % len(NANS)]
+        z[perm[10], 0] = NANS[1]
+        z[perm[12], 0] = 100.0
+        want = [13, int(perm[12])]
+    elif name == "signed_zero_ties":
+        # v -0.0 and +0.0 on slots of size 1 (logits +0.0 either way, a
+        # tie the first slot wins), v[0] -0.0 against a best of +0.0 (no
+        # birth), and -0.0 sizes, free, that the twin turns into +0.0.
+        sizes[:] = -1.0
+        sizes[[3, 9, 40 % k]] = 1.0
+        sizes[[20, 21]] = -0.0
+        z[:] = -1e30
+        z[:, [3, 40 % k]] = -0.0
+        z[:, 9] = 0.0
+        z[:, 0] = -0.0
+        want = [n, -1]
+    elif name == "all_minus_inf":
+        z[:] = -np.inf
+        want = [n, -1]
+    elif name == "sizes_minus_one":
+        sizes[:] = -1.0
+        sizes[[1, 4]] = 2.0
+        z[:, 0] = -5.0
+        z[perm[6], k - 1] = np.inf  # +inf + log(0): a NaN logit
+        want = [n, -1]
+    elif name == "birth_at_i0":
+        i0 = 5
+        sizes[0] = 0.0
+        z[:, 0] = -5.0
+        z[perm[i0], 0] = 50.0
+        want = [i0 + 1, int(perm[i0])]
+    elif name == "birth_at_last":
+        i0 = 17
+        sizes[0] = 0.0
+        z[:, 0] = -5.0
+        z[perm[n - 1], 0] = 50.0
+        want = [n, int(perm[n - 1])]
+    elif name == "random":  # NaNs in z, free and masked slots, a birth
+        sizes[rng.random(k) < 0.2] = 0.0
+        sizes[0] = -1.0
+        z[:, 0] = -5.0
+        z[rng.random((n, k)) < 0.002] = NANS[3]
+        i0 = int(rng.integers(0, n // 2))
+        z[perm[i0 + n // 4], 0] = 30.0  # unless its row holds a NaN
+    else:
+        raise KeyError(name)
+    return z, perm, sizes, i0, want
 
 
 def main(argv=None) -> dict:

@@ -48,12 +48,24 @@ Phases (any failure exits non-zero, and no result line is printed):
                                birth mid-batch (the rest of the batch
                                compared), a won new-cluster option with no
                                free slot, and n 4,993 (z rows padded to
-                               5,000; the inert tail); also timed on
-                               lazy_stream's 131,072 x 128 Z beside
+                               5,000; the inert tail); the crafted cases of
+                               vecflow_probe.CRAFTED (n a multiple of 128,
+                               n 1, n < kRing, births at 0, in the last
+                               full batch, in the ragged batch, two in one
+                               batch) at k_pad 32 ... 1,024; timed beside
+                               lazy_segment on the same input, in turns,
+                               and on lazy_stream's 131,072 x 128 Z beside
                                lazy_segment there;
                  while_exit    512 x 256 (the probe's shape): NaN sizes from
                                0 (the probe verbatim), a birth from 0, a
-                               birth from position 200;
+                               birth from position 200; the crafted cases
+                               of while_probe.CRAFTED (NaN sizes, a NaN in
+                               slot 0 or a later one, NaNs of both signs
+                               and several payloads, -0.0 / +0.0, every
+                               logit -inf, sizes -1, births at i0 and at
+                               n - 1) at 128 cells and k_pad 32 ... 1,024,
+                               sizes bit for bit; timed beside lazy_segment
+                               on the same z and perm, in turns;
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
@@ -693,7 +705,8 @@ def phase_lazy_stream(dev):
         f"{4 * n * k_pad / 1e6:.1f} MB): kernel {ms:.4f} ms, plain twin "
         f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
         f"lazy_segment on the same Z in cell order {resident_ms:.4f} ms, "
-        f"vecflow there {vecflow_ms:.4f} ms (targets equal)")
+        f"vecflow there {vecflow_ms:.4f} ms (targets equal; vecflow / "
+        f"lazy_segment {vecflow_ms / resident_ms:.4f})")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "resident_same_z_ms": resident_ms, "vecflow_same_z_ms": vecflow_ms}
@@ -833,12 +846,14 @@ def phase_eager_sweep(dev):
             "two_births_ms": births_ms}
 
 
-def phase_vecflow(dev):
+def phase_vecflow(dev, smi):
     import torch
 
-    from bnpc_tpu_torch.probes.vecflow_probe import (BATCH, K_PAD, make_inputs,
-                                                     n_batches, vecflow,
-                                                     vecflow_ref)
+    from bnpc_tpu_torch.ops.cuda_gibbs import lazy_segment
+    from bnpc_tpu_torch.probes.vecflow_probe import (BATCH, CRAFTED, K_PAD,
+                                                     crafted_inputs,
+                                                     make_inputs, n_batches,
+                                                     vecflow, vecflow_ref)
 
     def case(n, hot=(), free=True):
         """The probe's input at n cells; aux +1e30 at the `hot` positions;
@@ -884,6 +899,27 @@ def phase_vecflow(dev):
         log(f"  vecflow {name} (n={args[3].shape[0]}, k_pad={K_PAD}): info "
             f"{ki.tolist()}, {rows} batches written — kernel == twin")
 
+    # The crafted cases of vecflow_probe.CRAFTED (n a multiple of 128, n 1,
+    # n < kRing, a birth at 0, in the last full batch, in the ragged batch,
+    # two in one batch) at every slots-per-lane width.
+    for name in CRAFTED:
+        for kp in (32, 64, 128, 256, 512, 1024):
+            *arrays, want = crafted_inputs(name, kp)
+            z, aux, assign, perm, sizes0, ld = (torch.from_numpy(
+                np.asarray(x)).to(dev) for x in arrays)
+            (kt, ks, ki), (rt, rs, ri) = [run(fn, (z, aux, assign, perm),
+                                              sizes0, ld)
+                                          for fn in (vecflow, vecflow_ref)]
+            if not (torch.equal(kt, rt) and torch.equal(ks, rs)
+                    and torch.equal(ki, ri)) or int(ki[0]) != want:
+                raise AssertionError(f"vecflow crafted {name} k_pad {kp}: "
+                                     f"kernel info {ki.tolist()} twin "
+                                     f"{ri.tolist()}, targets or sizes "
+                                     "differ")
+            pairs += [(kt, rt), (ks, rs), (ki, ri)]
+    log(f"  vecflow crafted cases ({', '.join(CRAFTED)}) at k_pad 32 ... "
+        "1,024 — kernel == twin")
+
     (args, sizes0, log_denom), _ = cases["no_birth"]
     tgt = torch.empty((n_batches(N), BATCH), device=dev)
     info = torch.empty((1,), dtype=torch.int32, device=dev)
@@ -891,24 +927,49 @@ def phase_vecflow(dev):
     ms = cuda_ms(lambda: vecflow(*args, next(buf), tgt, info, log_denom), 21)
     plain_ms = cuda_ms(lambda: vecflow_ref(*args, sizes0.clone(), tgt, info,
                                            log_denom), 3)
+    # Kernel 1 on the same input, in turns with the probe: the probe differs
+    # from it only in its batched target stores and birth test.
+    z, aux, assign, perm = args
+    tgt_l = torch.empty((N,), dtype=torch.int32, device=dev)
+    info_l = torch.empty((4,), dtype=torch.int32, device=dev)
+    turns = []
+    for fn in ("lazy_segment", "vecflow", "lazy_segment"):
+        buf = iter([sizes0.clone() for _ in range(21)])
+        turns.append(cuda_ms(
+            (lambda: lazy_segment(z[:N], aux, assign, perm, next(buf), tgt_l,
+                                  info_l, 0, log_denom))
+            if fn == "lazy_segment" else
+            (lambda: vecflow(*args, next(buf), tgt, info, log_denom)), 21))
+    lazy_ms = (turns[0] + turns[2]) / 2
     # Every cell: its z row, aux, assign and perm entries in; the sizes row
-    # in and out; the [nb, 128] targets and info out. Every position of the
-    # batches (the inert tail included) takes the per-slot step.
-    positions = n_batches(N) * BATCH
+    # in and out; the [nb, 128] targets and info out. Every cell takes the
+    # per-slot step; the inert tail positions share one argmax (the sizes
+    # do not change there).
+    steps = N + (N % BATCH != 0)
     bound_ms, bound_by = bound(
-        4 * (N * K_PAD + 3 * N + 2 * K_PAD + positions + 1),
-        OPS_PER_SLOT * positions * K_PAD)
+        4 * (N * K_PAD + 3 * N + 2 * K_PAD + n_batches(N) * BATCH + 1),
+        OPS_PER_SLOT * steps * K_PAD)
     log(f"  vecflow full sweep (n={N}, k_pad={K_PAD}): kernel {ms:.4f} ms, "
         f"plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  vecflow beside lazy_segment on the same input, in turns "
+        f"(lazy, vecflow, lazy): {turns[0]:.4f} / {turns[1]:.4f} / "
+        f"{turns[2]:.4f} ms; vecflow / lazy_segment {ms:.4f} / {lazy_ms:.4f}"
+        f" = {ms / lazy_ms:.4f}, {turns[1]:.4f} / {lazy_ms:.4f} = "
+        f"{turns[1] / lazy_ms:.4f} ({smi})")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "lazy_segment_same_input_ms": lazy_ms,
+            "turns_ms": turns}
 
 
-def phase_while_exit(dev):
+def phase_while_exit(dev, smi):
     import torch
 
-    from bnpc_tpu_torch.probes.while_probe import (K_PAD, N, make_inputs,
-                                                   while_exit, while_exit_ref)
+    from bnpc_tpu_torch.ops.cuda_gibbs import lazy_segment
+    from bnpc_tpu_torch.probes.while_probe import (CRAFTED, K_PAD, N,
+                                                   crafted_inputs,
+                                                   make_inputs, while_exit,
+                                                   while_exit_ref)
 
     z, perm, sizes_fin = make_inputs(N, K_PAD, dev)
     perm_h = perm.cpu().numpy()
@@ -950,12 +1011,62 @@ def phase_while_exit(dev):
         log(f"  while_exit {name} (n={N}, k_pad={K_PAD}, from {i0}): info "
             f"{ki.tolist()} — kernel == twin")
 
+    # The crafted cases of while_probe.CRAFTED (NaN sizes, a NaN in one
+    # slot, NaNs of both signs and several payloads, -0.0 / +0.0, every
+    # logit -inf, sizes -1, births at i0 and at n - 1) at every
+    # slots-per-lane width: targets and info equal, sizes bit for bit (NaN
+    # for NaN).
+    n_c = 128
+    for name in CRAFTED:
+        for kp in (32, 64, 128, 256, 512, 1024):
+            zc_np, perm_np, sizes_np, i0, want = crafted_inputs(name, n_c, kp)
+            zc, permc, sizes0 = (torch.from_numpy(x).to(dev)
+                                 for x in (zc_np, perm_np, sizes_np))
+            outs = []
+            for fn in (while_exit, while_exit_ref):
+                sizes = sizes0.clone()
+                out = torch.full((n_c,), -7, dtype=torch.int32, device=dev)
+                info = torch.zeros((4,), dtype=torch.int32, device=dev)
+                fn(zc, permc, sizes, out, info, i0)
+                torch.cuda.synchronize()
+                outs.append((out, sizes, info))
+            (ko, ks, ki), (ro, rs, ri) = outs
+            nan = torch.isnan(rs)
+            same_sizes = (torch.equal(torch.isnan(ks), nan) and torch.equal(
+                ks[~nan].view(torch.int32), rs[~nan].view(torch.int32)))
+            if not (torch.equal(ko, ro) and torch.equal(ki, ri)
+                    and same_sizes) or (want is not None
+                                        and ki.tolist()[:2] != want):
+                raise AssertionError(f"while_exit crafted {name} k_pad {kp}:"
+                                     f" kernel info {ki.tolist()} twin "
+                                     f"{ri.tolist()}, expected {want}, or "
+                                     "targets or sizes differ")
+            pairs += [(ko, ro), (ki, ri)]
+    log(f"  while_exit crafted cases ({', '.join(CRAFTED)}; n={n_c}) at "
+        "k_pad 32 ... 1,024 — kernel == twin, sizes bit for bit")
+
     out = torch.empty((N,), dtype=torch.int32, device=dev)
     info = torch.empty((4,), dtype=torch.int32, device=dev)
     buf = iter([sizes_fin.clone() for _ in range(21)])
     ms = cuda_ms(lambda: while_exit(z, perm, next(buf), out, info, 0), 21)
     plain_ms = cuda_ms(lambda: while_exit_ref(z, perm, sizes_fin.clone(), out,
                                               info, 0), 3)
+    # Kernel 1 on the same z, perm and sizes with no birth (aux -inf), in
+    # turns with the probe, as the probe's main() times it.
+    assign = (torch.arange(N, device=dev) % 12).to(torch.int32)
+    aux = torch.full((N,), -float("inf"), device=dev)
+    ld0 = torch.zeros((), device=dev)
+    tgt_l = torch.empty((N,), dtype=torch.int32, device=dev)
+    info_l = torch.empty((4,), dtype=torch.int32, device=dev)
+    turns = []
+    for fn in ("lazy_segment", "while_exit", "lazy_segment"):
+        buf = iter([sizes_fin.clone() for _ in range(21)])
+        turns.append(cuda_ms(
+            (lambda: lazy_segment(z, aux, assign, perm, next(buf), tgt_l,
+                                  info_l, 0, ld0))
+            if fn == "lazy_segment" else
+            (lambda: while_exit(z, perm, next(buf), out, info, 0)), 21))
+    lazy_ms = (turns[0] + turns[2]) / 2
     # No birth, from 0: every cell's z row and perm entry in, its target
     # out; the sizes row in and out; five float operations per slot.
     bound_ms, bound_by = bound(4 * (N * K_PAD + 2 * N + 2 * K_PAD + 4),
@@ -963,8 +1074,14 @@ def phase_while_exit(dev):
     log(f"  while_exit full no-birth run (n={N}, k_pad={K_PAD}): kernel "
         f"{ms:.4f} ms, plain twin {plain_ms:.1f} ms, bound {bound_ms:.6f} ms "
         f"({bound_by})")
+    log(f"  while_exit beside lazy_segment on the same z and perm, in turns "
+        f"(lazy, while, lazy): {turns[0]:.4f} / {turns[1]:.4f} / "
+        f"{turns[2]:.4f} ms; while_exit / lazy_segment {ms:.4f} / "
+        f"{lazy_ms:.4f} = {ms / lazy_ms:.4f}, {turns[1]:.4f} / {lazy_ms:.4f}"
+        f" = {turns[1] / lazy_ms:.4f} ({smi})")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "lazy_segment_same_input_ms": lazy_ms, "turns_ms": turns}
 
 
 # ---------------------------------------------------------------------------
@@ -1261,8 +1378,8 @@ def chain_bounds():
     argmax, scan = res["argmax_chain_cycles"], res["scan_chain_cycles"]
     cells = {"lazy_segment": (N, argmax), "rg_scan": (N, scan),
              "lazy_stream": (N_LARGE, argmax), "eager_sweep": (N, argmax),
-             "vecflow": (vecflow_probe.n_batches(N) * vecflow_probe.BATCH,
-                         argmax),
+             # Every cell, and one argmax for the inert tail positions.
+             "vecflow": (N + (N % vecflow_probe.BATCH != 0), argmax),
              "while_exit": (while_probe.N, argmax)}
     res["chain_bound_ms"] = {
         name: chain_probe.chain_bound_ms(n, cycles, res["clock_ghz"])
@@ -1865,8 +1982,8 @@ def main():
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
-         "vecflow": phase_vecflow(dev),
-         "while_exit": phase_while_exit(dev)}
+         "vecflow": phase_vecflow(dev, smi),
+         "while_exit": phase_while_exit(dev, smi)}
     log("[4/10] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
@@ -1934,6 +2051,10 @@ def main():
         "lazy_segment_on_stream_z_ms": k["lazy_stream"][
             "resident_same_z_ms"],
         "vecflow_on_stream_z_ms": k["lazy_stream"]["vecflow_same_z_ms"],
+        "probes_beside_lazy_segment": {
+            name: {f: k[name][f] for f in ("ms", "lazy_segment_same_input_ms",
+                                           "turns_ms")}
+            for name in ("vecflow", "while_exit")},
         "chain": chain,
         "probes": {name: {f: v for f, v in out.items()
                           if f != "launches_path"}

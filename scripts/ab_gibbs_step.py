@@ -2,7 +2,7 @@
 """A/B of the sampler kernels' designs on one CUDA device.
 
     python3 scripts/ab_gibbs_step.py [--parent DIR] [--rounds 2]
-                                     [--json FILE] [--only step,k4,k2]
+                                     [--json FILE] [--only step,k4,k2,k6,k5]
                                      [--sass DIR]
 
 Builds variants of bnpc_tpu_torch/csrc/{gibbs_common.cuh, lazy_segment.cu,
@@ -67,8 +67,51 @@ give the tree's sides on all five:
     k2_parent         (--parent DIR, 83beae6 likewise) its rg_scan.cu, one
                       thread
 
-`--sass DIR` writes `cuobjdump -sass` of the tree's sweep and scan kernels
-there.
+`--only k6` and `--only k5` do it for the probes' kernels, each beside
+kernel 1 (`k1_yardstick`, the tree's lazy_segment.cu) on the same input in
+the same turns. Every variant must give the tree's targets, sizes (NaN for
+NaN) and info on the probe's crafted cases (while_probe.CRAFTED at k_pad
+32, 256 and 1,024, 128 cells; vecflow_probe.CRAFTED at its widths and at
+k_pad 256) and on the timed input. Kernel 6 (while_probe.cu) is timed on
+its probe's full no-birth run at 512 x 256:
+
+    k6_tree           the sources as they are
+    k6_logf_all       no cached weights: SPL logf a lane a cell, as before
+                      the redesign
+    k6_shuffle_trees  the max key by a five-round shuffle tree and the two
+                      first indices by warp_min, as before the redesign
+    k6_parent         (--parent DIR, a5b388e) its while_probe.cu and header
+
+Kernel 5 (vecflow_probe.cu) on its probe's no-birth sweep at 5,000 x 256 (Z
+in L2) and on the 131,072 x 128 Z in cell order (Z misses L2):
+
+    k5_tree           the sources as they are
+    k5_no_ring        no cp.async ring: the next position's row by plain
+                      loads one position ahead, as before the redesign
+    k5_store_each_cell  each target stored by lane 0 at its cell, as
+                      kernel 1 does, not kept and stored once a batch
+    k5_chunks_rolled  the batch's four 32-position chunks in a loop that is
+                      not unrolled (`#pragma unroll 1`), each chunk's
+                      targets stored as it ends
+    k1_chunk_loop     kernel 1 (lazy_segment.cu) in kernel 5's loop shape:
+                      an inner loop over one chunk's positions, n in its
+                      bound and the birth in its condition, the chunk
+                      refreshed between chunks; must give the tree's
+                      lazy_segment outputs (no birth, a birth from 1,003, a
+                      veto, and the large Z) and is timed beside it
+    k1_exit_per_chunk k1_chunk_loop with the birth tested once a chunk, so
+                      that no branch waits for the chain (timing only:
+                      compared on the cases without a birth)
+    k1_chunk_no_stop  k1_exit_per_chunk with the step's removal of the next
+                      cell not tied to the birth (timing only, likewise)
+    k1_row_after_step kernel 1 with the wait for the next row and its
+                      shared-memory reads after the step in the source
+    k1_undo_at_birth  kernel 1's own loop, the step always removing the
+                      next cell (stop_at_birth false), and a birth adding
+                      it back as the loop ends; exact on every case
+    k5_parent         (--parent DIR, a5b388e) its vecflow_probe.cu and header
+
+`--sass DIR` writes `cuobjdump -sass` of every variant's objects there.
 """
 
 import argparse
@@ -94,6 +137,7 @@ from bnpc_tpu_torch.probes import card, cuda_ms  # noqa: E402
 CSRC = ROOT / "bnpc_tpu_torch" / "csrc"
 HEADER, SEG, STREAM = "gibbs_common.cuh", "lazy_segment.cu", "lazy_stream.cu"
 SWEEP, RG = "sweep.cu", "rg_scan.cu"
+WHILE, VECFLOW = "while_probe.cu", "vecflow_probe.cu"
 
 
 def patch(text, pairs):
@@ -413,6 +457,225 @@ def variants_k2(parent):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernels 6 and 5 (the probes): one part of the redesign taken out
+# ---------------------------------------------------------------------------
+
+K6_LOGF_ALL = [("key[s] = nan_key(v[s] + c.w[s]);",
+                "key[s] = nan_key(v[s] + nan_log_weight(c.sz[s]));")]
+K6_SHUFFLE_TREES = [
+    ("template <int N>\n__device__ __forceinline__ unsigned tree_umax(",
+     "__device__ __forceinline__ unsigned warp_umax(unsigned x) {\n"
+     "#pragma unroll\n"
+     "  for (int off = 16; off > 0; off >>= 1)\n"
+     "    x = max(x, __shfl_xor_sync(kFull, x, off));\n"
+     "  return x;\n}\n\n"
+     "template <int N>\n__device__ __forceinline__ unsigned tree_umax("),
+    ("__reduce_max_sync(kFull, tree_umax<SPL>(key))",
+     "warp_umax(tree_umax<SPL>(key))"),
+    *SHUFFLE_TREES[1:],
+]
+# No ring: position i + 1's row by plain loads in the loop's block, and
+# position 0's before it.
+K5_NO_RING = [
+    ("  for (int d = 0; d < kRing - 1; ++d) {\n"
+     "    issue_row_full<SPL>(ring_s + d * kRowBytes,\n"
+     "                        z_lane + (size_t)pair_at(cur.cell, nxt.cell, d)"
+     " * K);\n    cp_async_commit();\n  }\n", ""),
+    ("  cp_async_wait<kRing - 2>();  // row 0 has landed (this lane's part)\n"
+     "#pragma unroll\n"
+     "  for (int s = 0; s < SPL; ++s) v[s] = ring[0][s * 32 + lane];",
+     "#pragma unroll\n"
+     "  for (int s = 0; s < SPL; ++s)\n"
+     "    v[s] = z_lane[(size_t)pair_at(cur.cell, nxt.cell, 0) * K + s * 32];"),
+    ("        const int r = i + kRing - 1;\n"
+     "        issue_row_full<SPL>(\n"
+     "            ring_s + (unsigned)r % kRing * kRowBytes,\n"
+     "            z_lane + (size_t)pair_at(cur.cell, nxt.cell, j + kRing - 1)"
+     " * K);\n        cp_async_commit();\n", ""),
+    ("        cp_async_wait<kRing - 2>();  // position i + 1's row has landed"
+     "\n", ""),
+    ("          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];",
+     "          v_n[s] = z_lane[(size_t)pair_at(cur.cell, nxt.cell, j + 1) * K"
+     "\n                          + s * 32];"),
+]
+
+
+# The targets stored a cell at a time (lane 0), as kernel 1 does, instead
+# of kept in registers and stored once a batch; only the inert positions'
+# targets are left to the batch's store.
+K5_STORE_EACH_CELL = [
+    ("        if (lane == j) w[q] = (float)p.t;\n",
+     "        if (lane == 0) tgt_out[i] = (float)p.t;\n"),
+    ("    for (int q = 0; q < kChunks; ++q) tgt_out[base + 32 * q + lane] = "
+     "w[q];",
+     "    for (int q = 0; q < kChunks; ++q)\n"
+     "      if (base + 32 * q + lane >= n) tgt_out[base + 32 * q + lane] = "
+     "w[q];"),
+]
+
+
+# Kernel 1 (lazy_segment.cu) in kernel 5's loop shape: an inner loop over
+# the positions of one 32-position chunk, whose bound holds n and whose
+# condition holds the birth, and the chunk refresh between chunks; the
+# body has no other branch.
+K1_CHUNK_LOOP = r'''    for (int j = i0 - cb;; j = 0) {
+      const int end = min(32, n - cb);
+      bool born = false;
+      int t_born = 0;
+      for (; j < end && !born; ++j) {
+        __syncwarp();
+        const int i = cb + j;
+        const int r = i + kRing - 1;
+        issue_row_full<SPL>(ring_s + (unsigned)r % kRing * kRowBytes,
+                            z_lane + (size_t)pair_at(cur.cell, nxt.cell,
+                                                     j + kRing - 1) * K);
+        cp_async_commit();
+        const float a_n = pair_at(cur.a, nxt.a, j + 1);
+        const int old_n2 = pair_at(cur.o, nxt.o, j + 2);
+        cp_async_wait<kRing - 2>();
+        float v_n[SPL];
+#pragma unroll
+        for (int s = 0; s < SPL; ++s)
+          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
+        const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, true,
+                                       lane);
+        veto |= (p.cand && !p.is_new) ? 1 : 0;
+        if (lane == 0) tgt_out[i] = p.t;
+        born = p.is_new;
+        t_born = p.t;
+        a = a_n;
+        old_next = old_n2;
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
+      }
+      if (born) {
+        birth_pos = cb + j - 1;
+        birth_cell = __shfl_sync(kFull, cur.cell, j - 1);
+        birth_slot = t_born;
+        break;
+      }
+      if (cb + 32 >= n) break;
+      cb += 32;
+      cur = nxt;
+      nxt.load(perm, assign, aux, cb + 32, n, lane);
+    }
+    cp_async_wait_all();
+'''
+
+
+# Timing only: the birth tested once a chunk, so that the loop's branch
+# does not wait for the chain's end (positions past a birth in its chunk
+# run on: right on inputs without a birth only).
+K1_EXIT_PER_CHUNK = [("      for (; j < end && !born; ++j) {",
+                      "      for (; j < end; ++j) {"),
+                     ("        born = p.is_new;", "        born |= p.is_new;")]
+
+
+# Kernel 1 with the next cell's removal not tied to the birth: the step
+# always removes it (stop_at_birth false, so the update does not wait for
+# is_new), and a birth adds it back as the loop ends.
+K1_UNDO_AT_BIRTH = [
+    ("      const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, true,"
+     "\n", "      const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n,"
+     " false,\n"),
+    ("        birth_slot = p.t;\n        break;",
+     "        birth_slot = p.t;\n#pragma unroll\n"
+     "        for (int s = 0; s < SPL; ++s)\n"
+     "          if (i + 1 < n && s * 32 + lane == old_next) c.sz[s] += 1.f;\n"
+     "        break;"),
+]
+# Kernel 1 with the wait for position i + 1's row and its shared-memory
+# reads placed after the step in the source, as kernel 5's compiled loop
+# has them.
+K1_ROW_AFTER_STEP = [
+    ("      cp_async_wait<kRing - 2>();  // position i + 1's row has landed\n"
+     "      float v_n[SPL];\n#pragma unroll\n"
+     "      for (int s = 0; s < SPL; ++s)\n"
+     "        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n", ""),
+    ("      if (lane == 0) tgt_out[i] = p.t;\n",
+     "      if (lane == 0) tgt_out[i] = p.t;\n"
+     "      cp_async_wait<kRing - 2>();  // position i + 1's row has landed\n"
+     "      float v_n[SPL];\n#pragma unroll\n"
+     "      for (int s = 0; s < SPL; ++s)\n"
+     "        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n"),
+]
+# Timing only: k1_exit_per_chunk's loop with the step's removal not tied
+# to the birth either.
+K1_CHUNK_NO_STOP = [*K1_EXIT_PER_CHUNK,
+                    ("i + 1 < n, true,\n", "i + 1 < n, false,\n")]
+
+
+def k1_chunk_loop(pairs=()):
+    """lazy_segment.cu with its loop replaced by K1_CHUNK_LOOP, patched by
+    `pairs`."""
+    seg = (CSRC / SEG).read_text()
+    start = "    for (int i = i0;; ++i) {\n"
+    stop = "    cp_async_wait_all();\n"
+    if seg.count(start) != 1 or stop not in seg[seg.find(start):]:
+        raise SystemExit("patch no longer applies: lazy_segment.cu's loop")
+    a = seg.index(start)
+    b = seg.index(stop, a) + len(stop)
+    return seg[:a] + patch(K1_CHUNK_LOOP, pairs) + seg[b:]
+
+
+# The batch's four chunks in a loop the compiler may not unroll, each
+# chunk's targets stored as it ends (the inert ones at the batch's end).
+K5_CHUNKS_ROLLED = [
+    ("    float w[kChunks];  // w[q] on lane l: position b * 128 + 32 q + l\n"
+     "#pragma unroll\n    for (int q = 0; q < kChunks; ++q) {\n"
+     "      const int end = min(32, n - cb);  // 32 but in the ragged last "
+     "batch\n",
+     "    float w[kChunks];\n#pragma unroll 1\n"
+     "    for (int q = 0; q < kChunks; ++q) {\n"
+     "      const int end = min(32, n - cb);\n      float wq = 0.f;\n"),
+    ("        if (lane == j) w[q] = (float)p.t;\n",
+     "        if (lane == j) wq = (float)p.t;\n"),
+    ("      cb += 32;\n      cur = nxt;",
+     "      if (lane < end) tgt_out[cb + lane] = wq;\n"
+     "      cb += 32;\n      cur = nxt;"),
+    *K5_STORE_EACH_CELL[1:],
+]
+
+
+def variants_probe(which, parent):
+    """{name: ({file: text}, None)} of kernel 6 or 5; the tree's variant
+    also holds lazy_segment.cu, the yardstick."""
+    src_name = WHILE if which == "k6" else VECFLOW
+    src = {f: (CSRC / f).read_text() for f in (HEADER, src_name)}
+
+    def with_src(pairs):
+        return {**src, src_name: patch(src[src_name], pairs)}
+
+    out = {f"{which}_tree": ({**src, SEG: (CSRC / SEG).read_text()}, None)}
+    if which == "k6":
+        out["k6_logf_all"] = (with_src(K6_LOGF_ALL), None)
+        out["k6_shuffle_trees"] = (with_src(K6_SHUFFLE_TREES), None)
+    else:
+        out["k5_no_ring"] = (with_src(K5_NO_RING), None)
+        out["k5_store_each_cell"] = (with_src(K5_STORE_EACH_CELL), None)
+        out["k5_chunks_rolled"] = (with_src(K5_CHUNKS_ROLLED), None)
+        out["k1_chunk_loop"] = ({HEADER: src[HEADER], SEG: k1_chunk_loop()},
+                                None)
+        out["k1_exit_per_chunk"] = ({HEADER: src[HEADER],
+                                     SEG: k1_chunk_loop(K1_EXIT_PER_CHUNK)},
+                                    None)
+        out["k1_chunk_no_stop"] = ({HEADER: src[HEADER],
+                                    SEG: k1_chunk_loop(K1_CHUNK_NO_STOP)},
+                                   None)
+        out["k1_row_after_step"] = ({HEADER: src[HEADER],
+                                     SEG: patch((CSRC / SEG).read_text(),
+                                                K1_ROW_AFTER_STEP)}, None)
+        out["k1_undo_at_birth"] = ({HEADER: src[HEADER],
+                                    SEG: patch((CSRC / SEG).read_text(),
+                                               K1_UNDO_AT_BIRTH)}, None)
+    if parent:
+        pdir = Path(parent) / "bnpc_tpu_torch" / "csrc"
+        out[f"{which}_parent"] = ({f: (pdir / f).read_text()
+                                   for f in (HEADER, src_name)}, None)
+    return out
+
+
 def build(vs, work):
     """One nvcc per source of every variant, all at once; returns
     {name: CDLL} and prints the step kernels' registers."""
@@ -434,10 +697,11 @@ def build(vs, work):
         log = p.communicate()[0]
         if p.returncode:
             raise SystemExit(f"nvcc failed on {name}/{f}:\n{log}")
-        if name in ("tree", "parent", "k4_tree", "k2_tree"):
+        if name in ("tree", "parent", "k4_tree", "k2_tree", "k6_tree",
+                    "k5_tree", "k6_parent", "k5_parent"):
             lines = log.splitlines()
             for i, line in enumerate(lines):
-                if "Compiling entry" in line and (
+                if "Compiling entry" in line and f != SEG and (
                         "ILi4E" in line or "ILi8E" in line
                         or "rg_scan_kernel" in line):
                     what = ("SPL 4" if "ILi4E" in line else
@@ -453,7 +717,8 @@ def build(vs, work):
                         *map(str, d.glob("*.o"))], check=True)
         lib = ctypes.CDLL(str(so))
         for fn in ("bnpc_lazy_segment", "bnpc_lazy_stream",
-                   "bnpc_eager_sweep", "bnpc_rg_scan"):
+                   "bnpc_eager_sweep", "bnpc_rg_scan", "bnpc_while_exit",
+                   "bnpc_vecflow"):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
@@ -733,16 +998,197 @@ def run_k2(args, dev, work):
     return res
 
 
+def while_exit(lib, z, perm, sizes, out, info, i0):
+    rc = lib.bnpc_while_exit(z.data_ptr(), perm.data_ptr(), sizes.data_ptr(),
+                             out.data_ptr(), info.data_ptr(), perm.shape[0],
+                             z.shape[1], i0, _stream())
+    _build.check_launch(rc, "bnpc_while_exit")
+
+
+def vecflow(lib, z, aux, assign, perm, sizes, tgt, info, ld):
+    rc = lib.bnpc_vecflow(z.data_ptr(), aux.data_ptr(), assign.data_ptr(),
+                          perm.data_ptr(), sizes.data_ptr(), tgt.data_ptr(),
+                          info.data_ptr(), ld.data_ptr(), perm.shape[0],
+                          z.shape[1], _stream())
+    _build.check_launch(rc, "bnpc_vecflow")
+
+
+def same(got, want):
+    """Equal tensors, NaN for NaN."""
+    return all(torch.equal(torch.isnan(x), torch.isnan(y))
+               and torch.equal(x[~torch.isnan(x)], y[~torch.isnan(y)])
+               if x.is_floating_point() else torch.equal(x, y)
+               for x, y in zip(got, want))
+
+
+def run_k6(args, dev, work):
+    """Kernel 6, one part of the redesign taken out at a time, beside
+    kernel 1 on the same z and perm."""
+    from bnpc_tpu_torch.probes import while_probe
+
+    vs = variants_probe("k6", args.parent)
+    libs = build(vs, work)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    cases = [tuple(t(x) for x in c[:3]) + (c[3],)
+             for name in while_probe.CRAFTED for kp in (32, 256, 1024)
+             for c in [while_probe.crafted_inputs(name, 128, kp)]]
+    n, k = while_probe.N, while_probe.K_PAD
+    z, perm, sizes_fin = while_probe.make_inputs(n, k, dev)
+    cases.append((z, perm, sizes_fin, 0))
+
+    def outputs(lib):
+        got = []
+        for zc, pc, s0, i0 in cases:
+            sizes = s0.clone()
+            out = torch.full((pc.shape[0],), -7, dtype=torch.int32,
+                             device=dev)
+            info = torch.zeros((4,), dtype=torch.int32, device=dev)
+            while_exit(lib, zc, pc, sizes, out, info, i0)
+            torch.cuda.synchronize()
+            got += [out, sizes, info]
+        return got
+
+    want = outputs(libs["k6_tree"])
+    for name, lib in libs.items():
+        if not same(outputs(lib), want):
+            raise SystemExit(f"{name} disagrees with the tree")
+        print(f"  {name}: outputs == tree ({len(cases)} runs)")
+
+    assign = (torch.arange(n, device=dev) % 12).to(torch.int32)
+    aux = torch.full((n,), -float("inf"), device=dev)
+    ld0 = torch.zeros((), device=dev)
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    res = {name: {} for name in ("k1_yardstick", *libs)}
+    reps = 21
+    for _ in range(args.rounds):
+        for name in res:
+            buf = iter([sizes_fin.clone() for _ in range(reps)])
+
+            def once(name=name):
+                if name == "k1_yardstick":
+                    seg(libs["k6_tree"], z, aux, assign, perm, next(buf), out,
+                        info, 0, ld0)
+                else:
+                    while_exit(libs[name], z, perm, next(buf), out, info, 0)
+
+            res[name].setdefault("512x256", []).append(cuda_ms(once, reps))
+    return res
+
+
+def run_k5(args, dev, work):
+    """Kernel 5, one part of the redesign taken out at a time, beside
+    kernel 1 on the same inputs."""
+    from bnpc_tpu_torch.probes import vecflow_probe
+
+    vs = variants_probe("k5", args.parent)
+    libs = build(vs, work)
+    rng = np.random.default_rng(4)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    cases = [tuple(t(x) for x in c[:6])
+             for name in vecflow_probe.CRAFTED for kp in (None, 256)
+             for c in [vecflow_probe.crafted_inputs(name, kp)]]
+    main_in = vecflow_probe.make_inputs(5000, 256, dev)
+    # The 131,072 x 128 Z in cell order: 100 live slots, no birth.
+    n_l, k_l = 131072, 128
+    assign_l = rng.integers(0, 100, n_l)
+    sizes_l = np.bincount(assign_l, minlength=k_l).astype(np.float32)
+    large_in = (t((rng.standard_normal((n_l, k_l)) * 4.0).astype(np.float32)),
+                t(np.full(n_l, -1e30, np.float32)),
+                t(assign_l.astype(np.int32)),
+                t(rng.permutation(n_l).astype(np.int32)), t(sizes_l),
+                torch.tensor(np.log(n_l - 1.0 + 10.0), dtype=torch.float32,
+                             device=dev))
+    cases += [main_in, large_in]
+
+    def outputs(lib):
+        got = []
+        for zc, auxc, ac, pc, s0, ld in cases:
+            sizes = s0.clone()
+            tgt = torch.full((vecflow_probe.n_batches(pc.shape[0]),
+                              vecflow_probe.BATCH), -7.0, device=dev)
+            info = torch.zeros((1,), dtype=torch.int32, device=dev)
+            vecflow(lib, zc, auxc, ac, pc, sizes, tgt, info, ld)
+            torch.cuda.synchronize()
+            got += [tgt, sizes, info]
+        return got
+
+    # Kernel 1's cases: no birth, a birth from a position inside a chunk,
+    # a veto, and the large Z.
+    ps = main_in[3].cpu().numpy()
+    seg_cases = [(main_in[0], *case(rng, 5000, 256, live, hot, dev),
+                  main_in[3], i0, main_in[5])
+                 for hot, i0, live in (([], 0, 200), (ps[[2600]], 1003, 200),
+                                       (ps[:5], 0, 256))]
+    seg_cases.append((large_in[0], large_in[2], large_in[1], large_in[4],
+                      large_in[3], 0, large_in[5]))
+
+    def seg_outputs(lib, which):
+        got = []
+        for c in which:
+            zc, ac, auxc, s0, pc, i0, ld = seg_cases[c]
+            got += list(run(seg, lib, (zc, auxc, ac, pc), pc.shape[0], s0,
+                            i0, ld, dev))
+        return got
+
+    want = outputs(libs["k5_tree"])
+    every, no_birth = (0, 1, 2, 3), (0, 2, 3)
+    want_seg = {w: seg_outputs(libs["k5_tree"], w) for w in (every, no_birth)}
+    if int(want_seg[every][5][0]) != 2601 or \
+            int(want_seg[every][8][3]) != 1:
+        raise SystemExit("k1 cases: no birth at 2,600 or no veto")
+    for name, lib in libs.items():
+        if name.startswith("k1_"):
+            w = no_birth if name in ("k1_exit_per_chunk",
+                                     "k1_chunk_no_stop") else every
+            ok, runs = same(seg_outputs(lib, w), want_seg[w]), len(w)
+        else:
+            ok, runs = same(outputs(lib), want), len(cases)
+        if not ok:
+            raise SystemExit(f"{name} disagrees with the tree")
+        print(f"  {name}: outputs == tree ({runs} runs)")
+
+    res = {name: {} for name in ("k1_yardstick", *libs)}
+    for _ in range(args.rounds):
+        for name in res:
+            for shape, (zc, auxc, ac, pc, s0, ld), reps in (
+                    ("5000x256", main_in, 21), ("131072x128", large_in, 7)):
+                n = pc.shape[0]
+                buf = iter([s0.clone() for _ in range(reps)])
+                info = torch.empty((4,), dtype=torch.int32, device=dev)
+                tgt_l = torch.empty((n,), dtype=torch.int32, device=dev)
+                tgt_v = torch.empty((vecflow_probe.n_batches(n),
+                                     vecflow_probe.BATCH), device=dev)
+
+                def once(name=name, zc=zc, auxc=auxc, ac=ac, pc=pc, ld=ld):
+                    if name.startswith("k1_"):
+                        lib = libs["k5_tree" if name == "k1_yardstick"
+                                   else name]
+                        seg(lib, zc[:pc.shape[0]], auxc, ac, pc, next(buf),
+                            tgt_l, info, 0, ld)
+                    else:
+                        vecflow(libs[name], zc, auxc, ac, pc, next(buf),
+                                tgt_v, info, ld)
+
+                res[name].setdefault(shape, []).append(cuda_ms(once, reps))
+    return res
+
+
 def write_sass(libs_dir, dest):
-    """cuobjdump -sass of the tree's sweep and scan objects into `dest`."""
+    """cuobjdump -sass of every variant's objects into `dest`, one file
+    per object: <variant>_<source>.sass."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     os.makedirs(dest, exist_ok=True)
-    for name, obj in (("k4_tree", "sweep.o"), ("k2_tree", "rg_scan.o")):
-        path = libs_dir / name / obj
-        if path.exists():
-            text = subprocess.run([str(tool), "-sass", str(path)],
-                                  capture_output=True, text=True).stdout
-            (Path(dest) / f"{name}.sass").write_text(text)
+    for path in sorted(libs_dir.glob("*/*.o")):
+        text = subprocess.run([str(tool), "-sass", str(path)],
+                              capture_output=True, text=True).stdout
+        (Path(dest) / f"{path.parent.name}_{path.stem}.sass").write_text(text)
 
 
 def main():
@@ -751,21 +1197,24 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", help="also write the times to this file")
     ap.add_argument("--only", default="step,k4,k2",
-                    help="which A/Bs to run: step, k4, k2 (comma-separated)")
-    ap.add_argument("--sass", help="write the tree's SASS of kernels 4 and 2 "
-                                   "into this directory")
+                    help="which A/Bs to run: step, k4, k2, k6, k5 "
+                         "(comma-separated)")
+    ap.add_argument("--sass", help="write every variant's SASS into this "
+                                   "directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_gibbs_step: no CUDA device")
     dev = "cuda"
     print(card())
-    runs = {"step": run_step, "k4": run_k4, "k2": run_k2}
+    runs = {"step": run_step, "k4": run_k4, "k2": run_k2, "k6": run_k6,
+            "k5": run_k5}
     res = {}
     work = Path(tempfile.mkdtemp(prefix="ab_gibbs_step_"))
     try:
         for key in args.only.split(","):
             (work / key).mkdir()
-            res.update(runs[key](args, dev, work / key))
+            for name, r in runs[key](args, dev, work / key).items():
+                res.setdefault(name, {}).update(r)  # k1_yardstick: k6 and k5
             if args.sass:
                 write_sass(work / key, args.sass)
         print(f"median ms per launch, one value a round ({card()}):")
