@@ -6,9 +6,15 @@ defaults, and the same output files.
 
 The JAX package's ``tpu`` group becomes the ``device`` group: ``--device``
 (cuda unless the caller asks for the CPU), ``--profile`` (a torch.profiler
-trace), and the capacity knobs with their meaning. --mesh (multi-GPU) is
-parsed and refused before anything runs, naming the ROADMAP.md item that
-ports it.
+trace), and the capacity knobs with their meaning.
+
+``--mesh CHAINS,MUTS`` (or ``auto``: every visible GPU on the chain axis)
+runs the job on CHAINS x MUTS ranks, one process each
+(bnpc_tpu_torch/parallel/): started here on localhost, rank r on
+cuda:(r % device count), or found under torchrun. Rank 0 alone prints,
+estimates and writes the output files; a failing rank fails the job.
+Without ``--mesh`` the job is one process (bnpc_tpu would spread chains
+over every visible device; the port does not start processes unasked).
 """
 
 from __future__ import annotations
@@ -17,9 +23,11 @@ import argparse
 import contextlib
 import importlib
 import os
+import socket
 from datetime import datetime
 
 import torch
+import torch.distributed as dist
 
 from bnpc_tpu_torch import io
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
@@ -103,7 +111,8 @@ def parse_args(argv=None):
     mcmc = parser.add_argument_group("MCMC")
     mcmc.add_argument("-n", "--chains", type=int, default=1,
                       help="Number of chains, run one after another on "
-                           "the device. Default = 1.")
+                           "the device (or sharded by --mesh). "
+                           "Default = 1.")
     mcmc.add_argument("-s", "--steps", type=int, default=5000,
                       help="Number of MCMC steps. Default = 5000.")
     mcmc.add_argument("-r", "--runtime", type=int, default=-1,
@@ -174,7 +183,12 @@ def parse_args(argv=None):
                         help="Directory for sampler checkpoints; a run "
                              "resumes from the checkpoint found there.")
     device.add_argument("--mesh", type=str, default="",
-                        help="Device-mesh shape CHAINS,MUTS. Not ported yet.")
+                        help="Rank-mesh shape as CHAINS,MUTS (e.g. '2,4' = "
+                             "chains sharded over 2 groups of ranks, the "
+                             "mutation axis split 4-ways inside each), or "
+                             "'auto' for every visible GPU on the chain "
+                             "axis. One process per rank. Default: one "
+                             "process.")
     device.add_argument("--blocked_gibbs", type=int, default=0,
                         help="Approximate blocked Gibbs sweep with this "
                              "many cells a block (0 = the exact sweep).")
@@ -186,12 +200,75 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """--mesh (multi-GPU) is parsed for bnpc_tpu's flag table but not
-    ported: exit before anything runs, naming the ROADMAP.md item."""
-    if args.mesh:
-        raise SystemExit("error: --mesh is not ported to bnpc_tpu_torch yet "
-                         "(ROADMAP.md queue 1, item 11)")
+def mesh_shape(args) -> tuple[int, int] | None:
+    """--mesh CHAINS,MUTS | auto -> (C, M); None without --mesh. The checks
+    and messages of bnpc_tpu's build_mesh (bnpc_tpu/cli.py:308-330); 'auto'
+    is (GPU count, 1), or one process where that count does not divide
+    -n (bnpc_tpu then leaves the chains unsharded)."""
+    if not args.mesh:
+        return None
+    if args.mesh == "auto":
+        c = torch.cuda.device_count() if args.device.startswith("cuda") \
+            else 1
+        return (c if c > 1 and args.chains % c == 0 else 1, 1)
+    try:
+        c, m = (int(x) for x in args.mesh.split(","))
+        if c < 1 or m < 1:
+            raise ValueError
+    except ValueError:
+        raise SystemExit(
+            f"error: --mesh must be CHAINS,MUTS or 'auto', got {args.mesh!r}"
+        )
+    if args.chains % c != 0:
+        raise SystemExit(
+            f"error: --mesh chain axis {c} must divide -n {args.chains}"
+        )
+    return c, m
+
+
+def build_mesh(shape):
+    """The process group's mesh of `shape` (None for one process)."""
+    if shape is None or shape == (1, 1):
+        return None
+    from bnpc_tpu_torch.parallel import sharded
+
+    try:
+        return sharded.make_mesh(*shape)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+
+
+def _rank_main(rank: int, args, world: int, port: int) -> None:
+    """One rank of a job that launch() started."""
+    from bnpc_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", world, rank,
+                         device=args.device)
+    try:
+        main(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(args, world: int) -> None:
+    """Run the job on `world` ranks on this host (spawned processes) and
+    wait for them; any rank that fails fails the job (the others are
+    stopped)."""
+    import torch.multiprocessing as mp
+
+    if args.device.startswith("cuda"):
+        # Built once here, not raced by the ranks.
+        from bnpc_tpu_torch.ops import _build
+
+        _build.load_library()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    try:
+        mp.start_processes(_rank_main, args=(args, world, port),
+                           nprocs=world, start_method="spawn")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SystemExit(f"error: --mesh {args.mesh}: a rank failed: {e}")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -222,12 +299,13 @@ def check_plotting() -> None:
             )
 
 
-def build_model_config(args, n_cells: int, n_muts: int) -> ModelConfig:
+def build_model_config(args, n_cells: int, n_muts: int,
+                       note: bool = True) -> ModelConfig:
     """Model selection: fixed errors iff both -FP and -FN are positive
-    (run_BnpC.py:249-262)."""
+    (run_BnpC.py:249-262). `note` prints the capacity note."""
     k_max = args.max_clusters if args.max_clusters > 0 else min(n_cells, 256)
     k_max = min(k_max, n_cells)
-    if k_max < n_cells and args.max_clusters <= 0:
+    if k_max < n_cells and args.max_clusters <= 0 and note:
         import sys
 
         print(
@@ -363,10 +441,22 @@ def profile_context(args, device: torch.device):
 
 
 def main(args) -> None:
-    refuse_unported(args)
+    shape = mesh_shape(args)
     device = resolve_device(args.device)
     if not args.no_plots:
         check_plotting()
+    if shape is not None and shape[0] * shape[1] > 1 \
+            and not dist.is_initialized():
+        from bnpc_tpu_torch.parallel import multihost
+
+        # Under torchrun the group is in the environment; else start it.
+        if not multihost.initialize(device=args.device):
+            launch(args, shape[0] * shape[1])
+            return
+    mesh = build_mesh(shape)
+    root = mesh is None or mesh.is_root
+    if not root:
+        args.verbosity = 0
     io.process_sim_folder(args, suffix="")
     try:
         data, names = io.load_data(
@@ -377,7 +467,7 @@ def main(args) -> None:
     if data.size == 0:
         raise SystemExit(f"error: could not read data from {args.input}")
 
-    cfg = build_model_config(args, data.shape[0], data.shape[1])
+    cfg = build_model_config(args, data.shape[0], data.shape[1], note=root)
     mcmc_cfg = build_mcmc_config(args)
     if device.type == "cuda":
         from bnpc_tpu_torch.ops.cuda_gibbs import stream_k_pad
@@ -402,16 +492,19 @@ def main(args) -> None:
     packed = pack_data(data, device)
     runner = MCMCRunner(cfg, mcmc_cfg, packed, device=device,
                         block_size=args.block_size,
-                        checkpoint_dir=args.checkpoint_dir or None)
+                        checkpoint_dir=args.checkpoint_dir or None,
+                        mesh=mesh)
     assign = (
         io.load_assignment_txt(args.fixed_assignment)
         if args.fixed_assignment else None
     )
-    with profile_context(args, device):
+    with profile_context(args, device) if root else contextlib.nullcontext():
         chain_results = runner.run(
             run_var, args.seed, n_chains=args.chains, assign=assign,
             verbosity=args.verbosity,
         )
+    if not root:
+        return
     args.chain_seeds = list(map(int, runner.seeds))
     results = [r.as_dict() for r in chain_results]
     args.time.append(datetime.now())

@@ -53,3 +53,37 @@ def pack_data(data: np.ndarray, device) -> PackedData:
         rs1=torch.from_numpy(xm.sum(axis=1)).to(device),
         rs0=torch.from_numpy(xm0.sum(axis=1)).to(device),
     )
+
+
+def pad_muts(data: PackedData, shards: int) -> tuple[PackedData, int]:
+    """Pad the mutation axis to a multiple of `shards` with unobserved
+    (all-zero) columns (bnpc_tpu/parallel/sharded.py:51-65); returns
+    (padded data, padded m). rs1 / rs0 are unchanged."""
+    m = data.n_muts
+    m_pad = -(-m // shards) * shards
+    if m_pad == m:
+        return data, m
+    pad = (0, m_pad - m)
+    return data._replace(xm=torch.nn.functional.pad(data.xm, pad),
+                         xm0=torch.nn.functional.pad(data.xm0, pad)), m_pad
+
+
+def local_cols(data: PackedData, index: int, shards: int) -> PackedData:
+    """Mutation shard `index` of `shards` of (padded) data: its contiguous
+    block of columns of xm and xm0. rs1 / rs0 stay the whole rows' counts,
+    never recomputed from the shard's columns (bnpc_tpu likelihood.py:102
+    reads them replicated)."""
+    m_local = data.n_muts // shards
+    cols = slice(index * m_local, (index + 1) * m_local)
+    return data._replace(xm=data.xm[:, cols].contiguous(),
+                         xm0=data.xm0[:, cols].contiguous())
+
+
+def local_mut_mask(m_pad: int, m_real: int, index: int, shards: int,
+                   device) -> torch.Tensor:
+    """[m_local] f32 validity mask of shard `index`'s columns
+    (bnpc_tpu/parallel/sharded.py:67-73): 1 for a real mutation column,
+    0 for padding."""
+    m_local = m_pad // shards
+    cols = index * m_local + torch.arange(m_local, device=device)
+    return (cols < m_real).to(torch.float32)

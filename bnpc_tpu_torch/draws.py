@@ -12,6 +12,10 @@ function against its JAX counterpart on the same key.
 sampler's device. It flattens the key tree: ``split`` and ``fold_in`` hand
 back providers over the same stream, so every draw is fresh and independent
 (correct in distribution; the tree position only matters for replay).
+``fold_axis`` is the one exception: it hands back a provider over a second
+generator of its own, seeded from (seed, shard index), so a mutation shard's
+per-mutation draws never touch the stream that every shard must replay
+alike (bnpc_tpu's ``fold_in(key, axis_index)``, parallel/axis.py).
 
 Conventions shared by every provider:
   * floats are float32, indices int32 (``randint``, ``categorical``,
@@ -23,7 +27,14 @@ Conventions shared by every provider:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def axis_seed(seed: int, i: int) -> int:
+    """Seed of shard `i`'s own stream beside the stream seeded `seed`."""
+    return int(np.random.SeedSequence([int(seed), int(i)])
+               .generate_state(1, np.uint64)[0] >> 1)
 
 
 class Draws:
@@ -35,6 +46,11 @@ class Draws:
         raise NotImplementedError
 
     def fold_in(self, i: int) -> "Draws":
+        raise NotImplementedError
+
+    def fold_axis(self, i: int) -> "Draws":
+        """The draws of mutation shard `i` (MutAxis.fold_key): bnpc_tpu's
+        ``fold_in(key, axis_index)``."""
         raise NotImplementedError
 
     def uniform(self, shape) -> torch.Tensor:
@@ -91,9 +107,11 @@ class TorchDraws(Draws):
     CPU for a device-independent stream)."""
 
     def __init__(self, seed: int, device):
+        self.seed = int(seed)
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.gen.manual_seed(self.seed)
+        self._axis: dict[int, TorchDraws] = {}
 
     def _out(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device)
@@ -111,6 +129,14 @@ class TorchDraws(Draws):
 
     def fold_in(self, i: int) -> "Draws":
         return self
+
+    def fold_axis(self, i: int) -> "TorchDraws":
+        # Made once per provider (a chain's), of the provider's own class.
+        d = self._axis.get(i)
+        if d is None:
+            d = self._axis[i] = type(self)(axis_seed(self.seed, i),
+                                           self.device)
+        return d
 
     def uniform(self, shape) -> torch.Tensor:
         return self._out(torch.rand(shape, generator=self.gen,

@@ -10,7 +10,9 @@ block's rows to the host, and assembles the reference's per-chain results
 in the three run modes of the reference (steps, runtime, lugsail PSRF),
 with checkpoint / resume. Chains run one after another on the device
 (bnpc_tpu's chain_exec="sequential"), or in lockstep with one shared move
-selection a step (coupled_moves).
+selection a step (coupled_moves). Given a mesh of ranks
+(parallel/sharded.py), the runner runs this rank's chains on its mutation
+columns and rank 0 gathers, decides and writes (see MCMCRunner).
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ from bnpc_tpu_torch.models.updates import (
     update_parameters,
 )
 from bnpc_tpu_torch.ops import likelihood as lk
+from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import CRPState, cluster_stats, init_state
+
+_NO_AXIS = MutAxis()
 
 
 class TraceRow(NamedTuple):
@@ -81,15 +86,16 @@ def _compact_params(state: CRPState, trace_k: int):
 
 
 def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
-              trace_k: int, stats=None) -> TraceRow:
+              trace_k: int, stats=None, ax: MutAxis = _NO_AXIS) -> TraceRow:
     """One trace row for the current state (libs/MCMC.py:242-282). `stats`
-    reuses the step's (n1, n0) sufficient statistics."""
+    reuses the step's (n1, n0) sufficient statistics. Under a sharded `ax`
+    ML and MAP are all-reduced and the params are this rank's columns."""
     n1, n0 = stats if stats is not None else cluster_stats(
         data, state.assignment, cfg.k_max)
     c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
-    ml = lk.ll_from_stats(n1, n0, c1, c0)
+    ml = lk.ll_from_stats(n1, n0, c1, c0, ax)
     lprior = lk.log_prior_full(cfg, state.cluster_size, state.params,
-                               state.dp_alpha, state.fp, state.fn)
+                               state.dp_alpha, state.fp, state.fn, ax)
     a_dt, p_dt = _trace_dtypes(cfg)
     return TraceRow(
         ml=ml, map_=ml + lprior, dp_alpha=state.dp_alpha, fp=state.fp,
@@ -101,11 +107,13 @@ def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
 
 
 def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
-                trace_k: int, gibbs_impl: str, gibbs_block: int):
+                trace_k: int, gibbs_impl: str, gibbs_block: int,
+                ax: MutAxis = _NO_AXIS):
     """(select, moves) of one chain's step: select(k_sel) reads the move
     flags (the step's one planned host read); moves(state, flags, k_assign,
     k_dpa, k_par, k_err) runs the moves and returns (state, row).
-    gibbs_block > 0 replaces the exact Gibbs move by the blocked sweep."""
+    gibbs_block > 0 replaces the exact Gibbs move by the blocked sweep.
+    Every move sums over the mutation axis `ax`."""
     # The move thresholds as float32 values: comparing the uniforms' exact
     # float32 values against them on the host is JAX's float32 comparison.
     thresholds = [float(np.float32(p)) for p in (
@@ -125,40 +133,42 @@ def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
             if mcmc_cfg.sm_prob > 0.0 and do_sm:
                 state, sm_counts = split_merge(
                     k_assign, state, data, cfg, mcmc_cfg.sm_split_ratio,
-                    mcmc_cfg.sm_steps)
+                    mcmc_cfg.sm_steps, ax=ax)
                 counts[1:3] += sm_counts
             else:
                 state = gibbs_sweep(k_assign, state, data, cfg, impl=impl_g,
-                                    block=gibbs_block)
+                                    block=gibbs_block, ax=ax)
             if mcmc_cfg.dpa_prob > 0.0 and do_dpa:
                 state = update_dp_alpha(k_dpa, state, cfg)
 
         n1, n0 = cluster_stats(data, state.assignment, cfg.k_max)
         state, par_dec, par_acc = update_parameters(k_par, state, n1, n0,
-                                                    cfg)
+                                                    cfg, ax)
         counts[0] += torch.stack([par_acc, par_dec]).to(torch.int32)
 
         if cfg.learn_errors and mcmc_cfg.error_prob > 0.0 and do_err:
             state, fp_acc, fn_acc = update_error_rates(k_err, state, n1, n0,
-                                                       cfg)
+                                                       cfg, ax)
             acc = torch.stack([fp_acc, fn_acc]).to(torch.int32)
             counts[3:5] += torch.stack([acc, 1 - acc], dim=1)
 
-        row = summarize(state, data, cfg, trace_k, stats=(n1, n0))
+        row = summarize(state, data, cfg, trace_k, stats=(n1, n0), ax=ax)
         return state, row._replace(mh_counts=counts)
 
     return select, moves
 
 
 def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                    data: PackedData, trace_k: int, gibbs_impl: str = "auto"):
+                    data: PackedData, trace_k: int, gibbs_impl: str = "auto",
+                    ax: MutAxis = _NO_AXIS):
     """The single-step body (do_step, libs/MCMC.py:320-342); draws are
     split exactly as in bnpc_tpu/mcmc.py:_make_step_body. ``gibbs_impl`` is
     the Gibbs sweep's impl (models/gibbs.py::gibbs_sweep);
     ``mcmc_cfg.gibbs_block`` > 0 routes the Gibbs move to the blocked
-    sweep, as bnpc_tpu does."""
+    sweep, as bnpc_tpu does. Under a sharded `ax`, `data` and the params
+    are this rank's mutation columns."""
     select, moves = _make_moves(cfg, mcmc_cfg, data, trace_k, gibbs_impl,
-                                mcmc_cfg.gibbs_block)
+                                mcmc_cfg.gibbs_block, ax)
 
     def step(state: CRPState, draws: Draws):
         k_sel, k_assign, k_dpa, k_par, k_err = draws.split(5)
@@ -173,7 +183,8 @@ def _make_coupled_step(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
     """A step of every chain with one SHARED move-type selection
     (bnpc_tpu make_coupled_step_fn): the move, alpha, parameter and error
     draws of chain c are split c of the step's keys. Like bnpc_tpu's, it
-    does not route ``gibbs_block``. step(states, draws) -> (states, rows)."""
+    does not route ``gibbs_block`` and runs unsharded.
+    step(states, draws) -> (states, rows)."""
     select, moves = _make_moves(cfg, mcmc_cfg, data, trace_k, gibbs_impl, 0)
 
     def step(states: list[CRPState], draws: Draws):
@@ -221,6 +232,20 @@ def _rows_to_host(rows: list[TraceRow]) -> dict:
     """Stack a block's device rows and copy them to the host."""
     return {f: torch.stack([getattr(r, f) for r in rows]).cpu().numpy()
             for f in TraceRow._fields}
+
+
+def _chain_block(step, state: CRPState, draws: Draws, n_steps: int,
+                 keep: int | None = None):
+    """One chain's block of `n_steps` steps of `step`, or its first `keep`
+    steps (a partial final block takes the keys of a whole block, as
+    bnpc_tpu does). Returns (state, rows, next_draws): rows is a dict of
+    host arrays with a leading step axis, one entry per TraceRow field."""
+    keys = draws.split(n_steps + 1)
+    rows = []
+    for k in keys[1:1 + (n_steps if keep is None else keep)]:
+        state, row = step(state, k)
+        rows.append(row)
+    return state, _rows_to_host(rows), keys[0]
 
 
 class _TraceBuffer:
@@ -299,12 +324,35 @@ class MCMCRunner:
     move selection a step (bnpc_tpu honours it only on its vmapped path;
     the port has no vmap and honours it whenever n_chains > 1).
     ``checkpoint_dir`` saves the run every ``checkpoint_every`` blocks and
-    resumes from it, in all three modes."""
+    resumes from it, in all three modes.
+
+    With a ``mesh`` (parallel/sharded.py::make_mesh: one process per rank,
+    ``C x M``) every rank constructs the runner with the whole data and
+    runs ``run`` with the same arguments. Which rank runs what follows
+    bnpc_tpu's precedence (mcmc.py:806-834):
+
+      * M > 1: chain shard c runs chains c * n / C ... (c + 1) * n / C - 1
+        one after another, each rank of its mutation group on its columns
+        (parallel/sharded.py::make_sharded_block); ``coupled_moves`` is not
+        honoured there, as bnpc_tpu's sharded block does not honour it;
+      * else, several chains with ``coupled_moves``: the coupled step runs
+        every chain on chain shard 0 (bnpc_tpu's coupled pipe, which it
+        takes before its chain-sharded block); the other ranks hold none;
+      * else: chain shard c runs its n / C chains one after another.
+
+    Chain c starts from the seed or key it has in the one-process run, so
+    under a ``C x 1`` mesh each chain is its one-process run. Rank 0
+    gathers every rank's trace rows once a block (and holds the replicated
+    fields of each mutation group against each other), decides the time
+    and lugsail modes' stops and broadcasts them, writes and reads the
+    checkpoint (every chain's state and every rank's generators) and
+    returns the results; the other ranks return None. ``final_states``
+    holds this rank's chain states after a run."""
 
     def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                  data: PackedData, device, block_size: int = 256,
                  checkpoint_dir: str | None = None,
-                 checkpoint_every: int = 4):
+                 checkpoint_every: int = 4, mesh=None):
         self.cfg = cfg
         self.mcmc_cfg = mcmc_cfg
         self.data = data
@@ -313,14 +361,36 @@ class MCMCRunner:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.trace_k = resolve_trace_k(cfg, mcmc_cfg)
-        self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
+        self.mesh = mesh
+        self.ax = _NO_AXIS
+        self.m_pad = cfg.n_muts
+        # The step's config, data and axis: this rank's columns of the
+        # padded matrix under mutation sharding, else the whole matrix.
+        self._step_cfg, self._step_data = cfg, data
+        if mesh is None:
+            self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
+        else:
+            from bnpc_tpu_torch.data import pad_muts
+            from bnpc_tpu_torch.parallel import sharded
+
+            padded, self.m_pad = pad_muts(data, mesh.muts)
+            block = sharded.make_sharded_block(mesh, cfg, mcmc_cfg, padded)
+            self._step, self.ax = block.step, block.ax
+            self._step_cfg, self._step_data = block.cfg, block.data
         self._coupled_step = _make_coupled_step(cfg, mcmc_cfg, data,
                                                 self.trace_k)
         # The seed of each chain of the last run() (args.txt's chain_seeds).
         self.seeds: np.ndarray | None = None
+        self.final_states: list[CRPState] = []
+        self._n_chains = 1
+        self._local: list[int] = [0]
         # Injectable clock (deterministic time-mode tests stub this).
         self._now = datetime.now
         self._verbosity = 1
+
+    @property
+    def is_root(self) -> bool:
+        return self.mesh is None or self.mesh.is_root
 
     # -- low level ---------------------------------------------------------
 
@@ -328,7 +398,7 @@ class MCMCRunner:
                     assign=None) -> list[CRPState]:
         """Initial state of each chain, chain c from draws.split(n_chains)[c]
         as in bnpc_tpu: `assign` relabelled to compact slots, else random
-        (init_state mode 'random')."""
+        (init_state mode 'random'). Whole-matrix states."""
         return [init_state(d, self.cfg, self.data, self.device,
                            mode="random", assign=assign)
                 for d in draws.split(n_chains)]
@@ -339,18 +409,17 @@ class MCMCRunner:
         (a partial final block takes the keys of a whole block, as bnpc_tpu
         does). Returns (state, rows, next_draws): rows is a dict of host
         arrays with a leading step axis, one entry per TraceRow field."""
-        keys = draws.split(n_steps + 1)
-        rows = []
-        for k in keys[1:1 + (n_steps if keep is None else keep)]:
-            state, row = self._step(state, k)
-            rows.append(row)
-        return state, _rows_to_host(rows), keys[0]
+        return _chain_block(self._step, state, draws, n_steps, keep)
 
     def run_chains(self, states: list[CRPState], draws: list[Draws],
                    n_steps: int, keep: int | None = None):
-        """One block of every chain (see run_block). Returns (states, rows,
-        next_draws); rows hold [n_chains, steps, ...] host arrays."""
-        if len(states) > 1 and self.mcmc_cfg.coupled_moves:
+        """One block of every chain of this rank (see run_block). Returns
+        (states, rows, next_draws); rows hold [n_chains, steps, ...] host
+        arrays (an empty dict on a rank without chains)."""
+        if not states:
+            return [], {}, []
+        if len(states) > 1 and self.mcmc_cfg.coupled_moves \
+                and not self.ax.sharded:
             # Chain 0's key stream drives every chain (bnpc_tpu
             # _pipe_coupled); every chain's key advances.
             keys = [d.split(n_steps + 1) for d in draws]
@@ -368,11 +437,59 @@ class MCMCRunner:
         return states, {f: np.stack([b[f] for b in blocks])
                         for f in TraceRow._fields}, draws
 
-    def _init_rows(self, states) -> dict:
-        """Each chain's initial-state row, [n_chains, 1, ...]."""
-        rows = [_rows_to_host([summarize(st, self.data, self.cfg,
-                                         self.trace_k)]) for st in states]
-        return {f: np.stack([r[f] for r in rows]) for f in TraceRow._fields}
+    def _init_rows(self, states) -> dict | None:
+        """Each chain's initial-state row, [n_chains, 1, ...] (on rank 0
+        under a mesh, None elsewhere)."""
+        rows = [_rows_to_host([summarize(st, self._step_data, self._step_cfg,
+                                         self.trace_k, ax=self.ax)])
+                for st in states]
+        return self._gather({f: np.stack([r[f] for r in rows])
+                             for f in TraceRow._fields} if rows else {})
+
+    # -- the mesh ------------------------------------------------------------
+
+    def _chains_of(self, n_chains: int, rank: int) -> list[int]:
+        """The chains rank `rank` runs (the class docstring's precedence)."""
+        mesh = self.mesh
+        if mesh is None:
+            return list(range(n_chains))
+        if n_chains % mesh.chains:
+            raise ValueError(f"{n_chains} chains not divisible by the mesh's "
+                             f"chain axis ({mesh.chains})")
+        c = rank // mesh.muts
+        if mesh.muts == 1 and n_chains > 1 and self.mcmc_cfg.coupled_moves:
+            return list(range(n_chains)) if c == 0 else []
+        per = n_chains // mesh.chains
+        return list(range(c * per, (c + 1) * per))
+
+    def _shard_state(self, st: CRPState) -> CRPState:
+        """This rank's columns of a whole-matrix state, the params padded
+        to m_pad with 0.5 first (bnpc_tpu mcmc.py:868-876)."""
+        if not self.ax.sharded:
+            return st
+        params = torch.nn.functional.pad(
+            st.params, (0, self.m_pad - st.params.shape[1]), value=0.5)
+        w = self.m_pad // self.mesh.muts
+        mu = self.mesh.mut_index
+        return st._replace(params=params[:, mu * w:(mu + 1) * w].contiguous())
+
+    def _gather(self, rows: dict) -> dict | None:
+        """Every chain's rows on rank 0 (None on the others); the identity
+        without a mesh."""
+        if self.mesh is None:
+            return rows
+        from bnpc_tpu_torch.parallel import sharded
+
+        return sharded.gather_rows(self.mesh, rows, self._local,
+                                   self.cfg.n_muts)
+
+    def _agree(self, value):
+        """Rank 0's `value` on every rank (the identity without a mesh)."""
+        if self.mesh is None:
+            return value
+        from bnpc_tpu_torch.parallel import sharded
+
+        return sharded.broadcast(self.mesh, value)
 
     # -- top-level run (libs/MCMC.py:79-123) -------------------------------
 
@@ -381,7 +498,8 @@ class MCMCRunner:
         """run_var: (steps: int, burn_in: int) | (end: datetime,
         burn_in_end: datetime) | (cutoff: float, 0). `assign` fixes the
         initial assignment (-fa); at verbosity 2 each block prints its MH
-        acceptance rates. Returns [ChainResult], one per chain.
+        acceptance rates. Returns [ChainResult], one per chain (None on
+        a rank other than 0 of a mesh).
 
         Without `draws`, a seed below 0 (or None) draws one; one chain runs
         on the seed's TorchDraws stream, and n > 1 chains on streams of
@@ -390,23 +508,31 @@ class MCMCRunner:
         is bnpc_tpu's: k_init, k_run = draws.split(2); chain c starts from
         k_init.split(n)[c] and runs on k_run.split(n)[c]."""
         self._verbosity = verbosity
+        self._n_chains = n_chains
+        local = self._local = self._chains_of(
+            n_chains, 0 if self.mesh is None else self.mesh.rank)
         if draws is None:
             if seed is None or seed < 0:
-                seed = int(np.random.randint(0, 2**31 - 1))
+                seed = self._agree(int(np.random.randint(0, 2**31 - 1)))
             seeds = ([seed] if n_chains == 1 else np.random.default_rng(
                 seed).integers(0, 2**31 - 1, n_chains))
-            chains = [TorchDraws(int(s), self.device) for s in seeds]
+            chains = [TorchDraws(int(seeds[c]), self.device) for c in local]
             states = [self.init_chains(d, 1, assign)[0] for d in chains]
         else:
             k_init, k_run = draws.split(2)
             seeds = k_init.randint((n_chains,), 0, 2**31 - 1).cpu().numpy()
+            # Every chain's initial state: a shared stream is consumed in
+            # chain order on every rank.
             states = self.init_chains(k_init, n_chains, assign)
-            chains = k_run.split(n_chains)
+            runs = k_run.split(n_chains)
+            states, chains = ([states[c] for c in local],
+                              [runs[c] for c in local])
         self.seeds = np.asarray(seeds, dtype=np.int64)
         if self.checkpoint_dir and not all(isinstance(d, TorchDraws)
                                            for d in chains):
             raise ValueError("checkpoints hold torch generator states: "
                              "run() with draws=None to checkpoint")
+        states = [self._shard_state(st) for st in states]
 
         if isinstance(run_var[0], (int, np.integer)):
             return self._run_steps(states, chains, int(run_var[0]),
@@ -422,24 +548,51 @@ class MCMCRunner:
         return os.path.join(self.checkpoint_dir, name) \
             if self.checkpoint_dir else None
 
+    def _mesh_shape(self) -> tuple[int, int]:
+        return (1, 1) if self.mesh is None else (self.mesh.chains,
+                                                 self.mesh.muts)
+
     def save_checkpoint(self, path, states, draws, buf: _TraceBuffer,
                         done: int, init_rows: dict,
                         extra: dict | None = None):
         """The chains' states, generator states, initial rows and trace so
-        far, written to a temporary file and moved over `path`."""
+        far, written to a temporary file and moved over `path`. Under a
+        mesh every rank sends its chains' states and generators to rank 0,
+        which writes the one file: the params at the padded width, each
+        chain's generator, and each rank's shard generator."""
+        part = {f"state_{f}": np.stack([getattr(st, f).cpu().numpy()
+                                        for st in states])
+                for f in CRPState._fields} if states else {}
+        if states:
+            part["generator_state"] = np.stack([d.gen.get_state().numpy()
+                                                for d in draws])
+            if self.ax.sharded:
+                part["axis_generator_state"] = np.stack([
+                    d.fold_axis(self.ax.index).gen.get_state().numpy()
+                    for d in draws])
+        if self.mesh is None:
+            chains = part
+        else:
+            from bnpc_tpu_torch.parallel import sharded
+
+            parts = sharded.gather(self.mesh, (self._local,
+                                               self.mesh.mut_index, part))
+            if not self.mesh.is_root:
+                return
+            chains = sharded.assemble(
+                self.mesh, parts, None,
+                sharded_fields=("state_params",),
+                stacked_fields=("axis_generator_state",))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         payload = {
             "format": np.asarray(CHECKPOINT_FORMAT),
             "done": np.asarray(done),
             "generator_device": np.asarray(self.device.type),
-            "generator_state": np.stack([d.gen.get_state().numpy()
-                                         for d in draws]),
+            "mesh": np.asarray(self._mesh_shape()),
+            **chains,
         }
         for k, v in (extra or {}).items():
             payload[f"extra_{k}"] = np.asarray(v)
-        for f in CRPState._fields:
-            payload[f"state_{f}"] = np.stack([getattr(st, f).cpu().numpy()
-                                              for st in states])
         for f, v in init_rows.items():
             payload[f"init_{f}"] = v
         if buf.rows:
@@ -449,11 +602,10 @@ class MCMCRunner:
         np.savez_compressed(tmp, **payload)
         os.replace(tmp, path)
 
-    def load_checkpoint(self, path, draws):
-        """(states, rows, done, init_rows, extra) of the checkpoint at
-        `path`; sets each chain's generator in `draws` to its saved state.
-        Refuses a file without the port's format tag, from another device
-        type or chain count."""
+    def _read_checkpoint(self, path) -> dict:
+        """The checkpoint at `path` as a dict of arrays, after refusing a
+        file without the port's format tag, from another device type,
+        mesh shape or chain count."""
         with np.load(path) as z:
             tag = str(z["format"]) if "format" in z.files else None
             if tag != CHECKPOINT_FORMAT:
@@ -467,23 +619,75 @@ class MCMCRunner:
                 raise ValueError(
                     f"{path}: checkpoint of a {dev} run; this run samples "
                     f"on {self.device.type}, whose generator differs")
-            gen = z["generator_state"]
-            if gen.shape[0] != len(draws):
-                raise ValueError(f"{path}: checkpoint of {gen.shape[0]} "
-                                 f"chains; this run has {len(draws)}")
-            for d, g in zip(draws, gen):
-                d.gen.set_state(torch.from_numpy(g.copy()))
-            states = [CRPState(*(
-                torch.from_numpy(np.array(z[f"state_{f}"][c])).to(
-                    self.device) for f in CRPState._fields))
-                for c in range(gen.shape[0])]
+            saved = (tuple(int(x) for x in z["mesh"]) if "mesh" in z.files
+                     else (1, 1))
+            if saved != self._mesh_shape():
+                raise ValueError(
+                    f"{path}: checkpoint of a {saved[0]}x{saved[1]} mesh "
+                    "(chains x mutation shards); this run's mesh is "
+                    f"{self._mesh_shape()[0]}x{self._mesh_shape()[1]}: "
+                    f"resume with --mesh {saved[0]},{saved[1]} or use "
+                    "another checkpoint directory")
+            n = z["generator_state"].shape[0]
+            if n != self._n_chains:
+                raise ValueError(f"{path}: checkpoint of {n} chains; this "
+                                 f"run has {self._n_chains}")
+            return {k: z[k] for k in z.files}
+
+    def _rank_part(self, z: dict, rank: int) -> dict:
+        """What rank `rank` resumes from: its chains' states (its columns
+        of the params) and generator states."""
+        ids = self._chains_of(self._n_chains, rank)
+        part = {k: z[k][ids] for k in z if k.startswith("state_")
+                or k == "generator_state"}
+        if self.mesh is not None and self.mesh.muts > 1:
+            mu, w = rank % self.mesh.muts, self.m_pad // self.mesh.muts
+            part["state_params"] = part["state_params"][..., mu * w:
+                                                        (mu + 1) * w]
+            part["axis_generator_state"] = z["axis_generator_state"][ids, mu]
+        return part
+
+    def load_checkpoint(self, path, draws):
+        """(states, rows, done, init_rows, extra) of the checkpoint at
+        `path` for this rank's chains; sets each chain's generators in
+        `draws` to their saved states. Under a mesh rank 0 reads the file
+        and scatters each rank's part; rows and init_rows are rank 0's
+        only (None elsewhere), and a refusal is raised on every rank."""
+        z = parts = None
+        if self.is_root:
+            ranks = range(1 if self.mesh is None else self.mesh.size)
+            try:
+                z = self._read_checkpoint(path)
+                common = {
+                    "done": int(z["done"]),
+                    "extra": {k[len("extra_"):]: z[k] for k in z
+                              if k.startswith("extra_")}}
+                parts = [(self._rank_part(z, r), common) for r in ranks]
+            except ValueError as e:
+                parts = [(e, None) for _ in ranks]
+        if self.mesh is None:
+            part, common = parts[0]
+        else:
+            from bnpc_tpu_torch.parallel import sharded
+
+            part, common = sharded.scatter(self.mesh, parts)
+        if isinstance(part, Exception):
+            raise part
+        for c, d in enumerate(draws):
+            d.gen.set_state(torch.from_numpy(
+                part["generator_state"][c].copy()))
+            if "axis_generator_state" in part:
+                d.fold_axis(self.ax.index).gen.set_state(torch.from_numpy(
+                    part["axis_generator_state"][c].copy()))
+        states = [CRPState(*(
+            torch.from_numpy(np.array(part[f"state_{f}"][c])).to(self.device)
+            for f in CRPState._fields)) for c in range(len(draws))]
+        rows = init_rows = None
+        if z is not None:
             rows = ({f: z[f"trace_{f}"] for f in TraceRow._fields}
-                    if "trace_ml" in z.files else None)
+                    if "trace_ml" in z else None)
             init_rows = {f: z[f"init_{f}"] for f in TraceRow._fields}
-            extra = {k[len("extra_"):]: z[k] for k in z.files
-                     if k.startswith("extra_")}
-            done = int(z["done"])
-        return states, rows, done, init_rows, extra
+        return states, rows, common["done"], init_rows, common["extra"]
 
     def _resume(self, path, draws, buf: _TraceBuffer):
         """Load `path` into `draws` and `buf`: (states, done, init_rows,
@@ -498,10 +702,15 @@ class MCMCRunner:
             buf.append(rows)
         return states, done, init_rows, extra
 
+    def _exists(self, path) -> bool:
+        return self._agree(os.path.exists(path))
+
     # -- results -------------------------------------------------------------
 
     def _collect(self, buf: _TraceBuffer, init_rows: dict, burn_in: int,
-                 psrf=None, cutoff=None) -> list[ChainResult]:
+                 psrf=None, cutoff=None) -> list[ChainResult] | None:
+        if not self.is_root:
+            return None
         rows = buf.concat() if buf.rows else {
             f: v[:, :0] for f, v in init_rows.items()}
         # The initial-state row first (the reference records step 0 at
@@ -535,10 +744,10 @@ class MCMCRunner:
 
     def _run_steps(self, states, draws, steps: int, burn_in: int):
         init_rows = self._init_rows(states)
-        buf = _TraceBuffer(len(states), params_from=burn_in)
+        buf = _TraceBuffer(self._n_chains, params_from=burn_in)
         done = 0
         ckpt = self._ckpt_path("mcmc_state.npz")
-        if ckpt and os.path.exists(ckpt):
+        if ckpt and self._exists(ckpt):
             states, done, init_rows, _ = self._resume(ckpt, draws, buf)
         since_ckpt = 0
         while done < steps:
@@ -550,10 +759,12 @@ class MCMCRunner:
                                      init_rows)
             states, rows, draws = self.run_chains(states, draws,
                                                   self.block_size, keep=b)
-            buf.append(rows)
+            rows = self._gather(rows)
             done += b
-            if self._verbosity > 1:
-                self._print_progress(done, steps, rows["mh_counts"])
+            if rows is not None:
+                buf.append(rows)
+                if self._verbosity > 1:
+                    self._print_progress(done, steps, rows["mh_counts"])
             since_ckpt += 1
             if (ckpt and done % self.block_size == 0
                     and since_ckpt >= self.checkpoint_every):
@@ -562,81 +773,96 @@ class MCMCRunner:
                 since_ckpt = 0
         if ckpt and steps % self.block_size == 0:
             self.save_checkpoint(ckpt, states, draws, buf, done, init_rows)
+        self.final_states = states
         return self._collect(buf, init_rows, burn_in)
 
     def _run_time(self, states, draws, end_time: datetime,
                   burnin_time: datetime):
+        """Rank 0's clock decides: whether a block runs, where the
+        deadline and the end of burn-in cut the trace."""
         init_rows = self._init_rows(states)
-        buf = _TraceBuffer(len(states))
+        buf = _TraceBuffer(self._n_chains)
         burn_in = 0
         ckpt = self._ckpt_path("mcmc_state_time.npz")
-        if ckpt and os.path.exists(ckpt):
+        if ckpt and self._exists(ckpt):
             states, _, init_rows, extra = self._resume(ckpt, draws, buf)
             burn_in = int(extra.get("burn_in", 0))
         since_ckpt = 0
-        while self._now() < end_time:
+        while self._agree(self._now() < end_time):
             t_before = self._now()
             before_steps = buf.n_steps
             # The rows are on the host (_rows_to_host) before t_after.
             states, rows, draws = self.run_chains(states, draws,
                                                   self.block_size)
+            rows = self._gather(rows)
             t_after = self._now()
-            # The reference checks the clock every step (libs/MCMC.py:
-            # 413-430); the rows of the block past the deadline are cut by
-            # wall-clock interpolation (the chain state runs past them).
-            if t_after >= end_time and t_before < end_time:
-                frac = (end_time - t_before) / (t_after - t_before)
-                keep = max(1, int(self.block_size * frac))
-                if keep < self.block_size:
-                    rows = {f: v[:, :keep] for f, v in rows.items()}
-            buf.append(rows)
-            # The step where burn-in ended, interpolated the same way.
-            if t_after < burnin_time:
-                burn_in = buf.n_steps
-            elif t_before < burnin_time:
-                frac = (burnin_time - t_before) / (t_after - t_before)
-                burn_in = before_steps + int(self.block_size * frac)
+            if rows is not None:
+                # The reference checks the clock every step (libs/MCMC.py:
+                # 413-430); the rows of the block past the deadline are cut
+                # by wall-clock interpolation (the chain state runs past
+                # them).
+                if t_after >= end_time and t_before < end_time:
+                    frac = (end_time - t_before) / (t_after - t_before)
+                    keep = max(1, int(self.block_size * frac))
+                    if keep < self.block_size:
+                        rows = {f: v[:, :keep] for f, v in rows.items()}
+                buf.append(rows)
+                # The step where burn-in ended, interpolated the same way.
+                if t_after < burnin_time:
+                    burn_in = buf.n_steps
+                elif t_before < burnin_time:
+                    frac = (burnin_time - t_before) / (t_after - t_before)
+                    burn_in = before_steps + int(self.block_size * frac)
             since_ckpt += 1
             if (ckpt and since_ckpt >= self.checkpoint_every
-                    and self._now() < end_time):
+                    and self._agree(self._now() < end_time)):
                 self.save_checkpoint(ckpt, states, draws, buf, buf.n_steps,
                                      init_rows, extra={"burn_in": burn_in})
                 since_ckpt = 0
+        self.final_states = states
         return self._collect(buf, init_rows, burn_in)
 
     def _run_lugsail(self, states, draws, cutoff: float, verbosity: int,
                      extension: int = 200):
+        """Rank 0 evaluates the PSRF and decides the stop."""
         # Initial steps: max(10, 1/(cutoff^2 - 1)) (libs/MCMC.py:85-90).
         first = max(10, int(1.0 / (cutoff**2 - 1.0)))
         init_rows = self._init_rows(states)
-        buf = _TraceBuffer(len(states))
+        buf = _TraceBuffer(self._n_chains)
         ckpt = self._ckpt_path("mcmc_state_lugsail.npz")
         # PSRF evaluations of a run before its restart stay in the log
         # (the reference keeps the full list, libs/MCMC.py:147-156).
         psrf_log = []
-        if ckpt and os.path.exists(ckpt):
+        if ckpt and self._exists(ckpt):
             states, _, init_rows, extra = self._resume(ckpt, draws, buf)
             psrf_log = [(int(s), float(v)) for s, v in zip(
                 extra.get("psrf_steps", ()), extra.get("psrf_vals", ()))]
         else:
             states, rows, draws = self.run_chains(states, draws, first)
-            buf.append(rows)
+            rows = self._gather(rows)
+            if rows is not None:
+                buf.append(rows)
         while True:
-            steps_run = buf.n_steps + 1  # with the initial row
-            ml = np.concatenate([init_rows["ml"], buf.concat(("ml",))["ml"]],
-                                axis=1)
-            psrf = diagnostics.lugsail_psrf(
-                [(ml[c], steps_run // 2) for c in range(ml.shape[0])])
-            psrf_log.append((steps_run, psrf))
-            if verbosity > 1:
-                print(f"\tPSRF at {steps_run}:\t{psrf:.5f}")
-            # Burn-in only grows ((steps + 1) // 2 + 1): params rows below
-            # the current one are never needed again.
-            buf.trim_params((buf.n_steps + 1) // 2 + 1)
-            if psrf <= cutoff:
+            stop = None
+            if self.is_root:
+                steps_run = buf.n_steps + 1  # with the initial row
+                ml = np.concatenate([init_rows["ml"],
+                                     buf.concat(("ml",))["ml"]], axis=1)
+                psrf = diagnostics.lugsail_psrf(
+                    [(ml[c], steps_run // 2) for c in range(ml.shape[0])])
+                psrf_log.append((steps_run, psrf))
+                if verbosity > 1:
+                    print(f"\tPSRF at {steps_run}:\t{psrf:.5f}")
+                # Burn-in only grows ((steps + 1) // 2 + 1): params rows
+                # below the current one are never needed again.
+                buf.trim_params((buf.n_steps + 1) // 2 + 1)
+                stop = psrf <= cutoff
+            if self._agree(stop):
                 break
             states, rows, draws = self.run_chains(states, draws, extension)
-            buf.append(rows)
+            rows = self._gather(rows)
+            if rows is not None:
+                buf.append(rows)
             if ckpt:
                 self.save_checkpoint(
                     ckpt, states, draws, buf, buf.n_steps, init_rows,
@@ -644,6 +870,7 @@ class MCMCRunner:
                            "psrf_vals": [v for _, v in psrf_log],
                            "params_from": buf.params_from})
         burn_in = (buf.n_steps + 1) // 2 + 1
+        self.final_states = states
         return self._collect(buf, init_rows, burn_in, psrf=psrf_log,
                              cutoff=cutoff)
 

@@ -30,6 +30,13 @@ the same result:
 
 On a CPU tensor ``lazy``, ``stream`` and ``eager`` run their kernels' plain
 twins, so the CPU tests hold each path against its bnpc_tpu counterpart.
+
+Under a sharded mutation axis (``ax``, parallel/axis.py) Z and every birth
+column are all-reduced before a kernel or a loop reads them, so each rank of
+the mutation group runs the same sweep on the same bits; the newborn rows
+are drawn from the shard's own stream on its own columns. ``lazy``,
+``stream``, ``scan`` and ``blocked`` run sharded; ``eager`` is
+unsharded-only, as in bnpc_tpu (gibbs.py:160-164).
 """
 
 from __future__ import annotations
@@ -46,19 +53,21 @@ from bnpc_tpu_torch.ops.cuda_gibbs import (lazy_k_pad, lazy_segment,
                                            resolve_stream, stream_k_pad)
 from bnpc_tpu_torch.ops.cuda_stream import lazy_segment_stream
 from bnpc_tpu_torch.ops.cuda_sweep import eager_sweep
+from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import CRPState
 
 NEG_INF = float("-inf")
+_NO_AXIS = MutAxis()
 
 
-def _sweep_keys(draws: Draws, cfg: ModelConfig):
+def _sweep_keys(draws: Draws, cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
     """The sweep's (perm, gumbel, k_beta) randomness (gibbs.py:_sweep_keys).
     Slot j's noise is gumbel[:, j]; the new-cluster option's is
-    gumbel[:, k_max]."""
+    gumbel[:, k_max]. The newborn rows' draws are the shard's own."""
     k_perm, k_gumbel, k_beta = draws.split(3)
     perm = k_perm.permutation(cfg.n_cells)
     gumbel = k_gumbel.gumbel((cfg.n_cells, cfg.k_max + 1))
-    return perm, gumbel, k_beta
+    return perm, gumbel, ax.fold_key(k_beta)
 
 
 def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig):
@@ -69,9 +78,9 @@ def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig):
     return torch.clamp(theta, TMIN, TMAX).to(torch.float32)
 
 
-def _birth_column(theta, slot: int, state, data, gumbel):
+def _birth_column(theta, slot: int, state, data, gumbel, ax):
     f1, f0 = lk.log_prob_tables(theta, state.fp, state.fn)
-    return lk.ll_col(f1, f0, data.xm, data.xm0) + gumbel[:, slot]
+    return lk.ll_col(f1, f0, data.xm, data.xm0, ax) + gumbel[:, slot]
 
 
 def _padded_sizes(state, k_pad: int):
@@ -97,11 +106,18 @@ def resolve_impl(impl: str, cfg: ModelConfig, on_cuda: bool) -> str:
 
 def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
                 cfg: ModelConfig, impl: str = "auto",
-                block: int = 0) -> CRPState:
+                block: int = 0, ax: MutAxis = _NO_AXIS) -> CRPState:
     """One full Gibbs sweep. impl: "auto" (see resolve_impl), "lazy",
     "stream", "eager", "scan" or "blocked" (``block`` cells a block,
-    default 128)."""
+    default 128). `data` and the params are this rank's mutation columns
+    when `ax` is sharded."""
     impl = resolve_impl(impl, cfg, state.assignment.is_cuda)
+    if impl == "eager" and ax.sharded:
+        # bnpc_tpu runs its eager kernel unsharded only (gibbs.py:160-164):
+        # its [n, n] newborn product would need an all-reduce of n^2 floats
+        # a sweep, and its explicit route sums shard-local columns.
+        raise ValueError("impl='eager' cannot run under a sharded mutation "
+                         "axis; use 'lazy', 'stream', 'scan' or 'blocked'")
     run = {"lazy": _lazy_impl, "stream": _stream_impl, "eager": _eager_impl,
            "scan": _scan_impl,
            "blocked": functools.partial(_blocked_impl,
@@ -116,13 +132,14 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
     new_post = lk.new_cluster_ll(data, cfg, state.fp, state.fn) \
         + torch.log(alpha) - log_denom
 
-    perm, gumbel, k_beta = _sweep_keys(draws, cfg)
+    perm, gumbel, k_beta = _sweep_keys(draws, cfg, ax)
     # Z-formulation: the Gumbel noise is folded into the likelihood matrix
     # up front, so the categorical draw is a plain argmax.
     c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
-    z = lk.ll_matrix(data, c1, c0) + gumbel[:, :k_max]
+    z = lk.ll_matrix(data, c1, c0, ax) + gumbel[:, :k_max]
     aux = new_post + gumbel[:, k_max]
-    return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom)
+    return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+               ax=ax)
 
 
 def _check_eager_fits(cfg: ModelConfig, device) -> None:
@@ -139,7 +156,8 @@ def _check_eager_fits(cfg: ModelConfig, device) -> None:
             f"{free / 2**30:.2f} GiB free; use impl='stream' or 'lazy'")
 
 
-def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+               ax=_NO_AXIS):
     """Plain sequential sweep (bnpc_tpu _scan_impl semantics)."""
     assignment = state.assignment.clone()
     params = state.params.clone()
@@ -159,7 +177,8 @@ def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
             target = int(torch.argmax((size == 0).to(torch.int32)))
             theta = fresh_row(k_beta, cell, data, cfg)
             params[target] = theta
-            z[:, target] = _birth_column(theta, target, state, data, gumbel)
+            z[:, target] = _birth_column(theta, target, state, data, gumbel,
+                                         ax)
         else:
             target = int(torch.argmax(post_old))
         size[target] += 1
@@ -168,7 +187,8 @@ def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
                           cluster_size=size)
 
 
-def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+               ax=_NO_AXIS):
     """Birth-lazy host loop around the segment kernel (bnpc_tpu
     _pallas_lazy_impl). The kernel reads only the PRE-SWEEP assignment of
     not-yet-visited cells, and writes targets by visit position; one
@@ -192,7 +212,8 @@ def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
         if b_cell >= 0:
             theta = fresh_row(k_beta, b_cell, data, cfg)
             params[b_slot] = theta
-            z[:, b_slot] = _birth_column(theta, b_slot, state, data, gumbel)
+            z[:, b_slot] = _birth_column(theta, b_slot, state, data, gumbel,
+                                         ax)
         i0 = i_next
     assignment = torch.empty_like(tgt_v)
     assignment[perm.long()] = tgt_v
@@ -200,7 +221,8 @@ def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
                           cluster_size=sizes[:k_max].to(torch.int32))
 
 
-def _stream_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+def _stream_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+                 ax=_NO_AXIS):
     """The birth-lazy loop around the streaming kernel (bnpc_tpu
     _pallas_stream_impl): Z, aux and the pre-sweep assignment are gathered
     into visit order once per sweep; a birth at visit position p is cell
@@ -227,7 +249,7 @@ def _stream_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
             cell = int(perm[b_pos])
             theta = fresh_row(k_beta, cell, data, cfg)
             params[b_slot] = theta
-            col = _birth_column(theta, b_slot, state, data, gumbel)
+            col = _birth_column(theta, b_slot, state, data, gumbel, ax)
             zp[:, b_slot] = col[order]
         i0 = i_next
     assignment = torch.empty_like(tgt_v)
@@ -236,7 +258,8 @@ def _stream_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
                           cluster_size=sizes[:k_max].to(torch.int32))
 
 
-def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
+def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+                ax=_NO_AXIS):
     """The whole-sweep kernel (bnpc_tpu _pallas_impl): every newborn row
     drawn up front, the [n, n] likelihood of every cell under every newborn
     row as one product (left to torch.matmul, as bnpc_tpu leaves it to
@@ -259,7 +282,7 @@ def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom):
 
 
 def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-                  block):
+                  block, ax=_NO_AXIS):
     """Opt-in APPROXIMATE blocked sweep (bnpc_tpu _blocked_impl; no
     reference counterpart). Cells are visited in the permuted order in
     blocks of ``block``: every cell of a block decides against the cluster
@@ -343,7 +366,7 @@ def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
             if is_new:
                 theta = fresh_row(k_beta, int(perm[g * B + j]), data, cfg)
                 params[target] = theta
-                col = _birth_column(theta, target, state, data, gumbel)
+                col = _birth_column(theta, target, state, data, gumbel, ax)
                 z3.view(G * B, k_max)[:n, target] = col[order]
             sizes[target] += 1
             tgt3[g, j] = target

@@ -13,6 +13,12 @@ stay on the device, and acceptance is applied with ``torch.where``.
 As in bnpc_tpu, the merge reverse path iterates the movable cells in
 ascending cell-id order (a fixed order of the same restricted
 conditionals; libs/CRP.py:806-818 uses its scratch-array order).
+
+Under a sharded mutation axis (``ax``, parallel/axis.py) every sum over
+mutations is all-reduced over the mutation group, the per-mutation draws
+are the shard's own (``ax.fold_key``), and the prior and transition sums
+skip padded columns; the rg kernel's inputs come from the all-reduced
+[n, 2] launch log-likelihood, so every rank launches it on the same bits.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import mh
 from bnpc_tpu_torch.ops.cuda_rg import rg_scan
+from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import (CRPState, beta_posterior_params,
                                   first_free_slot)
 
 NEG_INF = float("-inf")
+_NO_AXIS = MutAxis()
 
 
 class _MoveCtx(NamedTuple):
@@ -146,8 +154,8 @@ def _setup(draws: Draws, state: CRPState, cfg: ModelConfig,
 
 
 def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
-             cfg: ModelConfig) -> _RGState:
-    k_i, k_j, k_m = draws.split(3)
+             cfg: ModelConfig, ax: MutAxis = _NO_AXIS) -> _RGState:
+    k_i, k_j, k_m = ax.fold_key(draws).split(3)
     mix0, _ = cfg.beta_mix
     mask = data.mask
 
@@ -156,14 +164,16 @@ def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
     # ll_j > ll_i is taken as ONE product over the table differences: where
     # the anchors' rows hold the same values in other columns, the two sums
     # are equal in exact arithmetic but round differently in any other
-    # summation order, while the difference's terms cancel exactly.
+    # summation order, while the difference's terms cancel exactly. Sharded,
+    # the one product is all-reduced and the reduced value compared.
     def anchor_tables(a):
         th = torch.where(_at(mask, a) > 0, _at(data.x, a), mix0)
         return lk.log_prob_tables(th, state.fp, state.fn)
 
     (c1i, c0i), (c1j, c0j) = (anchor_tables(ctx.anchor_i),
                               anchor_tables(ctx.anchor_j))
-    rg = (data.xm @ (c1j - c1i) + data.xm0 @ (c0j - c0i) > 0).to(torch.int32)
+    rg = (ax.psum(data.xm @ (c1j - c1i) + data.xm0 @ (c0j - c0i)) > 0).to(
+        torch.int32)
 
     side0, side1 = _side_masks(ctx, rg)
     n1_0, n0_0 = _masked_counts(side0, data)
@@ -229,7 +239,7 @@ def _trans_prob_replay(ctx: _MoveCtx, lau_v, fin_v, ll0_v, ll1_v, s_count,
 
 def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
                     state: CRPState, data: PackedData, cfg: ModelConfig,
-                    trans_prob: bool):
+                    trans_prob: bool, ax: MutAxis = _NO_AXIS):
     """Sequential restricted 2-way Gibbs over the non-anchor cells
     (_rg_scan_assign, libs/CRP.py:609-632). Returns (rg, sum of chosen
     log-probabilities; 0 unless `trans_prob`).
@@ -242,7 +252,7 @@ def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
     k_perm, k_gumbel = draws.split(2)
     gumbel = k_gumbel.gumbel((n, 2))
     c1, c0 = lk.log_prob_tables(params_split, state.fp, state.fn)  # [2, m]
-    ll2 = data.xm @ c1.T + data.xm0 @ c0.T  # [n, 2]
+    ll2 = ax.psum(data.xm @ c1.T + data.xm0 @ c0.T)  # [n, 2]
     z = ll2 + gumbel
     dz = z[:, 1] - z[:, 0]
 
@@ -270,26 +280,26 @@ def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
 
 
 def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
-                   trans_prob: bool):
+                   trans_prob: bool, ax: MutAxis = _NO_AXIS):
     """One launch scan of the split configuration (libs/CRP.py:570-606)."""
     k_assign, k_par = draws.split(2)
     rg, prob_cl = _rg_scan_assign(k_assign, ctx, rgs.rg, rgs.params_split,
-                                  state, data, cfg, trans_prob)
+                                  state, data, cfg, trans_prob, ax)
     side0, side1 = _side_masks(ctx, rg)
     n1 = torch.stack([side0 @ data.xm, side1 @ data.xm])
     n0 = torch.stack([side0 @ data.xm0, side1 @ data.xm0])
     res = mh.mh_cluster_params(k_par, rgs.params_split, n1, n0, state.fp,
-                               state.fn, cfg, trans_prob=trans_prob)
+                               state.fn, cfg, trans_prob=trans_prob, ax=ax)
     return rgs._replace(rg=rg, params_split=res.params), \
         prob_cl + torch.sum(res.trans_logprob)
 
 
 def _rg_scan_merge(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
-                   trans_prob: bool):
+                   trans_prob: bool, ax: MutAxis = _NO_AXIS):
     """One launch scan of the merge configuration (libs/CRP.py:581-587)."""
     n1, n0 = _masked_counts(ctx.cells.to(torch.float32), data)
     res = mh.mh_cluster_params(draws, rgs.params_merge, n1, n0, state.fp,
-                               state.fn, cfg, trans_prob=trans_prob)
+                               state.fn, cfg, trans_prob=trans_prob, ax=ax)
     return rgs._replace(params_merge=res.params), res.trans_logprob
 
 
@@ -299,28 +309,30 @@ def _rg_scan_merge(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
 
 
 def _ll_split_all(side0, side1, cells_f, params_split, params_merge, state,
-                  data):
+                  data, ax: MutAxis = _NO_AXIS):
     """(ll_i + ll_j under split params, ll_all under merge params) — eqs.
     11/12 (libs/CRP.py:716-733)."""
     c1s, c0s = lk.log_prob_tables(params_split, state.fp, state.fn)
     n1_0, n0_0 = _masked_counts(side0, data)
     n1_1, n0_1 = _masked_counts(side1, data)
-    ll_split = torch.sum(n1_0 * c1s[0] + n0_0 * c0s[0]) \
-        + torch.sum(n1_1 * c1s[1] + n0_1 * c0s[1])
+    ll_split = ax.psum(torch.sum(n1_0 * c1s[0] + n0_0 * c0s[0])
+                       + torch.sum(n1_1 * c1s[1] + n0_1 * c0s[1]))
     n1_m, n0_m = _masked_counts(cells_f, data)
     c1m, c0m = lk.log_prob_tables(params_merge, state.fp, state.fn)
-    ll_all = torch.sum(n1_m * c1m + n0_m * c0m)
+    ll_all = ax.psum(torch.sum(n1_m * c1m + n0_m * c0m))
     return ll_split, ll_all
 
 
-def _beta_prior_sum(cfg, x):
-    return torch.sum(dist.beta_logpdf(x, cfg.p, cfg.q, cfg.log_beta_norm))
+def _beta_prior_sum(cfg, x, ax: MutAxis = _NO_AXIS):
+    return ax.psum(torch.sum(ax.apply_mask(
+        dist.beta_logpdf(x, cfg.p, cfg.q, cfg.log_beta_norm))))
 
 
-def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg):
+def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
+                        ax: MutAxis = _NO_AXIS):
     """Probability of regenerating the ORIGINAL split from the launch state
     (merge reverse path; _rg_get_split_prob, libs/CRP.py:777-820)."""
-    k_std, _ = draws.split(2)
+    k_std, _ = ax.fold_key(draws).split(2)
     std = mh.draw_proposal_std(k_std, tuple(rgs.params_split.shape))
     # Bounds 0/1 here, not TMIN/TMAX — reference quirk (libs/CRP.py:779-780).
     a = (0.0 - rgs.params_split) / std
@@ -334,10 +346,10 @@ def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg):
     target_j = _at(state.params, ctx.cl_b)
     prob_param_i = mh.realized_trans_logprob(
         target_i, rgs.params_split[0], n1_0, n0_0, a[0], b[0], std[0],
-        state.fp, state.fn, cfg)
+        state.fp, state.fn, cfg, ax)
     prob_param_j = mh.realized_trans_logprob(
         target_j, rgs.params_split[1], n1_1, n0_1, a[1], b[1], std[1],
-        state.fp, state.fn, cfg)
+        state.fp, state.fn, cfg, ax)
 
     # Each movable cell is forced to its original side under the original
     # parameters; the count evolution is deterministic, so the "scan" is
@@ -345,7 +357,7 @@ def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg):
     orig = torch.where(state.assignment == ctx.cl_a, 0, 1).to(torch.int32)
     c1, c0 = lk.log_prob_tables(torch.stack([target_i, target_j]),
                                 state.fp, state.fn)
-    ll2 = data.xm @ c1.T + data.xm0 @ c0.T
+    ll2 = ax.psum(data.xm @ c1.T + data.xm0 @ c0.T)
     log_denom = torch.log(ctx.n_move - 1.0 + state.dp_alpha)
 
     in_s = ctx.s_mask.to(torch.float32)
@@ -369,14 +381,16 @@ def _counts(row: int, accept, dev):
     return c
 
 
-def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
+def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     """Split acceptance (libs/CRP.py:641-653) and its application."""
     n = cfg.n_cells
     dev = state.assignment.device
     # Final scan to the proposal state, with transition probabilities.
-    rgs2, gs_split = _rg_scan_split(k_f1, ctx, rgs, state, data, cfg, True)
+    rgs2, gs_split = _rg_scan_split(k_f1, ctx, rgs, state, data, cfg, True,
+                                    ax)
     # Reverse: merge-launch -> the original single cluster (eq. 15).
-    std = mh.draw_proposal_std(k_f2, tuple(rgs.params_merge.shape))
+    std = mh.draw_proposal_std(ax.fold_key(k_f2),
+                               tuple(rgs.params_merge.shape))
     a = (TMIN - rgs2.params_merge) / std
     b = (TMAX - rgs2.params_merge) / std
     cells_f = ctx.cells.to(torch.float32)
@@ -384,7 +398,7 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
     params_a = _at(state.params, ctx.cl_a)
     gs_merge = mh.realized_trans_logprob(
         params_a, rgs2.params_merge, n1_m, n0_m, a, b, std, state.fp,
-        state.fn, cfg)
+        state.fn, cfg, ax)
     trans_ratio = gs_merge - gs_split
 
     n_j = torch.where(ctx.s_mask, rgs2.rg, 0).sum().to(torch.float32) + 1.0
@@ -393,13 +407,13 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
     lprior = (torch.log(state.dp_alpha) - torch.lgamma(ctx.n_move)
               + torch.lgamma(n_j) + torch.lgamma(n_i))
     if not cfg.beta_prior_uniform:
-        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_split) \
-            - _beta_prior_sum(cfg, params_a)
+        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_split, ax) \
+            - _beta_prior_sum(cfg, params_a, ax)
 
     side0, side1 = _side_masks(ctx, rgs2.rg)
     ll_split, ll_all = _ll_split_all(side0, side1, cells_f,
                                      rgs2.params_split, rgs2.params_merge,
-                                     state, data)
+                                     state, data, ax)
     ll_ratio = ll_split - ll_all
 
     # Eq. 5 size-proposal ratio (libs/CRP.py:757-764).
@@ -431,13 +445,14 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
                           cluster_size=cluster_size), _counts(0, accept, dev)
 
 
-def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
+def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     """Merge acceptance (libs/CRP.py:656-665) and its application."""
     n = cfg.n_cells
     dev = state.assignment.device
     # Forward: one more merge scan with transition probabilities (eq. 16).
-    rgs2, gs_merge = _rg_scan_merge(k_f1, ctx, rgs, state, data, cfg, True)
-    gs_split = _reverse_split_prob(k_f2, ctx, rgs2, state, data, cfg)
+    rgs2, gs_merge = _rg_scan_merge(k_f1, ctx, rgs, state, data, cfg, True,
+                                    ax)
+    gs_split = _reverse_split_prob(k_f2, ctx, rgs2, state, data, cfg, ax)
     trans_ratio = gs_split - gs_merge
 
     # Eq. 8 prior ratio over the ORIGINAL clusters (libs/CRP.py:736-754).
@@ -448,8 +463,9 @@ def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
     lprior = (torch.lgamma(ctx.n_move) - torch.log(state.dp_alpha)
               - torch.lgamma(n_i) - torch.lgamma(n_j))
     if not cfg.beta_prior_uniform:
-        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_merge) \
-            - _beta_prior_sum(cfg, params_a) - _beta_prior_sum(cfg, params_b)
+        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_merge, ax) \
+            - _beta_prior_sum(cfg, params_a, ax) \
+            - _beta_prior_sum(cfg, params_b, ax)
 
     # Eq. 12 with the original sides under the launch split params.
     orig_rg = torch.where(state.assignment == ctx.cl_a, 0, 1)
@@ -457,7 +473,7 @@ def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
     ll_split, ll_all = _ll_split_all(side0, side1,
                                      ctx.cells.to(torch.float32),
                                      rgs2.params_split, rgs2.params_merge,
-                                     state, data)
+                                     state, data, ax)
     ll_ratio = ll_all - ll_split
 
     # Eq. 6 size ratio (libs/CRP.py:767-774); the log(|S| - 1) term is
@@ -488,7 +504,8 @@ def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg):
 
 
 def split_merge(draws: Draws, state: CRPState, data: PackedData,
-                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int):
+                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int,
+                ax: MutAxis = _NO_AXIS):
     """One split-merge proposal. Returns (state, counts[2, 2]) where
     counts[0] = (accepted, declined) split deltas and counts[1] the merge
     deltas (MH_counter rows 1/2, libs/MCMC.py:320-328)."""
@@ -503,15 +520,15 @@ def split_merge(draws: Draws, state: CRPState, data: PackedData,
     is_split = bool(forced_split | (want_split & ~forced_merge))  # host sync
 
     ctx = _setup(k_setup, state, cfg, is_split)
-    rgs = _rg_init(k_init, ctx, state, data, cfg)
+    rgs = _rg_init(k_init, ctx, state, data, cfg, ax)
 
     # Launch scans (libs/CRP.py:535-537): each refreshes both the split and
     # the merge configuration.
     for kk in k_scans.split(sm_steps):
         k1, k2 = kk.split(2)
-        rgs, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False)
-        rgs, _ = _rg_scan_merge(k2, ctx, rgs, state, data, cfg, False)
+        rgs, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False, ax)
+        rgs, _ = _rg_scan_merge(k2, ctx, rgs, state, data, cfg, False, ax)
 
     k_f1, k_f2 = k_final.split(2)
     branch = _split_branch if is_split else _merge_branch
-    return branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg)
+    return branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax)

@@ -13,20 +13,27 @@ from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import mh
 from bnpc_tpu_torch.ops import truncnorm
+from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import CRPState
+
+_NO_AXIS = MutAxis()
 
 
 def update_parameters(draws: Draws, state: CRPState, n1, n0,
-                      cfg: ModelConfig):
+                      cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
     """MH-update every live cluster's parameter row at once
     (update_parameters, libs/CRP.py:302-311). Returns (state, declined,
-    accepted), counted over live slots only."""
+    accepted), counted over live slots and real mutation columns only."""
     live = state.cluster_size > 0
     res = mh.mh_cluster_params(draws, state.params, n1, n0, state.fp,
-                               state.fn, cfg)
+                               state.fn, cfg, ax=ax)
     params = torch.where(live[:, None], res.params, state.params)
     declined = torch.where(live, res.declined, 0).sum()
-    accepted = live.sum() * cfg.n_muts - declined
+    # Under padded sharding cfg.n_muts counts the padded columns: the real
+    # ones are the psummed shard masks (bnpc_tpu updates.py:40-45).
+    m_real = (ax.psum(ax.mask.sum()).to(torch.int32) if ax.mask is not None
+              else cfg.n_muts)
+    accepted = live.sum() * m_real - declined
     return state._replace(params=params), declined, accepted
 
 
@@ -54,9 +61,9 @@ def update_dp_alpha(draws: Draws, state: CRPState,
     return state._replace(dp_alpha=alpha)
 
 
-def _full_ll_at_rates(params, n1, n0, fp, fn):
+def _full_ll_at_rates(params, n1, n0, fp, fn, ax: MutAxis = _NO_AXIS):
     c1, c0 = lk.log_prob_tables(params, fp, fn)
-    return lk.ll_from_stats(n1, n0, c1, c0)
+    return lk.ll_from_stats(n1, n0, c1, c0, ax)
 
 
 def _mh_error_rate(draws: Draws, old, prior_mean: float, prior_sd: float,
@@ -85,14 +92,14 @@ def _mh_error_rate(draws: Draws, old, prior_mean: float, prior_sd: float,
 
 
 def update_error_rates(draws: Draws, state: CRPState, n1, n0,
-                       cfg: ModelConfig):
+                       cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
     """MH on FP then FN (libs/CRP_learning_errors.py:52-55; FN's likelihood
     sees the freshly updated FP)."""
     k_fp, k_fn = draws.split(2)
     fp, fp_acc = _mh_error_rate(
         k_fp, state.fp, cfg.fp, cfg.fp_sd,
-        lambda e: _full_ll_at_rates(state.params, n1, n0, e, state.fn))
+        lambda e: _full_ll_at_rates(state.params, n1, n0, e, state.fn, ax))
     fn, fn_acc = _mh_error_rate(
         k_fn, state.fn, cfg.fn, cfg.fn_sd,
-        lambda e: _full_ll_at_rates(state.params, n1, n0, fp, e))
+        lambda e: _full_ll_at_rates(state.params, n1, n0, fp, e, ax))
     return state._replace(fp=fp, fn=fn), fp_acc, fn_acc

@@ -10,6 +10,10 @@ Because x is binary, the per-(cluster, mutation) log term of the reference
 so the cells x clusters log-likelihood is ``xm @ c1.T + xm0 @ c0.T`` and all
 likelihood sums over cells reduce to the sufficient statistics (N1, N0).
 The products are plain float32 torch matmuls (TF32 is off, see __init__).
+Under mutation sharding every sum over mutations is all-reduced over the
+mutation group (``ax``, parallel/axis.py); the per-cell counts rs1 / rs0 of
+new_cluster_ll are whole-row counts, replicated on every rank, and take no
+all-reduce.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ import torch
 from bnpc_tpu_torch.config import ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.ops import distributions as dist
+from bnpc_tpu_torch.parallel.axis import MutAxis
+
+_NO_AXIS = MutAxis()
 
 
 def log_prob_tables(params, fp, fn):
@@ -28,23 +35,23 @@ def log_prob_tables(params, fp, fn):
     return c1, c0
 
 
-def ll_matrix(data: PackedData, c1, c0):
+def ll_matrix(data: PackedData, c1, c0, ax: MutAxis = _NO_AXIS):
     """[n, k] log-likelihood of every cell under every row's tables: one
     product over the concatenated indicator planes."""
     xcat = torch.cat([data.xm, data.xm0], dim=1)
     ccat = torch.cat([c1, c0], dim=-1)
-    return xcat @ ccat.T
+    return ax.psum(xcat @ ccat.T)
 
 
-def ll_col(c1_row, c0_row, xm, xm0):
+def ll_col(c1_row, c0_row, xm, xm0, ax: MutAxis = _NO_AXIS):
     """[n] log-likelihood of every cell under one parameter row's tables."""
-    return xm @ c1_row + xm0 @ c0_row
+    return ax.psum(xm @ c1_row + xm0 @ c0_row)
 
 
-def ll_from_stats(n1, n0, c1, c0):
+def ll_from_stats(n1, n0, c1, c0, ax: MutAxis = _NO_AXIS):
     """Total log-likelihood from per-slot sufficient statistics
     (get_ll_full, libs/CRP.py:237-238); free slots have zero statistics."""
-    return torch.sum(n1 * c1 + n0 * c0)
+    return ax.psum(torch.sum(n1 * c1 + n0 * c0))
 
 
 def new_cluster_ll(data: PackedData, cfg: ModelConfig, fp, fn):
@@ -61,7 +68,8 @@ def crp_size_log_prior(size, n: float, alpha):
     return torch.log(size.to(torch.float32)) - torch.log(n - 1.0 + alpha)
 
 
-def log_prior_full(cfg: ModelConfig, cluster_size, params, dp_alpha, fp, fn):
+def log_prior_full(cfg: ModelConfig, cluster_size, params, dp_alpha, fp, fn,
+                   ax: MutAxis = _NO_AXIS):
     """Joint log-prior (get_lprior_full, libs/CRP.py:241-251, and the
     learning-model override libs/CRP_learning_errors.py:47-49)."""
     live = cluster_size > 0
@@ -71,8 +79,9 @@ def log_prior_full(cfg: ModelConfig, cluster_size, params, dp_alpha, fp, fn):
         live, crp_size_log_prior(torch.clamp(cluster_size, min=1), n,
                                  dp_alpha), 0.0))
     if not cfg.beta_prior_uniform:
-        lpdf = dist.beta_logpdf(params, cfg.p, cfg.q, cfg.log_beta_norm)
-        lp = lp + torch.sum(torch.where(live[:, None], lpdf, 0.0))
+        lpdf = ax.apply_mask(
+            dist.beta_logpdf(params, cfg.p, cfg.q, cfg.log_beta_norm))
+        lp = lp + ax.psum(torch.sum(torch.where(live[:, None], lpdf, 0.0)))
     if cfg.learn_errors:
         lp = lp + dist.truncnorm_prior_logpdf(fp, cfg.fp, cfg.fp_sd)
         lp = lp + dist.truncnorm_prior_logpdf(fn, cfg.fn, cfg.fn_sd)

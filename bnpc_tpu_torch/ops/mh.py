@@ -17,6 +17,9 @@ from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
 from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import truncnorm
+from bnpc_tpu_torch.parallel.axis import MutAxis
+
+_NO_AXIS = MutAxis()
 
 # MH proposal std-dev multiset (libs/CRP.py:65).
 PARAM_PROPOSAL_SD = (0.1, 0.25, 0.5)
@@ -68,12 +71,15 @@ def choose(idx, values):
 
 
 def mh_cluster_params(draws, params, n1, n0, fp, fn, cfg: ModelConfig,
-                      trans_prob: bool = False) -> MHParamsResult:
+                      trans_prob: bool = False,
+                      ax: MutAxis = _NO_AXIS) -> MHParamsResult:
     """One truncated-normal random-walk MH sweep over every coordinate
     (MH_cluster_params, libs/CRP.py:314-344). With ``trans_prob`` also the
     summed log transition probability of the realized move: accepted
-    coordinates contribute min(A, 0), declined ones log(1 - e^A)."""
-    k_std, k_prop, k_u = draws.split(3)
+    coordinates contribute min(A, 0), declined ones log(1 - e^A). Under
+    mutation sharding every draw is the shard's own, and the counts and
+    sums are over the real columns of every shard."""
+    k_std, k_prop, k_u = ax.fold_key(draws).split(3)
     std = draw_proposal_std(k_std, tuple(params.shape))
     a = (TMIN - params) / std
     b = (TMAX - params) / std
@@ -85,14 +91,15 @@ def mh_cluster_params(draws, params, n1, n0, fp, fn, cfg: ModelConfig,
     decline = log_u >= A
 
     new_params = torch.where(decline, params, proposal)
-    declined = decline.to(torch.float32).sum(dim=-1).to(torch.int32)
+    declined = ax.psum(ax.apply_mask(decline.to(torch.float32))
+                       .sum(dim=-1)).to(torch.int32)
 
     if trans_prob:
         # The min(A, -1e-10) clamp (bnpc_tpu/ops/mh.py) keeps a declined
         # coordinate's log(1 - e^A) finite when A rounds to 0.
         contrib = torch.where(
             decline, torch.log(-torch.expm1(torch.clamp(A, max=-1e-10))), A)
-        trans = contrib.sum(dim=-1)
+        trans = ax.psum(ax.apply_mask(contrib).sum(dim=-1))
     else:
         trans = torch.zeros(params.shape[:-1], dtype=params.dtype,
                             device=params.device)
@@ -100,9 +107,9 @@ def mh_cluster_params(draws, params, n1, n0, fp, fn, cfg: ModelConfig,
 
 
 def realized_trans_logprob(target, source, n1, n0, a, b, std, fp, fn,
-                           cfg: ModelConfig):
+                           cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
     """Summed log transition probability of an MH sweep moving `source` ->
     `target`, every coordinate treated as accepted (the split-merge reverse
     paths, libs/CRP.py:668-682, 777-797)."""
     A = log_A(target, source, n1, n0, a, b, std, fp, fn, cfg, clip=True)
-    return A.sum(dim=-1)
+    return ax.psum(ax.apply_mask(A).sum(dim=-1))

@@ -134,14 +134,36 @@ Phases (any failure exits non-zero, and no result line is printed):
                ARI against the planted clones; (g) cli.main with -n 2 -s
                256 --checkpoint_dir -e posterior: the files, two
                chain_seeds and a PSRF in args.txt, the checkpoint written.
+ 11. mesh    — bnpc_tpu_torch/parallel/ with two ranks sharing the card
+               (gloo; spawned processes running mesh_rank): (a) a 2 x 1
+               mesh, 2 chains x 128 steps at the main cell, each chain ==
+               its one-process run in this process, bit for bit; (b) a
+               1 x 2 mesh at the main cell, 128 steps in blocks of 32: the
+               hashes of each block's replicated state (assignment, sizes,
+               alpha, FP, FN) equal on both ranks, the invariants, kernels
+               1 and 2 launched on each rank, steps/s beside one process's
+               in this call, the all-reduces a step, their MB, and their
+               ms a step (32 more steps, each all-reduce between two device
+               synchronizations); (c) a 1 x 2 mesh at 131,072 x 200, k_max
+               128, 16 steps: kernel 3 on each rank, hashes equal; (d)
+               500 x 201 (padded to 202) over 1 x 2, 12 steps on the card
+               and on the CPU (the same ranks, gloo on host tensors) from
+               the same state each step on identical draws: discrete
+               outputs exactly, floats rtol 1e-4 (params also atol 1e-6,
+               8.4 float32 ulps of 1.0: near TMIN a proposal's last-ulp
+               ndtri difference shows at that scale); (e) cli.main with
+               --mesh 1,2 and --mesh 2,1 at the main cell, -s 64: one set
+               of files, "Writing output to" printed once.
 
 Before each of phases 5-7, before each probe in phase 8, before each CLI
 run of phase 9 and before each run of phase 10 that is checked for its
 launches, every kernel's launch counter is set to 0; the counters read
 after it are that path's launches (the probes' paths are their main()s).
-The kernel line's launches are those of phases 5-8. The last three lines
-are the nvidia-smi line, a JSON line with one entry per kernel, and
-{"ok": true, "device": {...}}.
+The kernel line's launches are those of phases 5-8; phase 11's ranks
+count their own launches (each rank's counters are 0 before each run).
+The last three lines are the nvidia-smi line, a JSON line with one entry
+per kernel, and {"ok": true, "device": {...}}; before them, the script's
+total seconds.
 """
 
 import json
@@ -151,6 +173,7 @@ import warnings
 
 import numpy as np
 
+from bnpc_tpu_torch.draws import TorchDraws
 from bnpc_tpu_torch.probes import card as nvidia_smi
 from bnpc_tpu_torch.probes import cuda_ms
 
@@ -169,6 +192,17 @@ MIX = dict(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25, sm_steps=3)
 
 def log(msg):
     print(msg, flush=True)
+
+
+class HostDraws(TorchDraws):
+    """Draws generated on the CPU and returned on `device`: a CPU run and a
+    GPU run consume identical numbers (a shard's own stream too)."""
+
+    def __init__(self, seed, device):
+        import torch
+
+        super().__init__(seed, "cpu")
+        self.device = torch.device(device)
 
 
 def make_data(n, m, k_clones, missing, seed=0, fp=0.001):
@@ -1089,22 +1123,46 @@ def phase_while_exit(dev, smi):
 # ---------------------------------------------------------------------------
 
 
+def gpu_against_cpu(steps, state, dev, tag, params_atol):
+    """12 steps of steps[d] (a step body on device d), each from the CPU's
+    state on identical draws (HostDraws): assignments, sizes and MH counts
+    exactly, every float to rtol 1e-4 (params also to `params_atol`).
+    Returns (gibbs / split / merge step counts, params' largest
+    difference)."""
+    import torch
+
+    kinds = np.zeros(3, int)
+    worst = 0.0
+    for s in range(12):
+        out = {}
+        for d in ("cpu", dev):
+            st = type(state)(*(t.to(d) for t in state))
+            out[d] = steps[d](st, HostDraws(100 + s, d))
+        (cs, cr), (gs, gr) = out["cpu"], out[dev]
+        for f in ("assignment", "cluster_size"):
+            if not torch.equal(getattr(cs, f), getattr(gs, f).cpu()):
+                raise AssertionError(f"{tag} step {s}: {f} differs")
+        if not torch.equal(cr.mh_counts, gr.mh_counts.cpu()):
+            raise AssertionError(f"{tag} step {s}: mh_counts differ")
+        torch.testing.assert_close(gs.params.cpu(), cs.params, rtol=1e-4,
+                                   atol=params_atol)
+        worst = max(worst, (gs.params.cpu() - cs.params).abs().max().item())
+        for a, b in [(cs.dp_alpha, gs.dp_alpha), (cs.fp, gs.fp),
+                     (cs.fn, gs.fn), (cr.ml, gr.ml), (cr.map_, gr.map_)]:
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=0)
+        c = cr.mh_counts.numpy()
+        kinds += [c[1:3].sum() == 0, c[1].sum() > 0, c[2].sum() > 0]
+        state = cs
+    return kinds.tolist(), worst
+
+
 def phase_small(dev, gibbs_impl):
     import torch
 
     from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
     from bnpc_tpu_torch.data import pack_data
-    from bnpc_tpu_torch.draws import TorchDraws
     from bnpc_tpu_torch.mcmc import _make_step_body, resolve_trace_k
     from bnpc_tpu_torch.state import init_state
-
-    class HostDraws(TorchDraws):
-        """Draws generated on the CPU and returned on `device`: a CPU run
-        and a GPU run consume identical numbers."""
-
-        def __init__(self, seed, device):
-            super().__init__(seed, "cpu")
-            self.device = torch.device(device)
 
     n, m = 40, 16
     data, _ = make_data(n, m, 3, 0.1, seed=3)
@@ -1118,29 +1176,9 @@ def phase_small(dev, gibbs_impl):
     steps = {d: _make_step_body(cfg, mc, packed[d], trace_k, gibbs_impl)
              for d in ("cpu", dev)}
     state = init_state(TorchDraws(0, "cpu"), cfg, packed["cpu"], "cpu")
-    kinds = np.zeros(3, int)  # gibbs, split, merge
-    for s in range(12):
-        out = {}
-        for d in ("cpu", dev):
-            st = type(state)(*(t.to(d) for t in state))
-            out[d] = steps[d](st, HostDraws(100 + s, d))
-        (cs, cr), (gs, gr) = out["cpu"], out[dev]
-        for f in ("assignment", "cluster_size"):
-            if not torch.equal(getattr(cs, f), getattr(gs, f).cpu()):
-                raise AssertionError(f"small {gibbs_impl} step {s}: {f} "
-                                     "differs")
-        if not torch.equal(cr.mh_counts, gr.mh_counts.cpu()):
-            raise AssertionError(f"small {gibbs_impl} step {s}: mh_counts "
-                                 "differ")
-        for a, b in [(cs.params, gs.params), (cs.dp_alpha, gs.dp_alpha),
-                     (cs.fp, gs.fp), (cs.fn, gs.fn), (cr.ml, gr.ml),
-                     (cr.map_, gr.map_)]:
-            torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=0)
-        c = cr.mh_counts.numpy()
-        kinds += [c[1:3].sum() == 0, c[1].sum() > 0, c[2].sum() > 0]
-        state = cs
+    kinds, _ = gpu_against_cpu(steps, state, dev, f"small {gibbs_impl}", 0.0)
     log(f"  gibbs_impl={gibbs_impl!r}: 12 steps GPU == CPU "
-        f"(gibbs/split/merge steps: {kinds.tolist()})")
+        f"(gibbs/split/merge steps: {kinds})")
 
 
 # ---------------------------------------------------------------------------
@@ -1956,55 +1994,397 @@ def phase_modes(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the mesh (ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 128
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def state_hash(st) -> str:
+    """Hash of a state's replicated fields: assignment, sizes, alpha, FP,
+    FN."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (st.assignment, st.cluster_size, st.dp_alpha, st.fp, st.fn):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+class BlockHashes:
+    """Wraps runner.run_chains: each block's chain state hashes."""
+
+    def __init__(self, runner):
+        self.hashes = []
+        run_chains = runner.run_chains
+
+        def wrapped(*args, **kwargs):
+            out = run_chains(*args, **kwargs)
+            self.hashes.append([state_hash(st) for st in out[0]])
+            return out
+
+        runner.run_chains = wrapped
+
+
+def mesh_run(mesh, n, k_clones, k_max, run_var, seed, dev, block, n_chains=1):
+    """One runner.run on this rank of `mesh`: (results or None, seconds,
+    launches, all-reduces, their bytes, block hashes, runner)."""
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.mcmc import MCMCRunner
+    from bnpc_tpu_torch.parallel import axis
+
+    data, truth = make_data(n, M, k_clones, 0.1, seed=0)
+    cfg, mc = bench_configs(n, k_max)
+    runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                        block_size=block, mesh=mesh)
+    hashes = BlockHashes(runner)
+    reset_launches()
+    axis.reset_counters()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = runner.run(run_var, seed=seed, n_chains=n_chains)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    for st in runner.final_states:
+        check_state(st, [], n, k_max)
+    out = {"seconds": secs, "launches": read_launches(),
+           "all_reduces": axis.all_reduces,
+           "all_reduce_bytes": axis.all_reduce_bytes,
+           "hashes": list(hashes.hashes), "results": res, "truth": truth,
+           "seeds": runner.seeds.tolist()}
+    return out, runner
+
+
+def mesh_small(mesh, dev):
+    """(d) 500 x 201 (padded to 202) over a 1 x 2 mesh, 12 steps, each
+    from the CPU's state: the card against the CPU on identical draws
+    (HostDraws, the shards' own streams too). Returns the step kinds."""
+    import torch
+
+    from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
+    from bnpc_tpu_torch.data import pack_data, pad_muts
+    from bnpc_tpu_torch.parallel import sharded
+    from bnpc_tpu_torch.state import init_state
+
+    n, m = 500, 201
+    data, _ = make_data(n, m, 5, 0.1, seed=3)
+    cfg = ModelConfig(n_cells=n, n_muts=m, k_max=128, p=0.25, q=0.25,
+                      fp=0.01, fn=0.2, learn_errors=True, fp_sd=0.01,
+                      fn_sd=0.1)
+    mc = MCMCConfig(**MIX)
+    blocks = {d: sharded.make_sharded_block(
+        mesh, cfg, mc, pad_muts(pack_data(data, d), mesh.muts)[0])
+        for d in ("cpu", dev)}
+    full = init_state(TorchDraws(0, "cpu"), cfg, pack_data(data, "cpu"),
+                      "cpu")
+    w = 202 // mesh.muts
+    params = torch.nn.functional.pad(full.params, (0, 1), value=0.5)
+    state = full._replace(params=params[:, mesh.mut_index * w:
+                                        (mesh.mut_index + 1) * w]
+                          .contiguous())
+    # A proposal is loc + scale * ndtri(u), computed at the scale of 1: near
+    # TMIN the two devices' ndtri (last ulps apart) leave params a few
+    # float32 ulps of 1.0 apart (4 measured on an H100), so params take
+    # 1e-6 (8.4 ulps of 1.0) as their atol.
+    kinds, worst = gpu_against_cpu({d: b.step for d, b in blocks.items()},
+                                   state, dev, "mesh small", 1e-6)
+    return {"kinds": kinds, "params_max_abs_diff": worst}
+
+
+def mesh_rank(rank, world, port, tmp, dev):
+    """One rank of phase 11's world: (a)-(d) in turn; its outputs to
+    tmp/rank<r>.pkl. Any failure ends this process with an error, which
+    fails the phase."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from bnpc_tpu_torch.parallel import axis, multihost, sharded
+
+    multihost.initialize(f"localhost:{port}", world, rank, device=dev)
+    out = {"backend": dist.get_backend()}
+    # (a) chains over a 2 x 1 mesh.
+    out["a"], _ = mesh_run(sharded.make_mesh(2, 1), N, 10, K_MAX,
+                           (MESH_STEPS, 42), 21, dev, 256, n_chains=2)
+    mesh = sharded.make_mesh(1, 2)
+    # (b) mutations over a 1 x 2 mesh at the main cell, blocks of 32; then
+    # 32 steps with every all-reduce timed (device synchronized around).
+    out["b"], runner = mesh_run(mesh, N, 10, K_MAX, (MESH_STEPS, 0), 22,
+                                dev, 32)
+    axis.reset_counters()
+    axis.timed = True
+    try:
+        runner.run((32, 0), seed=23)
+    finally:
+        axis.timed = False
+    out["b"]["timed"] = {"all_reduces": axis.all_reduces,
+                         "seconds": axis.all_reduce_seconds, "steps": 32}
+    # (c) the large-n cell over the same mesh.
+    out["c"], _ = mesh_run(mesh, N_LARGE, 20, K_LARGE, (16, 0), 24, dev, 16)
+    # (d) the card against CPU gloo ranks, step by step.
+    out["d"] = mesh_small(mesh, dev)
+    for key in ("a", "b", "c"):
+        out[key].pop("truth")
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_captured(fn):
+    """fn() with file descriptor 1 (this process's and its children's
+    standard output) sent to a file; returns that output."""
+    import sys
+    import tempfile
+
+    sys.stdout.flush()
+    with tempfile.TemporaryFile(mode="w+") as f:
+        saved = os.dup(1)
+        os.dup2(f.fileno(), 1)
+        try:
+            fn()
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        return f.read()
+
+
+def mesh_cli(dev, tmp):
+    """(e) cli.main with --mesh 1,2 and --mesh 2,1 at the main cell: the
+    CLI starts two ranks on the card; one set of files, printed once."""
+    from bnpc_tpu_torch import cli
+
+    data, truth = make_data(N, M, 10, 0.1, seed=0)
+    path = os.path.join(tmp, "mesh_main.txt")
+    write_input(path, data)
+    out = {}
+    for mesh, n_chains in (("1,2", 1), ("2,1", 2)):
+        out_dir = os.path.join(tmp, f"mesh_{mesh.replace(',', 'x')}")
+        args = cli.parse_args([path, "-s", "64", "-b", "0.33", "-np",
+                               "--seed", "0", "-n", str(n_chains), "-o",
+                               out_dir, "-e", "posterior", "--mesh", mesh,
+                               "--device", dev])
+        t0 = time.perf_counter()
+        printed = run_captured(lambda: cli.main(args))
+        wall = time.perf_counter() - t0
+        writes = printed.count("Writing output to")
+        check_outputs(out_dir, ["posterior"], N, M)
+        if writes != 1 or "backend gloo" not in printed:
+            raise AssertionError(f"cli --mesh {mesh}: 'Writing output to' "
+                                 f"printed {writes} times; output:\n"
+                                 f"{printed[-2000:]}")
+        out[mesh] = {"wall_s": wall}
+        log(f"  (e) cli --mesh {mesh} -n {n_chains} -s 64: {wall:.3f} s; "
+            "one set of files (parsed), printed once, backend gloo: ok")
+    return out
+
+
+def phase_mesh(dev, smi):
+    """Phase 11: two ranks sharing the card (gloo): (a) 2 x 1, each chain
+    == its one-process run; (b) 1 x 2 at the main cell, replicated state
+    equal across the ranks at every block, kernels 1 and 2 on each rank,
+    all-reduces a step and their ms; (c) 1 x 2 at the large-n cell, kernel
+    3 on each rank; (d) 500 x 201 on the card against the CPU, step by
+    step; (e) the CLI with --mesh 1,2 and 2,1."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.mcmc import MCMCRunner
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_rank, args=(2, port, tmp, dev), nprocs=2,
+                           start_method="spawn")
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        backend = ranks[0]["backend"]
+
+        # (a) each chain against its one-process run, in this process.
+        data, truth = make_data(N, M, 10, 0.1, seed=0)
+        cfg, mc = bench_configs(N, K_MAX)
+        one = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev)
+        want = one.run((MESH_STEPS, 42), seed=21, n_chains=2)
+        a0, a1 = ranks[0]["a"], ranks[1]["a"]
+        if a1["results"] is not None or a0["seeds"] != one.seeds.tolist():
+            raise AssertionError("mesh 2x1: results on rank 1 or seeds")
+        same_results("mesh 2x1 against the one-process run", a0["results"],
+                     want)
+        for r, a in enumerate((a0, a1)):
+            check_launches(f"mesh 2x1 rank {r}", a["launches"],
+                           {"lazy_segment", "rg_scan"})
+        log(f"  (a) 2 x 1 at {N:,} x {M}: 2 chains x {MESH_STEPS} steps, "
+            f"{2 * MESH_STEPS / max(a0['seconds'], a1['seconds']):.3f} "
+            f"chain-steps/s (ranks {a0['seconds']:.3f} / "
+            f"{a1['seconds']:.3f} s); each chain == its one-process run, "
+            f"bit for bit; launches {a0['launches']} / {a1['launches']}: ok")
+
+        # (b) the main cell over 1 x 2, beside one process in this call.
+        b0, b1 = ranks[0]["b"], ranks[1]["b"]
+        if b0["hashes"] != b1["hashes"] \
+                or len(b0["hashes"]) != -(-MESH_STEPS // 32):
+            raise AssertionError(f"mesh 1x2: replicated state differs "
+                                 f"across ranks: {b0['hashes']} / "
+                                 f"{b1['hashes']}")
+        for r, b in enumerate((b0, b1)):
+            check_launches(f"mesh 1x2 rank {r}", b["launches"],
+                           {"lazy_segment", "rg_scan"})
+        res = b0["results"][0]
+        if res.ML.shape != (MESH_STEPS + 1,) or not (
+                np.isfinite(res.ML).all() and np.isfinite(res.MAP).all()):
+            raise AssertionError("mesh 1x2: trace shapes / values")
+        one1 = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                          block_size=32)
+        sync(dev)
+        t0 = time.perf_counter()
+        one1.run((MESH_STEPS, 0), seed=22)
+        sync(dev)
+        one_s = time.perf_counter() - t0
+        timed = b0["timed"]
+        from bnpc_tpu_torch.estimators import ari
+
+        b_out = {
+            "steps_per_s": MESH_STEPS / b0["seconds"],
+            "one_process_steps_per_s": MESH_STEPS / one_s,
+            "all_reduces_per_step": b0["all_reduces"] / MESH_STEPS,
+            "all_reduce_mb_per_step": b0["all_reduce_bytes"] / MESH_STEPS
+            / 1e6,
+            "all_reduce_ms_per_step": timed["seconds"] * 1e3
+            / timed["steps"],
+            "all_reduces_per_step_timed": timed["all_reduces"]
+            / timed["steps"],
+            "launches": [b0["launches"], b1["launches"]],
+            "ari": ari(res.assignments[-1], truth),
+        }
+        log(f"  (b) 1 x 2 at {N:,} x {M} ({smi}; backend {backend}, CUDA "
+            "tensors all-reduced by gloo): "
+            f"{b_out['steps_per_s']:.3f} steps/s against one process "
+            f"{b_out['one_process_steps_per_s']:.3f} steps/s in this call "
+            f"({MESH_STEPS} steps each); all-reduces a step "
+            f"{b_out['all_reduces_per_step']:.2f} "
+            f"({b_out['all_reduce_mb_per_step']:.3f} MB), their ms a step "
+            f"{b_out['all_reduce_ms_per_step']:.3f} (32 steps, each "
+            "all-reduce between two device synchronizations)")
+        log(f"      replicated state hashes equal on both ranks at all "
+            f"{len(b0['hashes'])} blocks; invariants hold; launches "
+            f"{b0['launches']} / {b1['launches']}; ARI vs planted clones "
+            f"{b_out['ari']:.4f}: ok")
+
+        # (c) the large-n cell over 1 x 2.
+        c0, c1 = ranks[0]["c"], ranks[1]["c"]
+        if c0["hashes"] != c1["hashes"]:
+            raise AssertionError("mesh 1x2 large: replicated state differs")
+        for r, c in enumerate((c0, c1)):
+            ln = c["launches"]
+            if ln["lazy_stream"] == 0 or ln["lazy_segment"] \
+                    or ln["eager_sweep"]:
+                raise AssertionError(f"mesh 1x2 large rank {r}: launches "
+                                     f"{ln}")
+        c_out = {"steps_per_s": 16 / c0["seconds"],
+                 "all_reduces_per_step": c0["all_reduces"] / 16,
+                 "all_reduce_mb_per_step": c0["all_reduce_bytes"] / 16 / 1e6,
+                 "launches": [c0["launches"], c1["launches"]]}
+        log(f"  (c) 1 x 2 at {N_LARGE:,} x {M}, k_max {K_LARGE}: 16 steps, "
+            f"{c_out['steps_per_s']:.3f} steps/s; all-reduces a step "
+            f"{c_out['all_reduces_per_step']:.2f} "
+            f"({c_out['all_reduce_mb_per_step']:.1f} MB); launches "
+            f"{c0['launches']} / {c1['launches']}; replicated state equal; "
+            "invariants hold: ok")
+
+        # (d) reported by the ranks, which compared every step.
+        kinds = ranks[0]["d"]["kinds"]
+        worst = max(r["d"]["params_max_abs_diff"] for r in ranks)
+        if kinds[0] == 0 or kinds[1] + kinds[2] == 0:
+            raise AssertionError(f"mesh small: step kinds {kinds}")
+        log(f"  (d) 1 x 2 at 500 x 201 (padded to 202): 12 steps, card == "
+            f"CPU gloo ranks on identical draws (discrete exactly, floats "
+            f"rtol 1e-4, params atol 1e-6; params' largest difference "
+            f"{worst:.3g}) on both ranks; gibbs/split/merge steps {kinds}: "
+            "ok")
+        cli_out = mesh_cli(dev, tmp)
+    out = {"backend": backend,
+           "world_s": world_s, "chains": {"seconds": [a0["seconds"],
+                                                      a1["seconds"]]},
+           "main": b_out, "large": c_out, "small_kinds": kinds,
+           "small_params_max_abs_diff": worst,
+           "cli": cli_out, "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 11: {out['seconds']:.1f} s (the two ranks' world "
+        f"{world_s:.1f} s)")
+    return out
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/10] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/11] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
     from bnpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/10] build: {time.perf_counter() - t0:.1f} s "
+    log(f"[2/11] build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/10] kernels against their plain twins (exact match)")
+    log("[3/11] kernels against their plain twins (exact match)")
     k = {"lazy_segment": phase_lazy_segment(dev),
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev, smi),
          "while_exit": phase_while_exit(dev, smi)}
-    log("[4/10] small input: GPU against CPU on identical draws")
+    log("[4/11] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
-    log(f"[5/10] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
+    log(f"[5/11] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
         f"({smi})")
     main_out = phase_main(dev)
-    log(f"[6/10] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+    log(f"[6/11] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
         f"{K_LARGE} ({smi})")
     large_out = phase_large(dev)
-    log(f"[7/10] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+    log(f"[7/11] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
         f"{K_MAX} ({smi})")
     eager_out = phase_eager(dev)
     log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
         f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
         "configuration")
-    log(f"[8/10] probes: their entry points on the card ({smi})")
+    log(f"[8/11] probes: their entry points on the card ({smi})")
     probes = phase_probes()
-    log(f"[9/10] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
+    log(f"[9/11] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
     cli_out = phase_cli(dev, smi)
-    log(f"[10/10] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    log(f"[10/11] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
     modes_out = phase_modes(dev, smi)
+    log(f"[11/11] mesh: two ranks sharing the card ({smi})")
+    mesh_out = phase_mesh(dev, smi)
 
     chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
@@ -2059,7 +2439,8 @@ def main():
         "probes": {name: {f: v for f, v in out.items()
                           if f != "launches_path"}
                    for name, out in probes.items()},
-        "cli": cli_out, "run_modes": modes_out}))
+        "cli": cli_out, "run_modes": modes_out, "mesh": mesh_out}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     # The port runs on one device.

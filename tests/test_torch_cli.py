@@ -4,9 +4,10 @@ Every case of tests/test_io.py runs on the port's io (and of
 tests/test_trees.py on its trees and plotting); the loader agrees
 with bnpc_tpu's pandas path on malformed files where bnpc_tpu's fast path
 does not (a " " cell); the writers give bnpc_tpu's bytes for the same
-`inferred`. The CLI parses bnpc_tpu's flag table, refuses what is not
-ported before anything runs, and writes bnpc_tpu's files: both packages'
-generate_output on one set of port results give byte-identical files.
+`inferred`. The CLI parses bnpc_tpu's flag table, refuses a bad --mesh
+before anything runs, as bnpc_tpu does, runs --mesh on gloo CPU ranks, and
+writes bnpc_tpu's files: both packages' generate_output on one set of port
+results give byte-identical files.
 No test runs bnpc_tpu's sampler (its compile takes minutes); the port
 samples on the CPU at 60 x 30.
 """
@@ -246,9 +247,11 @@ def planted_file(tmp_path_factory):
     return str(path), truth
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh", "2,1"], 11)])
-def test_unported_flags_exit(argv, item, planted_file, tmp_path,
-                             monkeypatch):
+@pytest.mark.parametrize("argv", [["--mesh", "2,1"], ["--mesh", "two"],
+                                  ["-n", "3", "--mesh", "2,2"]])
+def test_unported_flags_exit(argv, planted_file, tmp_path, monkeypatch):
+    """A --mesh that bnpc_tpu refuses exits before anything runs, with
+    bnpc_tpu's message (bnpc_tpu/cli.py::build_mesh)."""
     def never(*args, **kwargs):
         raise AssertionError("sampling started")
 
@@ -257,8 +260,55 @@ def test_unported_flags_exit(argv, item, planted_file, tmp_path,
                                 "-o", str(tmp_path / "out")] + argv)
     with pytest.raises(SystemExit) as e:
         port_cli.main(args)
-    assert e.value.code not in (0, None)
-    assert f"ROADMAP.md queue 1, item {item}" in str(e.value.code)
+    with pytest.raises(SystemExit) as want:
+        jax_cli.build_mesh(jax_cli.parse_args([planted_file[0]] + argv))
+    assert e.value.code == want.value.code
+    assert not (tmp_path / "out").exists()
+
+
+def _mesh_run(planted, out, *argv):
+    port_cli.main(port_cli.parse_args([
+        planted, "--device", "cpu", "-s", "16", "--block_size", "8", "-np",
+        "--seed", "1", "-n", "2", "-o", str(out), *argv]))
+
+
+@pytest.mark.parametrize("mesh", ["1,2", "2,1"])
+def test_mesh_cli_writes_once(mesh, planted_file, tmp_path, capfd,
+                              monkeypatch):
+    """--mesh on two gloo CPU ranks started by the CLI: rank 0 alone
+    prints and writes bnpc_tpu's file set. Under 2,1 each chain is the
+    one-process run's, so the files are the one-process job's (one CPU
+    thread in the ranks, as here: a threaded CPU matmul may sum in
+    another order)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    _mesh_run(planted_file[0], tmp_path / "out", "--mesh", mesh)
+    printed = capfd.readouterr().out
+    assert printed.count("Writing output to") == 1
+    assert "backend gloo" in printed
+    files = set(os.listdir(tmp_path / "out"))
+    assert {"args.txt", "assignment.txt", "errors.txt",
+            "genotypes_posterior_mean.tsv"} <= files
+    cfg = _args_txt(tmp_path / "out")
+    assert len(cfg["chain_seeds"].strip("[]").split(",")) == 2
+    if mesh == "2,1":
+        _mesh_run(planted_file[0], tmp_path / "one")
+        assert set(os.listdir(tmp_path / "one")) == files
+        for name in ("assignment.txt", "genotypes_posterior_mean.tsv",
+                     "errors.txt"):
+            assert (tmp_path / "out" / name).read_bytes() == \
+                (tmp_path / "one" / name).read_bytes()
+
+
+def test_mesh_cli_failing_ranks_fail_the_job(planted_file, tmp_path):
+    """Ranks that fail (here on a checkpoint that is not the port's) make
+    the job exit non-zero, and nothing is written."""
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    np.savez(ck / "mcmc_state.npz", done=np.asarray(0))
+    with pytest.raises(SystemExit) as e:
+        _mesh_run(planted_file[0], tmp_path / "out", "--mesh", "1,2",
+                  "--checkpoint_dir", str(ck))
+    assert e.value.code not in (0, None) and "--mesh 1,2" in str(e.value)
     assert not (tmp_path / "out").exists()
 
 

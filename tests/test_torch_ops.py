@@ -217,6 +217,9 @@ def test_import_keeps_jax_out():
         "import bnpc_tpu_torch, bnpc_tpu_torch.mcmc, bnpc_tpu_torch.convert\n"
         "import bnpc_tpu_torch.probes.vecflow_probe\n"
         "import bnpc_tpu_torch.probes.while_probe\n"
+        "import bnpc_tpu_torch.parallel, bnpc_tpu_torch.parallel.axis\n"
+        "import bnpc_tpu_torch.parallel.sharded\n"
+        "import bnpc_tpu_torch.parallel.multihost\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -65,6 +65,10 @@ class JaxDraws(Draws):
     def fold_in(self, i: int) -> "Draws":
         return JaxDraws(jax.random.fold_in(self.key, int(i)))
 
+    def fold_axis(self, i: int) -> "Draws":
+        # bnpc_tpu's MutAxis.fold_key: fold_in(key, axis_index).
+        return self.fold_in(i)
+
     def uniform(self, shape):
         return to_torch(jax.random.uniform(self.key, tuple(shape)))
 
