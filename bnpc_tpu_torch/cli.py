@@ -195,7 +195,11 @@ def parse_args(argv=None):
     device.add_argument("--coupled_moves", action="store_true",
                         default=False,
                         help="One move selection a step shared by all "
-                             "chains.")
+                             "chains; each chain's moves keep their own "
+                             "draws. With several chains on a GPU the "
+                             "chains run as one batch or one after another "
+                             "as the runner's chain_exec 'auto' decides "
+                             "(printed).")
 
     return parser.parse_args(argv)
 
@@ -494,6 +498,8 @@ def main(args) -> None:
                         block_size=args.block_size,
                         checkpoint_dir=args.checkpoint_dir or None,
                         mesh=mesh)
+    if args.verbosity > 0 and root and args.chains > 1:
+        print(f"\tchain_exec: {runner.chain_exec}")
     assign = (
         io.load_assignment_txt(args.fixed_assignment)
         if args.fixed_assignment else None

@@ -33,6 +33,13 @@
 // vector-flow batching is not carried over: it only existed because Mosaic
 // is slow at crossing from vector to scalar.
 //
+// A batch of chains runs as a grid of one block a chain (bnpc_lazy_segment_
+// chains): block c reads and writes chain c's slice of every argument, and
+// takes its start position from i0s[c], which it advances to its i_next; a
+// chain with i0s[c] >= n only writes its info (n, -1, -1, 0). The one-chain
+// entry (bnpc_lazy_segment) is the same kernel on a grid of one, its start
+// position a launch argument.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (no fast
 // math: the logits must use the accurate logf of the plain torch twin,
 // bnpc_tpu_torch/ops/cuda_gibbs.py::lazy_segment_ref).
@@ -52,10 +59,31 @@ __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
     float* __restrict__ sizes,         // [k_pad], updated in place
     int* __restrict__ tgt_out,         // [n] target by position
     int* __restrict__ info,            // [4]
-    const float* __restrict__ log_denom_p, int n, int i0) {
+    const float* __restrict__ log_denom_p,
+    int* __restrict__ i0s,             // [chains] or null: start, advanced
+    int n, int i0) {
   constexpr int K = 32 * SPL;
   __shared__ __align__(16) float ring[kRing][K];
   const int lane = threadIdx.x;
+  // Chain blockIdx.x's slice of every argument (all shaped [chains, ...]).
+  const size_t ch = blockIdx.x;
+  z += ch * n * K;
+  aux += ch * n;
+  assign += ch * n;
+  perm += ch * n;
+  sizes += ch * K;
+  tgt_out += ch * n;
+  info += ch * 4;
+  log_denom_p += ch;
+  if (i0s != nullptr) i0 = i0s[ch];
+  if (i0 >= n) {  // nothing left of this chain's sweep
+    if (lane == 0) {
+      info[0] = n;
+      info[1] = info[2] = -1;
+      info[3] = 0;
+    }
+    return;
+  }
 
   Chain<SPL> c;
   chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
@@ -142,34 +170,56 @@ __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
     info[1] = birth_cell;
     info[2] = birth_slot;
     info[3] = veto;
+    if (i0s != nullptr) i0s[ch] = info[0];
   }
 }
 
 template <int SPL>
 void launch(const float* z, const float* aux, const int* assign,
             const int* perm, float* sizes, int* tgt, int* info,
-            const float* log_denom, int n, int i0, cudaStream_t stream) {
-  lazy_segment_kernel<SPL><<<1, 32, 0, stream>>>(z, aux, assign, perm, sizes,
-                                                 tgt, info, log_denom, n, i0);
+            const float* log_denom, int* i0s, int chains, int n, int i0,
+            cudaStream_t stream) {
+  lazy_segment_kernel<SPL><<<chains, 32, 0, stream>>>(
+      z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, n, i0);
+}
+
+int launch_any(const float* z, const float* aux, const int* assign,
+               const int* perm, float* sizes, int* tgt, int* info,
+               const float* log_denom, int* i0s, int chains, int n,
+               int k_pad, int i0, cudaStream_t stream) {
+  switch (k_pad) {
+    case 32: launch<1>(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n, i0, stream); break;
+    case 64: launch<2>(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n, i0, stream); break;
+    case 128: launch<4>(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n, i0, stream); break;
+    case 256: launch<8>(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n, i0, stream); break;
+    case 512: launch<16>(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n, i0, stream); break;
+    case 1024: launch<32>(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n, i0, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success); an
+// Both entries return cudaGetLastError() after the launch (0 on success); an
 // unsupported k_pad (not 32 * {1, 2, 4, 8, 16, 32}) is cudaErrorInvalidValue.
 extern "C" int bnpc_lazy_segment(const float* z, const float* aux,
                                  const int* assign, const int* perm,
                                  float* sizes, int* tgt, int* info,
                                  const float* log_denom, int n, int k_pad,
                                  int i0, cudaStream_t stream) {
-  switch (k_pad) {
-    case 32: launch<1>(z, aux, assign, perm, sizes, tgt, info, log_denom, n, i0, stream); break;
-    case 64: launch<2>(z, aux, assign, perm, sizes, tgt, info, log_denom, n, i0, stream); break;
-    case 128: launch<4>(z, aux, assign, perm, sizes, tgt, info, log_denom, n, i0, stream); break;
-    case 256: launch<8>(z, aux, assign, perm, sizes, tgt, info, log_denom, n, i0, stream); break;
-    case 512: launch<16>(z, aux, assign, perm, sizes, tgt, info, log_denom, n, i0, stream); break;
-    case 1024: launch<32>(z, aux, assign, perm, sizes, tgt, info, log_denom, n, i0, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_any(z, aux, assign, perm, sizes, tgt, info, log_denom,
+                    nullptr, 1, n, k_pad, i0, stream);
+}
+
+// `chains` chains, every argument [chains, ...]; i0s [chains] in and out.
+extern "C" int bnpc_lazy_segment_chains(const float* z, const float* aux,
+                                        const int* assign, const int* perm,
+                                        float* sizes, int* tgt, int* info,
+                                        const float* log_denom, int* i0s,
+                                        int chains, int n, int k_pad,
+                                        cudaStream_t stream) {
+  if (chains <= 0) return (int)cudaErrorInvalidValue;
+  return launch_any(z, aux, assign, perm, sizes, tgt, info, log_denom, i0s,
+                    chains, n, k_pad, 0, stream);
 }

@@ -8,7 +8,7 @@
 // the segment ends after the first birth and writes
 // info = (i_next, birth_pos, birth_slot, cap_veto), birth_pos being a
 // visit position (-1 when the segment ran to n). The caller
-// (models/gibbs.py::_stream_impl) patches that slot's zp column and
+// (models/gibbs.py::_segment_impl) patches that slot's zp column and
 // relaunches at i_next.
 //
 // What bounds it: the serial chain through the sizes row (latency per
@@ -31,6 +31,13 @@
 // The TPU's [G, C, k_pad] chunking, SMEM staging of aux/assign and 128-cell
 // vector-flow batches are not carried over: they exist for the TPU's
 // memory spaces. The kernel takes flat zp [n, k_pad], auxp [n], assignp [n].
+//
+// A batch of chains runs as a grid of one block a chain (bnpc_lazy_stream_
+// chains), in both layouts: block c reads and writes chain c's slice of
+// every argument and takes its start position from i0s[c], which it
+// advances to its i_next; a chain with i0s[c] >= n only writes its info
+// (n, -1, -1, 0). The one-chain entry (bnpc_lazy_stream) is the same kernel
+// on a grid of one, its start position a launch argument.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (no fast
 // math: the logits use the accurate logf of the plain torch twin,
@@ -63,6 +70,24 @@ __device__ __forceinline__ void write_info(int* info, int n, int birth_pos,
   info[3] = veto;
 }
 
+// Chain blockIdx.x's slice of every argument (all shaped [chains, ...]) and
+// its start position; a chain whose sweep is done writes its info and
+// returns.
+#define BNPC_CHAIN_SLICES()                                   \
+  const size_t ch = blockIdx.x;                               \
+  zp += ch * n * k_pad;                                       \
+  auxp += ch * n;                                             \
+  assignp += ch * n;                                          \
+  sizes += ch * k_pad;                                        \
+  tgt_out += ch * n;                                          \
+  info += ch * 4;                                             \
+  log_denom_p += ch;                                          \
+  if (i0s != nullptr) i0 = i0s[ch];                           \
+  if (i0 >= n) {                                              \
+    if (threadIdx.x == 0) write_info(info, n, -1, -1, 0);     \
+    return;                                                   \
+  }
+
 template <int SPL>  // register layout; k_pad <= 32 * SPL
 __global__ void __launch_bounds__(32, 1) stream_reg_kernel(
     const float* __restrict__ zp,      // [n, k_pad] visit order
@@ -71,9 +96,12 @@ __global__ void __launch_bounds__(32, 1) stream_reg_kernel(
     float* __restrict__ sizes,         // [k_pad], updated in place
     int* __restrict__ tgt_out,         // [n] target by position
     int* __restrict__ info,            // [4]
-    const float* __restrict__ log_denom_p, int n, int k_pad, int i0) {
+    const float* __restrict__ log_denom_p,
+    int* __restrict__ i0s,             // [chains] or null: start, advanced
+    int n, int k_pad, int i0) {
   __shared__ __align__(16) float ring[kRing][32 * SPL];
   const int lane = threadIdx.x;
+  BNPC_CHAIN_SLICES()
 
   Chain<SPL> c;
   chain_init<SPL>(c, sizes, k_pad, *log_denom_p, lane);
@@ -151,7 +179,10 @@ __global__ void __launch_bounds__(32, 1) stream_reg_kernel(
   }
 
   chain_store<SPL>(c, sizes, k_pad, lane);
-  if (lane == 0) write_info(info, n, birth_pos, birth_slot, veto);
+  if (lane == 0) {
+    write_info(info, n, birth_pos, birth_slot, veto);
+    if (i0s != nullptr) i0s[ch] = info[0];
+  }
 }
 
 // Shared-memory layout for k_pad > 1024.
@@ -159,9 +190,11 @@ __global__ void __launch_bounds__(32, 1) stream_smem_kernel(
     const float* __restrict__ zp, const float* __restrict__ auxp,
     const int* __restrict__ assignp, float* __restrict__ sizes,
     int* __restrict__ tgt_out, int* __restrict__ info,
-    const float* __restrict__ log_denom_p, int n, int k_pad, int i0) {
+    const float* __restrict__ log_denom_p, int* __restrict__ i0s, int n,
+    int k_pad, int i0) {
   extern __shared__ float sz[];  // [k_pad]
   const int lane = threadIdx.x;
+  BNPC_CHAIN_SLICES()
   const float log_denom = *log_denom_p;
   for (int s = lane; s < k_pad; s += 32) sz[s] = sizes[s];
   __syncwarp();
@@ -197,47 +230,71 @@ __global__ void __launch_bounds__(32, 1) stream_smem_kernel(
   }
 
   for (int s = lane; s < k_pad; s += 32) sizes[s] = sz[s];
-  if (lane == 0) write_info(info, n, birth_pos, birth_slot, veto);
+  if (lane == 0) {
+    write_info(info, n, birth_pos, birth_slot, veto);
+    if (i0s != nullptr) i0s[ch] = info[0];
+  }
 }
 
 template <int SPL>
 void launch_reg(const float* zp, const float* auxp, const int* assignp,
                 float* sizes, int* tgt, int* info, const float* log_denom,
-                int n, int k_pad, int i0, cudaStream_t stream) {
-  stream_reg_kernel<SPL><<<1, 32, 0, stream>>>(zp, auxp, assignp, sizes, tgt,
-                                               info, log_denom, n, k_pad, i0);
+                int* i0s, int chains, int n, int k_pad, int i0,
+                cudaStream_t stream) {
+  stream_reg_kernel<SPL><<<chains, 32, 0, stream>>>(
+      zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, n, k_pad, i0);
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success); k_pad must be
-// a positive multiple of 32 of at most 58,112 (cudaErrorInvalidValue).
-extern "C" int bnpc_lazy_stream(const float* zp, const float* auxp,
-                                const int* assignp, float* sizes, int* tgt,
-                                int* info, const float* log_denom, int n,
-                                int k_pad, int i0, cudaStream_t stream) {
+int launch_any(const float* zp, const float* auxp, const int* assignp,
+               float* sizes, int* tgt, int* info, const float* log_denom,
+               int* i0s, int chains, int n, int k_pad, int i0,
+               cudaStream_t stream) {
   if (k_pad <= 0 || k_pad % 32 != 0 || k_pad > bnpc::kMaxSmemSlots)
     return (int)cudaErrorInvalidValue;
   const int spl = k_pad / 32;
   if (spl <= 1) {
-    launch_reg<1>(zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream);
+    launch_reg<1>(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad, i0, stream);
   } else if (spl <= 2) {
-    launch_reg<2>(zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream);
+    launch_reg<2>(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad, i0, stream);
   } else if (spl <= 4) {
-    launch_reg<4>(zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream);
+    launch_reg<4>(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad, i0, stream);
   } else if (spl <= 8) {
-    launch_reg<8>(zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream);
+    launch_reg<8>(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad, i0, stream);
   } else if (spl <= 16) {
-    launch_reg<16>(zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream);
+    launch_reg<16>(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad, i0, stream);
   } else if (spl <= 32) {
-    launch_reg<32>(zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream);
+    launch_reg<32>(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad, i0, stream);
   } else {
     const int bytes = k_pad * (int)sizeof(float);
     const cudaError_t err = bnpc::allow_smem(stream_smem_kernel, bytes);
     if (err != cudaSuccess) return (int)err;
-    stream_smem_kernel<<<1, 32, bytes, stream>>>(zp, auxp, assignp, sizes,
-                                                 tgt, info, log_denom, n,
-                                                 k_pad, i0);
+    stream_smem_kernel<<<chains, 32, bytes, stream>>>(
+        zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, n, k_pad, i0);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Both entries return cudaGetLastError() after the launch (0 on success);
+// k_pad must be a positive multiple of 32 of at most 58,112
+// (cudaErrorInvalidValue).
+extern "C" int bnpc_lazy_stream(const float* zp, const float* auxp,
+                                const int* assignp, float* sizes, int* tgt,
+                                int* info, const float* log_denom, int n,
+                                int k_pad, int i0, cudaStream_t stream) {
+  return launch_any(zp, auxp, assignp, sizes, tgt, info, log_denom, nullptr,
+                    1, n, k_pad, i0, stream);
+}
+
+// `chains` chains, every argument [chains, ...]; i0s [chains] in and out.
+extern "C" int bnpc_lazy_stream_chains(const float* zp, const float* auxp,
+                                       const int* assignp, float* sizes,
+                                       int* tgt, int* info,
+                                       const float* log_denom, int* i0s,
+                                       int chains, int n, int k_pad,
+                                       cudaStream_t stream) {
+  if (chains <= 0) return (int)cudaErrorInvalidValue;
+  return launch_any(zp, auxp, assignp, sizes, tgt, info, log_denom, i0s,
+                    chains, n, k_pad, 0, stream);
 }

@@ -52,6 +52,12 @@
 // synchronizes to launch the scan. The TPU's 2C+128 SMEM window staging is
 // not carried over: it only existed because of the TPU's scalar-memory size.
 //
+// A batch of chains runs as a grid of one block a chain (bnpc_rg_scan_
+// chains): block c scans chain c's rows of dz, lau, dtab and out with its own
+// s_count[c] and count1[c], and stages its own table in its own shared
+// memory. The one-chain entry (bnpc_rg_scan) is the same kernel on a grid of
+// one.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include <cuda_runtime.h>
@@ -117,6 +123,14 @@ __global__ void __launch_bounds__(kThreads, 1) rg_scan_kernel(
   __shared__ int warp_sides[2][32];  // launch sides a producer warp
   __shared__ int chunk_sides[2];     // launch sides a chunk
   const int tid = threadIdx.x;
+  // Chain blockIdx.x's rows (every argument [chains, ...]).
+  const size_t ch = blockIdx.x;
+  dz += ch * n;
+  lau += ch * n;
+  dtab += ch * (n + 2);
+  s_count_p += ch;
+  count1_p += ch;
+  out += ch * n;
   const int s_count = min(*s_count_p, n);
   int c1 = *count1_p;
   if (s_count <= 0) return;
@@ -206,11 +220,12 @@ __global__ void __launch_bounds__(kThreads, 1) rg_scan_kernel(
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int bnpc_rg_scan(const float* dz, const int* lau,
-                            const float* dtab, const int* s_count,
-                            const int* count1, int* out, int n,
-                            cudaStream_t stream) {
+namespace {
+
+int launch(const float* dz, const int* lau, const float* dtab,
+           const int* s_count, const int* count1, int* out, int chains,
+           int n, cudaStream_t stream) {
+  if (chains <= 0) return (int)cudaErrorInvalidValue;
   const int tab_cap = n + 2 < kTabSmem ? n + 2 : kTabSmem;
   const int bytes = tab_cap * (int)sizeof(float);
   if (bytes > 48 * 1024) {
@@ -218,7 +233,26 @@ extern "C" int bnpc_rg_scan(const float* dz, const int* lau,
         rg_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  rg_scan_kernel<<<1, kThreads, bytes, stream>>>(dz, lau, dtab, s_count,
-                                                 count1, out, n, tab_cap);
+  rg_scan_kernel<<<chains, kThreads, bytes, stream>>>(
+      dz, lau, dtab, s_count, count1, out, n, tab_cap);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Both entries return cudaGetLastError() after the launch (0 on success).
+extern "C" int bnpc_rg_scan(const float* dz, const int* lau,
+                            const float* dtab, const int* s_count,
+                            const int* count1, int* out, int n,
+                            cudaStream_t stream) {
+  return launch(dz, lau, dtab, s_count, count1, out, 1, n, stream);
+}
+
+// `chains` chains: dz, lau, out [chains, n]; dtab [chains, n + 2];
+// s_count, count1 [chains].
+extern "C" int bnpc_rg_scan_chains(const float* dz, const int* lau,
+                                   const float* dtab, const int* s_count,
+                                   const int* count1, int* out, int chains,
+                                   int n, cudaStream_t stream) {
+  return launch(dz, lau, dtab, s_count, count1, out, chains, n, stream);
 }

@@ -203,3 +203,135 @@ class TorchDraws(Draws):
         from bnpc_tpu_torch.ops.truncnorm import rvs
 
         return rvs(self, a, b, loc, scale)
+
+
+class StackedDraws(Draws):
+    """The draws of a batch of chains: chain c's own provider at slot c.
+
+    Every draw returns a ``[C, ...]`` tensor whose slice c is exactly what
+    chain c's provider returns for the same call, so chain c of a batched
+    move consumes what its one-chain run consumes. Shapes are FULL shapes,
+    chain axis first (``uniform((C, k, m))`` draws ``uniform((k, m))`` from
+    each chain); tensor parameters (``gamma(a)``, ``categorical(logits)``,
+    ...) carry the chain axis too. ``split``, ``fold_in`` and
+    ``fold_axis`` act on every chain's provider.
+
+    Each primitive draw is one call per chain and one stack. Where every
+    provider is a :class:`TorchDraws` that computes a composite (Beta,
+    truncated normal, categorical) from primitive draws, and the draws are
+    on a CUDA device, the composite runs once on the stacked primitives (a
+    CUDA elementwise kernel rounds every element alike, wherever it sits in
+    its tensor). Any other provider (the tests' JaxDraws) computes its
+    composites per chain, and so does a CPU batch: a CPU elementwise kernel
+    takes a vector body and a scalar tail that can round a transcendental
+    an ulp apart, and the samplers' tails amplify that, so only the
+    one-chain shapes give the one-chain bits there."""
+
+    def __init__(self, providers):
+        self.chains = list(providers)
+        self.device = self.chains[0].device
+
+    def __len__(self) -> int:
+        return len(self.chains)
+
+    def take(self, idx) -> "StackedDraws":
+        """The sub-batch of the chains at host indices `idx`."""
+        return StackedDraws([self.chains[i] for i in idx])
+
+    def split(self, n: int) -> list["Draws"]:
+        parts = [d.split(n) for d in self.chains]
+        return [StackedDraws([p[i] for p in parts]) for i in range(n)]
+
+    def fold_in(self, i: int) -> "Draws":
+        return StackedDraws([d.fold_in(i) for d in self.chains])
+
+    def fold_axis(self, i: int) -> "Draws":
+        return StackedDraws([d.fold_axis(i) for d in self.chains])
+
+    def _batched(self, name: str) -> bool:
+        """True when composite `name` runs once on stacked primitives (the
+        class docstring): TorchDraws' own composite on every chain, on
+        CUDA."""
+        return self.device.type == "cuda" and all(
+            isinstance(p, TorchDraws)
+            and getattr(type(p), name) is getattr(TorchDraws, name)
+            for p in self.chains)
+
+    def _each(self, draw, shape, *args) -> torch.Tensor:
+        shape = tuple(shape)
+        if not shape or shape[0] != len(self.chains):
+            raise ValueError(f"shape {shape} must lead with the "
+                             f"{len(self.chains)} chains")
+        return torch.stack([getattr(d, draw)(shape[1:], *args)
+                            for d in self.chains])
+
+    def _per_chain(self, draw, *args) -> torch.Tensor:
+        """Chain c's `draw` on slice c of every tensor argument that has a
+        chain axis; numbers and 0-d tensors go to every chain as given."""
+        def at(x, c):
+            return x[c] if isinstance(x, torch.Tensor) and x.dim() else x
+
+        return torch.stack([getattr(d, draw)(*(at(x, c) for x in args))
+                            for c, d in enumerate(self.chains)])
+
+    def full(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.full((), float(x), dtype=torch.float32,
+                          device=self.device)
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._each("uniform", shape)
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._each("normal", shape)
+
+    def gumbel(self, shape) -> torch.Tensor:
+        if self._batched("gumbel"):
+            return TorchDraws.gumbel(self, shape)
+        return self._each("gumbel", shape)
+
+    def bits(self, shape) -> torch.Tensor:
+        return self._each("bits", shape)
+
+    def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
+        return self._each("randint", shape, lo, hi)
+
+    def categorical(self, logits: torch.Tensor) -> torch.Tensor:
+        if self._batched("categorical"):
+            return TorchDraws.categorical(self, logits)
+        return self._per_chain("categorical", logits)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return torch.stack([d.permutation(n) for d in self.chains])
+
+    def gamma(self, a) -> torch.Tensor:
+        return self._per_chain("gamma", a)
+
+    def beta(self, a, b) -> torch.Tensor:
+        if self._batched("beta"):
+            return TorchDraws.beta(self, a, b)
+        return self._per_chain("beta", a, b)
+
+    def beta_binary(self, p: float, q: float, xm, xm0) -> torch.Tensor:
+        """`xm`, `xm0` carry the chain axis: chain c's planes are
+        xm[c], xm0[c]."""
+        if self._batched("beta_binary"):
+            return TorchDraws.beta_binary(self, p, q, xm, xm0)
+        return torch.stack([d.beta_binary(p, q, xm[c], xm0[c])
+                            for c, d in enumerate(self.chains)])
+
+    def fresh_rows(self, p: float, q: float, xm, xm0) -> torch.Tensor:
+        return torch.stack([d.fresh_rows(p, q, xm, xm0)
+                            for d in self.chains])
+
+    def beta_general(self, a, b) -> torch.Tensor:
+        if self._batched("beta_general"):
+            return TorchDraws.beta_general(self, a, b)
+        return self._per_chain("beta_general", a, b)
+
+    def truncnorm(self, a, b, loc, scale) -> torch.Tensor:
+        a, b, loc, scale = torch.broadcast_tensors(a, b, loc, scale)
+        if self._batched("truncnorm"):
+            return TorchDraws.truncnorm(self, a, b, loc, scale)
+        return self._per_chain("truncnorm", a, b, loc, scale)

@@ -9,10 +9,13 @@ and emits one trace row. The runner loops over steps in Python, copies each
 block's rows to the host, and assembles the reference's per-chain results
 in the three run modes of the reference (steps, runtime, lugsail PSRF),
 with checkpoint / resume. Chains run one after another on the device
-(bnpc_tpu's chain_exec="sequential"), or in lockstep with one shared move
-selection a step (coupled_moves). Given a mesh of ranks
-(parallel/sharded.py), the runner runs this rank's chains on its mutation
-columns and rank 0 gathers, decides and writes (see MCMCRunner).
+(bnpc_tpu's chain_exec="sequential"), or all together as one batch with a
+leading chain axis (chain_exec="vmap": the same step on a batched state),
+and in either form in lockstep with one shared move selection a step
+(coupled_moves).
+Given a mesh of ranks (parallel/sharded.py), the runner runs this rank's
+chains on its mutation columns and rank 0 gathers, decides and writes (see
+MCMCRunner).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from bnpc_tpu_torch import diagnostics
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData
-from bnpc_tpu_torch.draws import Draws, TorchDraws
+from bnpc_tpu_torch.draws import Draws, StackedDraws, TorchDraws
 from bnpc_tpu_torch.models.gibbs import gibbs_sweep
 from bnpc_tpu_torch.models.splitmerge import split_merge
 from bnpc_tpu_torch.models.updates import (
@@ -37,8 +40,9 @@ from bnpc_tpu_torch.models.updates import (
     update_parameters,
 )
 from bnpc_tpu_torch.ops import likelihood as lk
-from bnpc_tpu_torch.parallel.axis import MutAxis
-from bnpc_tpu_torch.state import CRPState, cluster_stats, init_state
+from bnpc_tpu_torch.parallel.axis import ChainAxis, MutAxis
+from bnpc_tpu_torch.state import (CRPState, by_chain_flag, cluster_stats,
+                                  init_state, stack_states, unstack_states)
 
 _NO_AXIS = MutAxis()
 
@@ -80,16 +84,19 @@ def _compact_params(state: CRPState, trace_k: int):
     """Rows of live slots in ascending slot order, zero-padded to trace_k
     (the reference stores parameters[sorted(live_ids)], libs/MCMC.py:261)."""
     live = state.cluster_size > 0
-    order = torch.argsort((~live).to(torch.int8), stable=True)
-    sel = order[:trace_k]
-    return state.params[sel] * live[sel][:, None].to(state.params.dtype)
+    order = torch.argsort((~live).to(torch.int8), dim=-1, stable=True)
+    sel = order[..., :trace_k]
+    return torch.take_along_dim(state.params, sel[..., None], dim=-2) \
+        * torch.take_along_dim(live, sel, dim=-1)[..., None].to(
+            state.params.dtype)
 
 
 def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
               trace_k: int, stats=None, ax: MutAxis = _NO_AXIS) -> TraceRow:
     """One trace row for the current state (libs/MCMC.py:242-282). `stats`
     reuses the step's (n1, n0) sufficient statistics. Under a sharded `ax`
-    ML and MAP are all-reduced and the params are this rank's columns."""
+    ML and MAP are all-reduced and the params are this rank's columns; under
+    a chain axis every field leads with the chains."""
     n1, n0 = stats if stats is not None else cluster_stats(
         data, state.assignment, cfg.k_max)
     c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
@@ -101,7 +108,7 @@ def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
         ml=ml, map_=ml + lprior, dp_alpha=state.dp_alpha, fp=state.fp,
         fn=state.fn, assignment=state.assignment.to(a_dt),
         params=_compact_params(state, trace_k).to(p_dt),
-        mh_counts=torch.zeros((5, 2), dtype=torch.int32,
+        mh_counts=torch.zeros(tuple(ml.shape) + (5, 2), dtype=torch.int32,
                               device=state.assignment.device),
     )
 
@@ -109,50 +116,86 @@ def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
 def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
                 trace_k: int, gibbs_impl: str, gibbs_block: int,
                 ax: MutAxis = _NO_AXIS):
-    """(select, moves) of one chain's step: select(k_sel) reads the move
-    flags (the step's one planned host read); moves(state, flags, k_assign,
-    k_dpa, k_par, k_err) runs the moves and returns (state, row).
-    gibbs_block > 0 replaces the exact Gibbs move by the blocked sweep.
-    Every move sums over the mutation axis `ax`."""
+    """(select, moves) of a step of one chain or of a batch of chains (a
+    state with a leading chain axis and StackedDraws; chain_exec="vmap").
+
+    select(k_sel, lead) reads the move uniforms of every chain, [*lead, 3]
+    (the step's one planned host read), and returns (flags, flags_dev):
+    each chain's (do_sm, do_dpa, do_err) on the host, a list of one for one
+    chain, and flags_dev(j), flag j of every chain on the device.
+    moves(state, flags, flags_dev, k_assign, k_dpa, k_par, k_err) runs the
+    moves and returns (state, row). A move that only some chains of a batch
+    take runs on their sub-batch (state.py::by_chain_flag), so each chain
+    draws what its one-chain step draws. gibbs_block > 0 replaces the exact
+    Gibbs move by the blocked sweep (one chain only). Every move sums over
+    the mutation axis `ax`, and a batch over a ChainAxis on it."""
     # The move thresholds as float32 values: comparing the uniforms' exact
     # float32 values against them on the host is JAX's float32 comparison.
     thresholds = [float(np.float32(p)) for p in (
         mcmc_cfg.sm_prob, mcmc_cfg.dpa_prob, mcmc_cfg.error_prob)]
     impl_g = "blocked" if gibbs_block > 0 else gibbs_impl
 
-    def select(k_sel: Draws):
-        u = k_sel.uniform((3,)).tolist()  # the step's one planned host read
-        return [x < t for x, t in zip(u, thresholds)]
+    def select(k_sel: Draws, lead=()):
+        u = k_sel.uniform(tuple(lead) + (3,))
+        rows = u.reshape(-1, 3).tolist()  # the step's one planned host read
+        return ([[x < t for x, t in zip(row, thresholds)] for row in rows],
+                lambda j: u[..., j] < thresholds[j])
 
-    def moves(state: CRPState, flags, k_assign, k_dpa, k_par, k_err):
-        do_sm, do_dpa, do_err = flags
-        dev = state.assignment.device
-        counts = torch.zeros((5, 2), dtype=torch.int32, device=dev)
+    def moves(state: CRPState, flags, flags_dev, k_assign, k_dpa, k_par,
+              k_err):
+        step_ax = (ax if state.assignment.dim() == 1
+                   else ChainAxis(chains=len(flags), mut=ax))
+        counts = torch.zeros(tuple(state.dp_alpha.shape) + (5, 2),
+                             dtype=torch.int32,
+                             device=state.assignment.device)
+
+        def assign_move(do_sm, sub, sub_ax, take, idx):
+            if do_sm:
+                return split_merge(take(k_assign), sub, data, cfg,
+                                   mcmc_cfg.sm_split_ratio,
+                                   mcmc_cfg.sm_steps, ax=sub_ax)
+            return gibbs_sweep(take(k_assign), sub, data, cfg, impl=impl_g,
+                               block=gibbs_block, ax=sub_ax), None
+
+        def alpha_move(do_dpa, sub, sub_ax, take, idx):
+            return (update_dp_alpha(take(k_dpa), sub, cfg) if do_dpa
+                    else sub), None
+
+        def error_move(do_err, sub, sub_ax, take, idx):
+            if not do_err:
+                return sub, None
+            s1, s0 = (n1, n0) if idx is None else (n1[idx], n0[idx])
+            sub, fp_acc, fn_acc = update_error_rates(take(k_err), sub, s1,
+                                                     s0, cfg, sub_ax)
+            acc = torch.stack([fp_acc, fn_acc], -1).to(torch.int32)
+            return sub, torch.stack([acc, 1 - acc], dim=-1)
 
         if not mcmc_cfg.fix_assign:
-            if mcmc_cfg.sm_prob > 0.0 and do_sm:
-                state, sm_counts = split_merge(
-                    k_assign, state, data, cfg, mcmc_cfg.sm_split_ratio,
-                    mcmc_cfg.sm_steps, ax=ax)
-                counts[1:3] += sm_counts
-            else:
-                state = gibbs_sweep(k_assign, state, data, cfg, impl=impl_g,
-                                    block=gibbs_block, ax=ax)
-            if mcmc_cfg.dpa_prob > 0.0 and do_dpa:
-                state = update_dp_alpha(k_dpa, state, cfg)
+            state, c = by_chain_flag(
+                state, [mcmc_cfg.sm_prob > 0.0 and f[0] for f in flags],
+                lambda: flags_dev(0), assign_move, step_ax)
+            if c is not None:
+                counts[..., 1:3, :] += c
+            if mcmc_cfg.dpa_prob > 0.0:
+                state, _ = by_chain_flag(state, [f[1] for f in flags],
+                                         lambda: flags_dev(1), alpha_move,
+                                         step_ax)
 
         n1, n0 = cluster_stats(data, state.assignment, cfg.k_max)
         state, par_dec, par_acc = update_parameters(k_par, state, n1, n0,
-                                                    cfg, ax)
-        counts[0] += torch.stack([par_acc, par_dec]).to(torch.int32)
+                                                    cfg, step_ax)
+        counts[..., 0, :] += torch.stack([par_acc, par_dec], -1).to(
+            torch.int32)
 
-        if cfg.learn_errors and mcmc_cfg.error_prob > 0.0 and do_err:
-            state, fp_acc, fn_acc = update_error_rates(k_err, state, n1, n0,
-                                                       cfg, ax)
-            acc = torch.stack([fp_acc, fn_acc]).to(torch.int32)
-            counts[3:5] += torch.stack([acc, 1 - acc], dim=1)
+        if cfg.learn_errors and mcmc_cfg.error_prob > 0.0:
+            state, c = by_chain_flag(state, [f[2] for f in flags],
+                                     lambda: flags_dev(2), error_move,
+                                     step_ax)
+            if c is not None:
+                counts[..., 3:5, :] += c
 
-        row = summarize(state, data, cfg, trace_k, stats=(n1, n0), ax=ax)
+        row = summarize(state, data, cfg, trace_k, stats=(n1, n0),
+                        ax=step_ax)
         return state, row._replace(mh_counts=counts)
 
     return select, moves
@@ -166,37 +209,83 @@ def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
     the Gibbs sweep's impl (models/gibbs.py::gibbs_sweep);
     ``mcmc_cfg.gibbs_block`` > 0 routes the Gibbs move to the blocked
     sweep, as bnpc_tpu does. Under a sharded `ax`, `data` and the params
-    are this rank's mutation columns."""
+    are this rank's mutation columns.
+
+    step(state, draws) -> (state, row). Given a batched state and a
+    StackedDraws of the chains' step draws it is the batched step
+    (bnpc_tpu's _pipe_vmap body, without vmap): every chain steps at once,
+    each with its own move choice read in one [C, 3] host read, and chain c
+    splits and draws exactly as its one-chain step does, so it gets its
+    one-chain step's result; every row field leads with the chains."""
     select, moves = _make_moves(cfg, mcmc_cfg, data, trace_k, gibbs_impl,
                                 mcmc_cfg.gibbs_block, ax)
 
     def step(state: CRPState, draws: Draws):
         k_sel, k_assign, k_dpa, k_par, k_err = draws.split(5)
-        return moves(state, select(k_sel), k_assign, k_dpa, k_par, k_err)
+        return moves(state, *select(k_sel, state.dp_alpha.shape), k_assign,
+                     k_dpa, k_par, k_err)
 
     return step
+
+
+def _check_chains_step(mcmc_cfg: MCMCConfig, gibbs_impl: str) -> None:
+    """Refuse what has no batched-chains form (stated routing rules)."""
+    if mcmc_cfg.gibbs_block > 0:
+        raise ValueError("chain_exec='vmap' has no blocked Gibbs sweep "
+                         "(gibbs_block > 0): the blocked sweep runs one "
+                         "chain at a time; use chain_exec='sequential'")
+    if gibbs_impl not in ("auto", "lazy", "stream", "scan"):
+        raise ValueError(f"chain_exec='vmap' has no batched Gibbs impl "
+                         f"{gibbs_impl!r}: the batch runs 'lazy', 'stream' "
+                         "or 'scan'; use chain_exec='sequential'")
+
+
+def _coupled_keys(draws: Draws, n: int, chain_draws=None):
+    """(k_sel, per-chain (move, alpha, params, errors) draws) of a coupled
+    step on the step provider `draws` (chain 0's): bnpc_tpu's key tree,
+    split c of the step's keys for chain c; or, given `chain_draws` (each
+    chain's own step provider), chain c's moves on its own stream."""
+    k_sel, *ks = draws.split(5)
+    if chain_draws is None:
+        return k_sel, list(zip(*(k.split(n) for k in ks)))
+    return k_sel, [tuple(d.split(5)[1:]) for d in chain_draws]
 
 
 def _make_coupled_step(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                        data: PackedData, trace_k: int,
                        gibbs_impl: str = "auto"):
     """A step of every chain with one SHARED move-type selection
-    (bnpc_tpu make_coupled_step_fn): the move, alpha, parameter and error
-    draws of chain c are split c of the step's keys. Like bnpc_tpu's, it
-    does not route ``gibbs_block`` and runs unsharded.
-    step(states, draws) -> (states, rows)."""
+    (bnpc_tpu make_coupled_step_fn); the move, alpha, parameter and error
+    draws as ``_coupled_keys`` gives them. Like bnpc_tpu's, it does not
+    route ``gibbs_block`` and runs unsharded.
+
+    step(states, draws, chain_draws=None): `states` a list of one-chain
+    states, moved one after another -> (states, rows); or one batched state
+    (chain_exec="vmap"), moved as one batch -> (state, row)."""
     select, moves = _make_moves(cfg, mcmc_cfg, data, trace_k, gibbs_impl, 0)
 
-    def step(states: list[CRPState], draws: Draws):
-        n = len(states)
-        k_sel, k_move, k_dpa, k_par, k_err = draws.split(5)
-        flags = select(k_sel)
-        out = [moves(st, flags, *keys) for st, keys in zip(
-            states, zip(k_move.split(n), k_dpa.split(n), k_par.split(n),
-                        k_err.split(n)))]
+    def step(states, draws: Draws, chain_draws=None):
+        batched = isinstance(states, CRPState)
+        n = states.assignment.shape[0] if batched else len(states)
+        k_sel, keys = _coupled_keys(draws, n, chain_draws)
+        flags, _ = select(k_sel)
+        if batched:
+            return moves(states, flags * n, None,
+                         *(StackedDraws(k) for k in zip(*keys)))
+        out = [moves(st, flags, None, *k) for st, k in zip(states, keys)]
         return [o[0] for o in out], [o[1] for o in out]
 
     return step
+
+
+def _own_streams(keys, t: int):
+    """Each chain's step-t provider where the chains run on streams of their
+    own (TorchDraws: a coupled step then moves chain c on chain c's stream,
+    in any order of the chains), None for key trees (bnpc_tpu's coupled
+    keys: the same in any order)."""
+    if all(isinstance(k[t], TorchDraws) for k in keys):
+        return [k[t] for k in keys]
+    return None
 
 
 @dataclasses.dataclass
@@ -312,17 +401,58 @@ class _TraceBuffer:
 # no other sampler's checkpoint can resume this one.
 CHECKPOINT_FORMAT = "bnpc_tpu_torch.mcmc/1"
 
+CHAIN_EXECS = ("auto", "sequential", "vmap")
+
+# What chain_exec="auto" takes on a CUDA device for more than one chain:
+# chip_smoke.py phase 12 measured the batch at or above the sequential
+# chain-steps/s at both cells in each call (NVIDIA H100 80GB HBM3, 700 W,
+# six calls: main cell 1.05-1.72 x at 4 chains, 2.47-3.47 x at 16;
+# large-n 1.07-1.29 x at 2; PERF.md §6). On the CPU "auto" takes
+# "sequential".
+AUTO_CUDA_CHAIN_EXEC = "vmap"
+
+
+def resolve_chain_exec(chain_exec: str, device, mesh=None,
+                       gibbs_block: int = 0) -> str:
+    """"auto" -> AUTO_CUDA_CHAIN_EXEC on CUDA without a mesh or a blocked
+    sweep (neither has a batched form), "sequential" otherwise."""
+    if chain_exec not in CHAIN_EXECS:
+        raise ValueError(f"chain_exec={chain_exec!r}; expected one of "
+                         f"{CHAIN_EXECS}")
+    if chain_exec != "auto":
+        return chain_exec
+    batchable = (torch.device(device).type == "cuda" and mesh is None
+                 and gibbs_block == 0)
+    return AUTO_CUDA_CHAIN_EXEC if batchable else "sequential"
+
 
 class MCMCRunner:
     """Multi-chain scheduler (reference MCMC class, libs/MCMC.py:26-193) on
     an explicit device.
 
-    Chains run one after another, each block of each chain on the device
-    (bnpc_tpu's chain_exec="sequential", which bnpc_tpu itself takes on
-    one device whenever its kernels run). With ``mcmc_cfg.coupled_moves``
-    and more than one chain, the chains step in lockstep with one shared
-    move selection a step (bnpc_tpu honours it only on its vmapped path;
-    the port has no vmap and honours it whenever n_chains > 1).
+    ``chain_exec`` says how several chains run (bnpc_tpu's names):
+
+      * "sequential": one after another, each block of each chain on the
+        device (the form bnpc_tpu takes on one device whenever its kernels
+        run);
+      * "vmap": every chain of the run steps at once as one batch with a
+        leading chain axis (``_make_step_body``), the sampler kernels on
+        a grid of one block a chain. This is the port's own chain-axis
+        step, not ``torch.func.vmap``; unlike bnpc_tpu's vmapped scan it
+        keeps the kernels. Chain c gets exactly what its sequential run
+        gets on the same draws. It refuses the blocked sweep
+        (gibbs_block > 0), the eager sweep and a mesh;
+      * "auto": ``AUTO_CUDA_CHAIN_EXEC`` on CUDA without a mesh or a
+        blocked sweep (PERF.md §6 has the measurement behind it),
+        else "sequential".
+
+    One chain always runs the one-chain step. With
+    ``mcmc_cfg.coupled_moves`` and more than one chain the chains step in
+    lockstep with one shared move selection a step, batched under "vmap"
+    (bnpc_tpu's coupled pipe) and one after another within each step under
+    "sequential" (bnpc_tpu honours it only on its vmapped path; the port
+    honours it whenever n_chains > 1). Checkpoints hold one state a chain
+    under either, so a run saved under one resumes under the other.
     ``checkpoint_dir`` saves the run every ``checkpoint_every`` blocks and
     resumes from it, in all three modes.
 
@@ -352,7 +482,17 @@ class MCMCRunner:
     def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                  data: PackedData, device, block_size: int = 256,
                  checkpoint_dir: str | None = None,
-                 checkpoint_every: int = 4, mesh=None):
+                 checkpoint_every: int = 4, mesh=None,
+                 chain_exec: str = "auto"):
+        self.chain_exec = resolve_chain_exec(chain_exec, device, mesh,
+                                             mcmc_cfg.gibbs_block)
+        if self.chain_exec == "vmap":
+            if mesh is not None:
+                raise ValueError(
+                    "chain_exec='vmap' runs no mesh: under --mesh each rank "
+                    "runs its chains one after another "
+                    "(chain_exec='sequential')")
+            _check_chains_step(mcmc_cfg, "auto")
         self.cfg = cfg
         self.mcmc_cfg = mcmc_cfg
         self.data = data
@@ -418,14 +558,17 @@ class MCMCRunner:
         arrays (an empty dict on a rank without chains)."""
         if not states:
             return [], {}, []
+        if len(states) > 1 and self.chain_exec == "vmap":
+            return self._run_batched(states, draws, n_steps, keep)
         if len(states) > 1 and self.mcmc_cfg.coupled_moves \
                 and not self.ax.sharded:
-            # Chain 0's key stream drives every chain (bnpc_tpu
+            # Chain 0's key stream drives the shared move choice (bnpc_tpu
             # _pipe_coupled); every chain's key advances.
             keys = [d.split(n_steps + 1) for d in draws]
             rows = [[] for _ in states]
-            for k in keys[0][1:1 + (n_steps if keep is None else keep)]:
-                states, step_rows = self._coupled_step(states, k)
+            for t in range(1, 1 + (n_steps if keep is None else keep)):
+                states, step_rows = self._coupled_step(
+                    states, keys[0][t], _own_streams(keys, t))
                 for chain_rows, row in zip(rows, step_rows):
                     chain_rows.append(row)
             blocks = [_rows_to_host(r) for r in rows]
@@ -436,6 +579,29 @@ class MCMCRunner:
             states, blocks, draws = (list(x) for x in zip(*out))
         return states, {f: np.stack([b[f] for b in blocks])
                         for f in TraceRow._fields}, draws
+
+    def _run_batched(self, states: list[CRPState], draws: list[Draws],
+                     n_steps: int, keep: int | None = None):
+        """run_chains under chain_exec="vmap": the chains stacked into one
+        batched state for the block, each step one batched step (coupled:
+        chain 0's step key drives the shared move choice, as in
+        run_chains' sequential coupled loop), unstacked at the block's
+        end."""
+        keys = [d.split(n_steps + 1) for d in draws]
+        batch = stack_states(states)
+        rows = []
+        for t in range(1, 1 + (n_steps if keep is None else keep)):
+            if self.mcmc_cfg.coupled_moves:
+                batch, row = self._coupled_step(batch, keys[0][t],
+                                                _own_streams(keys, t))
+            else:
+                batch, row = self._step(batch,
+                                        StackedDraws([k[t] for k in keys]))
+            rows.append(row)
+        host = _rows_to_host(rows)  # [steps, chains, ...]
+        return unstack_states(batch), {
+            f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
+            for f, v in host.items()}, [k[0] for k in keys]
 
     def _init_rows(self, states) -> dict | None:
         """Each chain's initial-state row, [n_chains, 1, ...] (on rank 0

@@ -31,6 +31,17 @@ the same result:
 On a CPU tensor ``lazy``, ``stream`` and ``eager`` run their kernels' plain
 twins, so the CPU tests hold each path against its bnpc_tpu counterpart.
 
+A batch of chains (a state with a leading chain axis, StackedDraws, ``ax``
+a ChainAxis; mcmc.py's chain_exec="vmap") runs ``lazy`` and ``stream`` as
+rounds of one launch of the kernel on a grid of one block a chain, in the
+loop one chain runs on a grid of one (``_segment_impl``): after each round
+one host read of info [C, 4], the rows and Z columns of that round's
+births, and the next round. Chain c
+draws and patches what its one-chain sweep does, in the same order, so it
+gets its one-chain sweep's result; a batch takes max over c of
+(births_c + 1) rounds. ``scan`` loops its one-chain sweep over the chains.
+``eager`` and ``blocked`` have no batched form and raise.
+
 Under a sharded mutation axis (``ax``, parallel/axis.py) Z and every birth
 column are all-reduced before a kernel or a loop reads them, so each rank of
 the mutation group runs the same sweep on the same bits; the newborn rows
@@ -50,23 +61,27 @@ from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops.cuda_gibbs import (lazy_k_pad, lazy_segment,
+                                           lazy_segment_chains,
                                            resolve_stream, stream_k_pad)
-from bnpc_tpu_torch.ops.cuda_stream import lazy_segment_stream
+from bnpc_tpu_torch.ops.cuda_stream import (lazy_segment_stream,
+                                            lazy_segment_stream_chains)
 from bnpc_tpu_torch.ops.cuda_sweep import eager_sweep
 from bnpc_tpu_torch.parallel.axis import MutAxis
-from bnpc_tpu_torch.state import CRPState
+from bnpc_tpu_torch.state import CRPState, stack_states, unstack_states
 
 NEG_INF = float("-inf")
 _NO_AXIS = MutAxis()
 
 
-def _sweep_keys(draws: Draws, cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
+def _sweep_keys(draws: Draws, cfg: ModelConfig, ax: MutAxis = _NO_AXIS,
+                lead=()):
     """The sweep's (perm, gumbel, k_beta) randomness (gibbs.py:_sweep_keys).
-    Slot j's noise is gumbel[:, j]; the new-cluster option's is
-    gumbel[:, k_max]. The newborn rows' draws are the shard's own."""
+    Slot j's noise is gumbel[..., j]; the new-cluster option's is
+    gumbel[..., k_max]. The newborn rows' draws are the shard's own.
+    `lead` is the chain axis' shape ((C,) for a batch)."""
     k_perm, k_gumbel, k_beta = draws.split(3)
     perm = k_perm.permutation(cfg.n_cells)
-    gumbel = k_gumbel.gumbel((cfg.n_cells, cfg.k_max + 1))
+    gumbel = k_gumbel.gumbel(tuple(lead) + (cfg.n_cells, cfg.k_max + 1))
     return perm, gumbel, ax.fold_key(k_beta)
 
 
@@ -78,19 +93,21 @@ def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig):
     return torch.clamp(theta, TMIN, TMAX).to(torch.float32)
 
 
-def _birth_column(theta, slot: int, state, data, gumbel, ax):
-    f1, f0 = lk.log_prob_tables(theta, state.fp, state.fn)
+def _birth_column(theta, slot: int, fp, fn, data, gumbel, ax):
+    f1, f0 = lk.log_prob_tables(theta, fp, fn)
     return lk.ll_col(f1, f0, data.xm, data.xm0, ax) + gumbel[:, slot]
 
 
 def _padded_sizes(state, k_pad: int):
-    """[k_pad] f32 sizes row with the kernels' -1 sentinel on padded
+    """[..., k_pad] f32 sizes rows with the kernels' -1 sentinel on padded
     slots."""
-    k_max = state.cluster_size.shape[0]
+    size = state.cluster_size
+    k_max = size.shape[-1]
     return torch.cat([
-        state.cluster_size.to(torch.float32),
-        torch.full((k_pad - k_max,), -1.0, device=state.cluster_size.device),
-    ])
+        size.to(torch.float32),
+        torch.full(tuple(size.shape[:-1]) + (k_pad - k_max,), -1.0,
+                   device=size.device),
+    ], dim=-1)
 
 
 def resolve_impl(impl: str, cfg: ModelConfig, on_cuda: bool) -> str:
@@ -112,14 +129,21 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
     default 128). `data` and the params are this rank's mutation columns
     when `ax` is sharded."""
     impl = resolve_impl(impl, cfg, state.assignment.is_cuda)
+    batched = state.assignment.dim() == 2
+    if batched and impl not in ("lazy", "stream", "scan"):
+        raise ValueError(f"impl={impl!r} has no batched-chains form; under "
+                         "chain_exec='vmap' the sweep runs 'lazy', 'stream' "
+                         "or 'scan' (use chain_exec='sequential')")
     if impl == "eager" and ax.sharded:
         # bnpc_tpu runs its eager kernel unsharded only (gibbs.py:160-164):
         # its [n, n] newborn product would need an all-reduce of n^2 floats
         # a sweep, and its explicit route sums shard-local columns.
         raise ValueError("impl='eager' cannot run under a sharded mutation "
                          "axis; use 'lazy', 'stream', 'scan' or 'blocked'")
-    run = {"lazy": _lazy_impl, "stream": _stream_impl, "eager": _eager_impl,
-           "scan": _scan_impl,
+    run = {"lazy": functools.partial(_segment_impl, stream=False),
+           "stream": functools.partial(_segment_impl, stream=True),
+           "eager": _eager_impl,
+           "scan": _scan_chains if batched else _scan_impl,
            "blocked": functools.partial(_blocked_impl,
                                         block=block or 128)}.get(impl)
     if run is None:
@@ -130,14 +154,14 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
     alpha = state.dp_alpha
     log_denom = torch.log(n - 1.0 + alpha)
     new_post = lk.new_cluster_ll(data, cfg, state.fp, state.fn) \
-        + torch.log(alpha) - log_denom
+        + torch.log(alpha)[..., None] - log_denom[..., None]
 
-    perm, gumbel, k_beta = _sweep_keys(draws, cfg, ax)
+    perm, gumbel, k_beta = _sweep_keys(draws, cfg, ax, alpha.shape)
     # Z-formulation: the Gumbel noise is folded into the likelihood matrix
     # up front, so the categorical draw is a plain argmax.
     c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
-    z = lk.ll_matrix(data, c1, c0, ax) + gumbel[:, :k_max]
-    aux = new_post + gumbel[:, k_max]
+    z = lk.ll_matrix(data, c1, c0, ax) + gumbel[..., :k_max]
+    aux = new_post + gumbel[..., k_max]
     return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
                ax=ax)
 
@@ -177,8 +201,8 @@ def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
             target = int(torch.argmax((size == 0).to(torch.int32)))
             theta = fresh_row(k_beta, cell, data, cfg)
             params[target] = theta
-            z[:, target] = _birth_column(theta, target, state, data, gumbel,
-                                         ax)
+            z[:, target] = _birth_column(theta, target, state.fp, state.fn,
+                                         data, gumbel, ax)
         else:
             target = int(torch.argmax(post_old))
         size[target] += 1
@@ -187,75 +211,92 @@ def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
                           cluster_size=size)
 
 
-def _lazy_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-               ax=_NO_AXIS):
-    """Birth-lazy host loop around the segment kernel (bnpc_tpu
-    _pallas_lazy_impl). The kernel reads only the PRE-SWEEP assignment of
-    not-yet-visited cells, and writes targets by visit position; one
-    scatter at the end puts them back in cell order."""
-    n, k_max = cfg.n_cells, cfg.k_max
-    dev = z.device
-    k_pad = lazy_k_pad(k_max)
-    z = torch.nn.functional.pad(z, (0, k_pad - k_max)).contiguous()
-    sizes = _padded_sizes(state, k_pad)
-    assign0 = state.assignment.contiguous()
-    aux = aux.contiguous()
-    log_denom = log_denom.to(torch.float32).contiguous()
-    tgt_v = torch.empty((n,), dtype=torch.int32, device=dev)
-    info = torch.empty((4,), dtype=torch.int32, device=dev)
-    params = state.params.clone()
-    i0 = 0
-    while i0 < n:
-        lazy_segment(z, aux, assign0, perm, sizes, tgt_v, info, i0,
-                     log_denom)
-        i_next, b_cell, b_slot, _ = info.tolist()  # host sync per launch
-        if b_cell >= 0:
-            theta = fresh_row(k_beta, b_cell, data, cfg)
-            params[b_slot] = theta
-            z[:, b_slot] = _birth_column(theta, b_slot, state, data, gumbel,
-                                         ax)
-        i0 = i_next
-    assignment = torch.empty_like(tgt_v)
-    assignment[perm.long()] = tgt_v
-    return state._replace(assignment=assignment, params=params,
-                          cluster_size=sizes[:k_max].to(torch.int32))
+def _segment_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
+                  log_denom, ax=_NO_AXIS, *, stream: bool):
+    """The birth-lazy host loop around the resident segment kernel (bnpc_tpu
+    _pallas_lazy_impl) or, with `stream`, the streaming one (bnpc_tpu
+    _pallas_stream_impl), for one chain or a batch of chains.
 
+    The kernel reads only the PRE-SWEEP assignment of not-yet-visited cells
+    and writes targets by visit position; one scatter at the end puts them
+    back in cell order. The streaming kernel takes Z, aux and the pre-sweep
+    assignment gathered into visit order once per sweep; a birth at visit
+    position p is cell perm[p], and its Z column is computed in cell order
+    and gathered into visit order, in bnpc_tpu's order of operations.
 
-def _stream_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-                 ax=_NO_AXIS):
-    """The birth-lazy loop around the streaming kernel (bnpc_tpu
-    _pallas_stream_impl): Z, aux and the pre-sweep assignment are gathered
-    into visit order once per sweep; a birth at visit position p is cell
-    perm[p], and its Z column is computed in cell order and gathered into
-    visit order, in bnpc_tpu's order of operations."""
+    One chain is run as a batch of one on the one-chain wrapper, whose
+    start position is a host int; a batch launches the kernel on a grid of
+    one block a chain, each chain's start position on the device (i0s), so a
+    relaunch takes no host arguments. Each round is one launch and one host
+    read of info [C, 4]; every birth of the round is then drawn from its
+    chain's own draws and patched (``fresh_row``, ``_birth_column``) in
+    chain order, as its one-chain sweep does."""
+    one = state.assignment.dim() == 1
+    if one:
+        state = CRPState(*(f[None] for f in state))
+        perm, gumbel, z, aux, log_denom = (
+            x[None] for x in (perm, gumbel, z, aux, log_denom))
+        k_betas, mut = [k_beta], ax
+    else:
+        k_betas, mut = k_beta.chains, ax.mut
     n, k_max = cfg.n_cells, cfg.k_max
-    dev = z.device
-    k_pad = stream_k_pad(k_max)
+    c_all, dev = z.shape[0], z.device
     order = perm.long()
-    zp = torch.nn.functional.pad(z[order], (0, k_pad - k_max)).contiguous()
-    auxp = aux[order].contiguous()
-    assignp = state.assignment[order].contiguous()
+    if stream:
+        k_pad = stream_k_pad(k_max)
+        zin = torch.nn.functional.pad(
+            torch.take_along_dim(z, order[..., None], dim=-2),
+            (0, k_pad - k_max)).contiguous()
+        args = (zin, torch.gather(aux, -1, order).contiguous(),
+                torch.gather(state.assignment, -1, order).contiguous())
+        launch = lazy_segment_stream if one else lazy_segment_stream_chains
+    else:
+        k_pad = lazy_k_pad(k_max)
+        zin = torch.nn.functional.pad(z, (0, k_pad - k_max)).contiguous()
+        args = (zin, aux.contiguous(), state.assignment.contiguous(),
+                perm.contiguous())
+        launch = lazy_segment if one else lazy_segment_chains
     sizes = _padded_sizes(state, k_pad)
     log_denom = log_denom.to(torch.float32).contiguous()
-    tgt_v = torch.empty((n,), dtype=torch.int32, device=dev)
-    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    tgt_v = torch.empty((c_all, n), dtype=torch.int32, device=dev)
+    info = torch.empty((c_all, 4), dtype=torch.int32, device=dev)
+    i0s = None if one else torch.zeros((c_all,), dtype=torch.int32,
+                                       device=dev)
     params = state.params.clone()
-    i0 = 0
-    while i0 < n:
-        lazy_segment_stream(zp, auxp, assignp, sizes, tgt_v, info, i0,
-                            log_denom)
-        i_next, b_pos, b_slot, _ = info.tolist()  # host sync per launch
-        if b_pos >= 0:
-            cell = int(perm[b_pos])
-            theta = fresh_row(k_beta, cell, data, cfg)
-            params[b_slot] = theta
-            col = _birth_column(theta, b_slot, state, data, gumbel, ax)
-            zp[:, b_slot] = col[order]
-        i0 = i_next
-    assignment = torch.empty_like(tgt_v)
-    assignment[order] = tgt_v
-    return state._replace(assignment=assignment, params=params,
-                          cluster_size=sizes[:k_max].to(torch.int32))
+    rows, perm_h = [[0]], None
+    while True:
+        if one:
+            launch(*(a[0] for a in args), sizes[0], tgt_v[0], info[0],
+                   rows[0][0], log_denom[0])
+        else:
+            launch(*args, sizes, tgt_v, info, i0s, log_denom)
+        rows = info.tolist()  # one host read a round
+        for c, (_, b, slot, _) in enumerate(rows):
+            if b < 0:
+                continue
+            if stream and perm_h is None:
+                perm_h = perm.tolist()
+            cell = perm_h[c][b] if stream else b
+            theta = fresh_row(k_betas[c], cell, data, cfg)
+            params[c, slot] = theta
+            col = _birth_column(theta, slot, state.fp[c], state.fn[c], data,
+                                gumbel[c], mut)
+            zin[c, :, slot] = col[order[c]] if stream else col
+        if all(r[0] >= n for r in rows):
+            break
+    assignment = torch.empty_like(tgt_v).scatter_(-1, order, tgt_v)
+    state = state._replace(assignment=assignment, params=params,
+                           cluster_size=sizes[..., :k_max].to(torch.int32))
+    return CRPState(*(f[0] for f in state)) if one else state
+
+
+def _scan_chains(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+                 ax=_NO_AXIS):
+    """The batched ``scan``: each chain's one-chain scan in turn."""
+    return stack_states([
+        _scan_impl(st, data, cfg, perm[c], gumbel[c], k_beta.chains[c], z[c],
+                   aux[c], log_denom[c], ax.mut)
+        for c, st in enumerate(unstack_states(state))])
 
 
 def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
@@ -366,7 +407,8 @@ def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
             if is_new:
                 theta = fresh_row(k_beta, int(perm[g * B + j]), data, cfg)
                 params[target] = theta
-                col = _birth_column(theta, target, state, data, gumbel, ax)
+                col = _birth_column(theta, target, state.fp, state.fn, data,
+                                    gumbel, ax)
                 z3.view(G * B, k_max)[:n, target] = col[order]
             sizes[target] += 1
             tgt3[g, j] = target

@@ -19,6 +19,16 @@ mutations is all-reduced over the mutation group, the per-mutation draws
 are the shard's own (``ax.fold_key``), and the prior and transition sums
 skip padded columns; the rg kernel's inputs come from the all-reduced
 [n, 2] launch log-likelihood, so every rank launches it on the same bits.
+
+Every function here also takes a batch of chains (a state with a leading
+chain axis, StackedDraws, ``ax`` a ChainAxis; mcmc.py's chain_exec="vmap"):
+per-chain scalars become [C], cell vectors [C, n], and the restricted scans
+run on the rg kernel's chain grid (ops/cuda_rg.py::rg_scan_chains), each
+chain with its own s_count and count1 on the device. ``split_merge`` reads
+every chain's split-or-merge choice in one [C] host read and runs the chains
+that split and the chains that merge as two sub-batches, each on its own
+branch (state.py::by_chain_flag); every chain draws exactly what its
+one-chain move draws.
 """
 
 from __future__ import annotations
@@ -33,10 +43,10 @@ from bnpc_tpu_torch.draws import Draws
 from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import mh
-from bnpc_tpu_torch.ops.cuda_rg import rg_scan
+from bnpc_tpu_torch.ops.cuda_rg import rg_scan, rg_scan_chains
 from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import (CRPState, beta_posterior_params,
-                                  first_free_slot)
+                                  by_chain_flag, first_free_slot)
 
 NEG_INF = float("-inf")
 _NO_AXIS = MutAxis()
@@ -55,6 +65,7 @@ class _MoveCtx(NamedTuple):
     n_move: torch.Tensor       # 0-d f32 |cells|
     ltrans_size: torch.Tensor  # 0-d f32 forward size-proposal log-prob term
     inv_sum_others: torch.Tensor  # 0-d f32 sum of 1/size over other clusters
+    # (Under a chain axis each field gains a leading [C].)
 
 
 class _RGState(NamedTuple):
@@ -63,28 +74,43 @@ class _RGState(NamedTuple):
     params_merge: torch.Tensor  # [m] f32
 
 
-def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] for a 0-d index tensor, without a host read of i."""
-    return x.index_select(0, i.reshape(1).long()).squeeze(0)
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[..., i] for a per-chain index i (0-d, or [C] beside x [C, k]),
+    without a host read of i."""
+    return torch.gather(x, -1, i[..., None].long())[..., 0]
+
+
+def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row i of a per-chain matrix x ([k, m], or [C, k, m] with i [C])."""
+    return torch.take_along_dim(x, i[..., None, None].long(), dim=-2)[
+        ..., 0, :]
+
+
+def _data_row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row i of a data plane x [n, m] shared by every chain (i 0-d or
+    [C])."""
+    return x.index_select(0, i.reshape(-1).long()).reshape(
+        tuple(i.shape) + tuple(x.shape[1:]))
 
 
 def _gumbel_top2(draws: Draws, logits):
     z = logits + draws.gumbel(tuple(logits.shape))
-    first = torch.argmax(z)
-    second = torch.argmax(z.index_fill(0, first.reshape(1), NEG_INF))
+    first = torch.argmax(z, dim=-1)
+    second = torch.argmax(z.scatter(-1, first[..., None], NEG_INF), dim=-1)
     return first.to(torch.int32), second.to(torch.int32)
 
 
 def _masked_counts(mask_f32, data: PackedData):
-    """(n1, n0) each [m]: observed 1/0 counts over the cells in `mask`."""
+    """(n1, n0) each [..., m]: observed 1/0 counts over the cells in
+    `mask` (exact integers in float32, so one product serves a batch)."""
     return mask_f32 @ data.xm, mask_f32 @ data.xm0
 
 
 def _side_masks(ctx: _MoveCtx, rg):
     """f32 cell masks of launch side 0 (incl anchor i) and side 1 (incl j)."""
-    idx = torch.arange(rg.shape[0], device=rg.device)
-    side0 = (ctx.s_mask & (rg == 0)) | (idx == ctx.anchor_i)
-    side1 = (ctx.s_mask & (rg == 1)) | (idx == ctx.anchor_j)
+    idx = torch.arange(rg.shape[-1], device=rg.device)
+    side0 = (ctx.s_mask & (rg == 0)) | (idx == ctx.anchor_i[..., None])
+    side1 = (ctx.s_mask & (rg == 1)) | (idx == ctx.anchor_j[..., None])
     return side0.to(torch.float32), side1.to(torch.float32)
 
 
@@ -94,7 +120,7 @@ def _side_masks(ctx: _MoveCtx, rg):
 
 
 def _setup(draws: Draws, state: CRPState, cfg: ModelConfig,
-           is_split: bool) -> _MoveCtx:
+           is_split: bool, ax: MutAxis = _NO_AXIS) -> _MoveCtx:
     n = cfg.n_cells
     dev = state.assignment.device
     idx = torch.arange(n, device=dev)
@@ -108,42 +134,45 @@ def _setup(draws: Draws, state: CRPState, cfg: ModelConfig,
                                    torch.log(torch.clamp(size_f, min=1.0)),
                                    NEG_INF)
         cl = k_cl.categorical(split_logits)
-        members = state.assignment == cl
+        members = state.assignment == cl[..., None]
         anchor_i, anchor_j = _gumbel_top2(
             k_anchor_i, torch.where(members, 0.0, NEG_INF))
-        size = _at(size_f, cl)
+        size = _pick(size_f, cl)
         # Eq. 3 second term (libs/CRP.py:453-456).
         ltrans = torch.log(size / n) - torch.log(size) - torch.log(size - 1.0)
         slot_idx = torch.arange(cfg.k_max, device=dev)
-        inv_others = torch.sum(torch.where(
-            live & (slot_idx != cl), 1.0 / torch.clamp(size_f, min=1.0), 0.0))
+        inv_others = ax.sum(torch.where(
+            live & (slot_idx != cl[..., None]),
+            1.0 / torch.clamp(size_f, min=1.0), 0.0))
         cells, cl_a, cl_b = members, cl, cl
     else:
         # Two inverse-size-weighted clusters.
         inv = torch.where(live, 1.0 / torch.clamp(size_f, min=1.0), 0.0)
-        inv_sum = torch.sum(inv)
+        inv_sum = ax.sum(inv)
         merge_logits = torch.where(
             live, torch.log(torch.clamp(inv, min=1e-30)), NEG_INF)
         cl_a, cl_b = _gumbel_top2(k_cl, merge_logits)
-        members_a = state.assignment == cl_a
-        members_b = state.assignment == cl_b
+        members_a = state.assignment == cl_a[..., None]
+        members_b = state.assignment == cl_b[..., None]
         anchor_i = k_anchor_i.categorical(
             torch.where(members_a, 0.0, NEG_INF))
         anchor_j = k_anchor_j.categorical(
             torch.where(members_b, 0.0, NEG_INF))
         # Eq. 6 second term (libs/CRP.py:505-507).
-        ltrans = (torch.log(_at(inv, cl_a) / inv_sum)
-                  + torch.log(_at(inv, cl_b) / inv_sum)
-                  - torch.log(_at(size_f, cl_a))
-                  - torch.log(_at(size_f, cl_b)))
+        ltrans = (torch.log(_pick(inv, cl_a) / inv_sum)
+                  + torch.log(_pick(inv, cl_b) / inv_sum)
+                  - torch.log(_pick(size_f, cl_a))
+                  - torch.log(_pick(size_f, cl_b)))
         cells = members_a | members_b
-        inv_others = torch.zeros((), device=dev)  # read by splits only
+        # read by splits only
+        inv_others = torch.zeros(tuple(live.shape[:-1]), device=dev)
 
-    s_mask = cells & (idx != anchor_i) & (idx != anchor_j)
+    s_mask = cells & (idx != anchor_i[..., None]) \
+        & (idx != anchor_j[..., None])
     return _MoveCtx(
         is_split=is_split, cells=cells, s_mask=s_mask,
         anchor_i=anchor_i, anchor_j=anchor_j, cl_a=cl_a, cl_b=cl_b,
-        n_move=cells.sum().to(torch.float32), ltrans_size=ltrans,
+        n_move=cells.sum(-1).to(torch.float32), ltrans_size=ltrans,
         inv_sum_others=inv_others,
     )
 
@@ -167,13 +196,13 @@ def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
     # summation order, while the difference's terms cancel exactly. Sharded,
     # the one product is all-reduced and the reduced value compared.
     def anchor_tables(a):
-        th = torch.where(_at(mask, a) > 0, _at(data.x, a), mix0)
+        th = torch.where(_data_row(mask, a) > 0, _data_row(data.x, a), mix0)
         return lk.log_prob_tables(th, state.fp, state.fn)
 
     (c1i, c0i), (c1j, c0j) = (anchor_tables(ctx.anchor_i),
                               anchor_tables(ctx.anchor_j))
-    rg = (ax.psum(data.xm @ (c1j - c1i) + data.xm0 @ (c0j - c0i)) > 0).to(
-        torch.int32)
+    rg = (ax.psum(ax.rmul(data.xm, c1j - c1i)
+                  + ax.rmul(data.xm0, c0j - c0i)) > 0).to(torch.int32)
 
     side0, side1 = _side_masks(ctx, rg)
     n1_0, n0_0 = _masked_counts(side0, data)
@@ -181,7 +210,7 @@ def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
     params_split = torch.stack([
         beta_posterior_params(k_i, cfg, n1_0, n0_0),
         beta_posterior_params(k_j, cfg, n1_1, n0_1),
-    ])
+    ], dim=-2)
     n1_m, n0_m = _masked_counts(ctx.cells.to(torch.float32), data)
     params_merge = beta_posterior_params(k_m, cfg, n1_m, n0_m)
     return _RGState(rg, params_split, params_merge)
@@ -195,46 +224,51 @@ def _visit_order(k_perm: Draws, s_mask, rg_launch, ll2, dz):
     as bnpc_tpu's variadic lax.sort.
 
     Returns (order, lau_v, ll0_v, ll1_v, dz_v)."""
-    n = s_mask.shape[0]
-    bits = k_perm.bits((2, n))
+    bits = k_perm.bits(tuple(s_mask.shape[:-1]) + (2, s_mask.shape[-1]))
     # The two uint32 words as one order-preserving signed 64-bit key.
-    key = (bits[0] - 2**31) * 2**32 + bits[1]
+    key = (bits[..., 0, :] - 2**31) * 2**32 + bits[..., 1, :]
     order = torch.sort(key, stable=True).indices
-    order = order[torch.sort((~s_mask[order]).to(torch.int8),
-                             stable=True).indices]
-    return (order.to(torch.int32), rg_launch[order].to(torch.float32),
-            ll2[order, 0], ll2[order, 1], dz[order])
+    order = torch.gather(order, -1, torch.sort(
+        (~torch.gather(s_mask, -1, order)).to(torch.int8),
+        stable=True).indices)
+
+    def visit(x):
+        return torch.gather(x, -1, order)
+
+    return (order.to(torch.int32), visit(rg_launch).to(torch.float32),
+            visit(ll2[..., 0]), visit(ll2[..., 1]), visit(dz))
 
 
 def _side1_others(final, launch):
     """Movable cells on side 1, other than the one at each position, when
     a scan reaches it: the final sides of the positions before it plus the
     launch sides of the positions after it (both [n] f32, 0 outside S)."""
-    before = torch.cumsum(final, 0) - final
-    after = torch.flip(torch.cumsum(torch.flip(launch, (0,)), 0), (0,)) \
+    before = torch.cumsum(final, -1) - final
+    after = torch.flip(torch.cumsum(torch.flip(launch, (-1,)), -1), (-1,)) \
         - launch
     return before + after
 
 
 def _trans_prob_replay(ctx: _MoveCtx, lau_v, fin_v, ll0_v, ll1_v, s_count,
-                       dp_alpha):
+                       dp_alpha, ax: MutAxis = _NO_AXIS):
     """Chosen-log-probability sum of a completed restricted scan. Given the
     launch and final sides the count evolution is deterministic, so the
     sequential accumulation of libs/CRP.py:622-630 is prefix/suffix sums in
     visit order."""
-    n = lau_v.shape[0]
-    in_s = (torch.arange(n, device=lau_v.device) < s_count).to(torch.float32)
+    n = lau_v.shape[-1]
+    in_s = (torch.arange(n, device=lau_v.device) < s_count[..., None]).to(
+        torch.float32)
     s1 = _side1_others(fin_v.to(torch.float32) * in_s, lau_v * in_s)
     n_j = s1 + 1.0
-    n_i = ctx.n_move - s1 - 2.0
-    log_denom = torch.log(ctx.n_move - 1.0 + dp_alpha)
+    n_i = ctx.n_move[..., None] - s1 - 2.0
+    log_denom = torch.log(ctx.n_move - 1.0 + dp_alpha)[..., None]
     lp0 = ll0_v + torch.log(n_i) - log_denom
     lp1 = ll1_v + torch.log(n_j) - log_denom
     mx = torch.maximum(lp0, lp1)
     lse = mx + torch.log(torch.exp(lp0 - mx) + torch.exp(lp1 - mx))
     chosen = torch.where(fin_v > 0, lp1, lp0) - lse
     # where, not multiply: non-movable positions can hold nan/-inf rows.
-    return torch.sum(torch.where(in_s > 0.0, chosen, 0.0))
+    return ax.sum(torch.where(in_s > 0.0, chosen, 0.0))
 
 
 def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
@@ -250,33 +284,34 @@ def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
     lp0 = ll0 + log(0) = -inf, libs/CRP.py:622)."""
     n = cfg.n_cells
     k_perm, k_gumbel = draws.split(2)
-    gumbel = k_gumbel.gumbel((n, 2))
+    gumbel = k_gumbel.gumbel(tuple(ctx.n_move.shape) + (n, 2))
     c1, c0 = lk.log_prob_tables(params_split, state.fp, state.fn)  # [2, m]
-    ll2 = ax.psum(data.xm @ c1.T + data.xm0 @ c0.T)  # [n, 2]
+    ll2 = ax.psum(ax.rmul(data.xm, c1.mT)
+                  + ax.rmul(data.xm0, c0.mT))  # [n, 2]
     z = ll2 + gumbel
-    dz = z[:, 1] - z[:, 0]
+    dz = z[..., 1] - z[..., 0]
 
     order, lau_v, ll0_v, ll1_v, dz_v = _visit_order(
         k_perm, ctx.s_mask, rg, ll2, dz)
 
     dev = dz.device
     s1r = torch.arange(n + 2, dtype=torch.float32, device=dev)
-    dtab = torch.log(s1r + 1.0) \
-        - torch.log(torch.clamp(ctx.n_move - s1r - 2.0, min=0.0))
-    s_count = ctx.s_mask.sum().to(torch.int32)
-    count1 = torch.where(ctx.s_mask, rg, 0).sum().to(torch.int32)
+    dtab = torch.log(s1r + 1.0) - torch.log(torch.clamp(
+        ctx.n_move[..., None] - s1r - 2.0, min=0.0))
+    s_count = ctx.s_mask.sum(-1).to(torch.int32)
+    count1 = torch.where(ctx.s_mask, rg, 0).sum(-1).to(torch.int32)
     pos = torch.arange(n, dtype=torch.int32, device=dev)
     lau_i = lau_v.to(torch.int32)
 
-    out_v = rg_scan(dz_v.contiguous(), lau_i, dtab, s_count, count1)
-    fin_v = torch.where(pos < s_count, out_v, lau_i)
-    fin_cell = torch.empty_like(fin_v)
-    fin_cell[order.long()] = fin_v
+    scan = rg_scan_chains if dz_v.dim() == 2 else rg_scan
+    out_v = scan(dz_v.contiguous(), lau_i, dtab, s_count, count1)
+    fin_v = torch.where(pos < s_count[..., None], out_v, lau_i)
+    fin_cell = torch.empty_like(fin_v).scatter_(-1, order.long(), fin_v)
     rg_new = torch.where(ctx.s_mask, fin_cell, rg)
     if trans_prob:
         return rg_new, _trans_prob_replay(ctx, lau_v, fin_v, ll0_v, ll1_v,
-                                          s_count, state.dp_alpha)
-    return rg_new, torch.zeros((), device=dev)
+                                          s_count, state.dp_alpha, ax)
+    return rg_new, torch.zeros(tuple(s_count.shape), device=dev)
 
 
 def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
@@ -286,12 +321,12 @@ def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
     rg, prob_cl = _rg_scan_assign(k_assign, ctx, rgs.rg, rgs.params_split,
                                   state, data, cfg, trans_prob, ax)
     side0, side1 = _side_masks(ctx, rg)
-    n1 = torch.stack([side0 @ data.xm, side1 @ data.xm])
-    n0 = torch.stack([side0 @ data.xm0, side1 @ data.xm0])
+    n1 = torch.stack([side0 @ data.xm, side1 @ data.xm], dim=-2)
+    n0 = torch.stack([side0 @ data.xm0, side1 @ data.xm0], dim=-2)
     res = mh.mh_cluster_params(k_par, rgs.params_split, n1, n0, state.fp,
                                state.fn, cfg, trans_prob=trans_prob, ax=ax)
     return rgs._replace(rg=rg, params_split=res.params), \
-        prob_cl + torch.sum(res.trans_logprob)
+        prob_cl + ax.sum(res.trans_logprob)
 
 
 def _rg_scan_merge(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
@@ -315,16 +350,17 @@ def _ll_split_all(side0, side1, cells_f, params_split, params_merge, state,
     c1s, c0s = lk.log_prob_tables(params_split, state.fp, state.fn)
     n1_0, n0_0 = _masked_counts(side0, data)
     n1_1, n0_1 = _masked_counts(side1, data)
-    ll_split = ax.psum(torch.sum(n1_0 * c1s[0] + n0_0 * c0s[0])
-                       + torch.sum(n1_1 * c1s[1] + n0_1 * c0s[1]))
+    ll_split = ax.psum(
+        ax.sum(n1_0 * c1s[..., 0, :] + n0_0 * c0s[..., 0, :])
+        + ax.sum(n1_1 * c1s[..., 1, :] + n0_1 * c0s[..., 1, :]))
     n1_m, n0_m = _masked_counts(cells_f, data)
     c1m, c0m = lk.log_prob_tables(params_merge, state.fp, state.fn)
-    ll_all = ax.psum(torch.sum(n1_m * c1m + n0_m * c0m))
+    ll_all = ax.psum(ax.sum(n1_m * c1m + n0_m * c0m))
     return ll_split, ll_all
 
 
 def _beta_prior_sum(cfg, x, ax: MutAxis = _NO_AXIS):
-    return ax.psum(torch.sum(ax.apply_mask(
+    return ax.psum(ax.sum(ax.apply_mask(
         dist.beta_logpdf(x, cfg.p, cfg.q, cfg.log_beta_norm))))
 
 
@@ -342,42 +378,44 @@ def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
     side0, side1 = _side_masks(ctx, rgs.rg)
     n1_0, n0_0 = _masked_counts(side0, data)
     n1_1, n0_1 = _masked_counts(side1, data)
-    target_i = _at(state.params, ctx.cl_a)
-    target_j = _at(state.params, ctx.cl_b)
+    target_i = _row(state.params, ctx.cl_a)
+    target_j = _row(state.params, ctx.cl_b)
     prob_param_i = mh.realized_trans_logprob(
-        target_i, rgs.params_split[0], n1_0, n0_0, a[0], b[0], std[0],
-        state.fp, state.fn, cfg, ax)
+        target_i, rgs.params_split[..., 0, :], n1_0, n0_0, a[..., 0, :],
+        b[..., 0, :], std[..., 0, :], state.fp, state.fn, cfg, ax)
     prob_param_j = mh.realized_trans_logprob(
-        target_j, rgs.params_split[1], n1_1, n0_1, a[1], b[1], std[1],
-        state.fp, state.fn, cfg, ax)
+        target_j, rgs.params_split[..., 1, :], n1_1, n0_1, a[..., 1, :],
+        b[..., 1, :], std[..., 1, :], state.fp, state.fn, cfg, ax)
 
     # Each movable cell is forced to its original side under the original
     # parameters; the count evolution is deterministic, so the "scan" is
     # prefix/suffix sums in ascending cell order.
-    orig = torch.where(state.assignment == ctx.cl_a, 0, 1).to(torch.int32)
-    c1, c0 = lk.log_prob_tables(torch.stack([target_i, target_j]),
+    orig = torch.where(state.assignment == ctx.cl_a[..., None], 0, 1).to(
+        torch.int32)
+    c1, c0 = lk.log_prob_tables(torch.stack([target_i, target_j], dim=-2),
                                 state.fp, state.fn)
-    ll2 = ax.psum(data.xm @ c1.T + data.xm0 @ c0.T)
+    ll2 = ax.psum(ax.rmul(data.xm, c1.mT) + ax.rmul(data.xm0, c0.mT))
     log_denom = torch.log(ctx.n_move - 1.0 + state.dp_alpha)
 
     in_s = ctx.s_mask.to(torch.float32)
     s1 = _side1_others(orig.to(torch.float32) * in_s,
                        rgs.rg.to(torch.float32) * in_s)
     n_j = s1 + 1.0
-    n_i = ctx.n_move - s1 - 2.0
-    logpost = ll2 + torch.log(torch.stack([n_i, n_j], dim=1)) - log_denom
-    logp = logpost - torch.logsumexp(logpost, dim=1, keepdim=True)
-    chosen = torch.gather(logp, 1, orig.long()[:, None])[:, 0]
+    n_i = ctx.n_move[..., None] - s1 - 2.0
+    logpost = ll2 + torch.log(torch.stack([n_i, n_j], dim=-1)) \
+        - log_denom[..., None, None]
+    logp = logpost - torch.logsumexp(logpost, dim=-1, keepdim=True)
+    chosen = torch.gather(logp, -1, orig.long()[..., None])[..., 0]
     # where, not multiply: a forced side count can be 0 (chosen = -inf).
-    prob_assign = torch.sum(torch.where(in_s > 0.0, chosen, 0.0))
+    prob_assign = ax.sum(torch.where(in_s > 0.0, chosen, 0.0))
     return prob_param_i + prob_param_j + prob_assign
 
 
 def _counts(row: int, accept, dev):
-    """[2, 2] int32 MH counts: (accepted, declined) in `row`."""
+    """[..., 2, 2] int32 MH counts: (accepted, declined) in `row`."""
     acc = accept.to(torch.int32)
-    c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
-    c[row] = torch.stack([acc, 1 - acc])
+    c = torch.zeros(tuple(acc.shape) + (2, 2), dtype=torch.int32, device=dev)
+    c[..., row, :] = torch.stack([acc, 1 - acc], dim=-1)
     return c
 
 
@@ -395,13 +433,13 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     b = (TMAX - rgs2.params_merge) / std
     cells_f = ctx.cells.to(torch.float32)
     n1_m, n0_m = _masked_counts(cells_f, data)
-    params_a = _at(state.params, ctx.cl_a)
+    params_a = _row(state.params, ctx.cl_a)
     gs_merge = mh.realized_trans_logprob(
         params_a, rgs2.params_merge, n1_m, n0_m, a, b, std, state.fp,
         state.fn, cfg, ax)
     trans_ratio = gs_merge - gs_split
 
-    n_j = torch.where(ctx.s_mask, rgs2.rg, 0).sum().to(torch.float32) + 1.0
+    n_j = torch.where(ctx.s_mask, rgs2.rg, 0).sum(-1).to(torch.float32) + 1.0
     n_i = ctx.n_move - n_j
     # Eq. 7 prior ratio (libs/CRP.py:695-713).
     lprior = (torch.log(state.dp_alpha) - torch.lgamma(ctx.n_move)
@@ -426,21 +464,24 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     s_count = ctx.n_move - 2.0
     degenerate = (s_count > 0) & ((n_j - 1.0 == 0.0)
                                   | (n_j - 1.0 == s_count))
-    accept = (~degenerate) & (torch.log(k_accept.uniform(())) < A)
+    accept = (~degenerate) & (torch.log(k_accept.uniform(A.shape)) < A)
 
     # Apply: side 1 moves to a fresh slot (libs/CRP.py:466-481).
     new_slot = first_free_slot(state.cluster_size)
     idx = torch.arange(n, device=dev)
-    move_to_new = accept & ((ctx.s_mask & (rgs2.rg == 1))
-                            | (idx == ctx.anchor_j))
-    assignment = torch.where(move_to_new, new_slot, state.assignment)
-    n_moved = move_to_new.sum().to(torch.int32)
-    slots = torch.stack([ctx.cl_a, new_slot]).long()
-    cluster_size = state.cluster_size.index_add(
-        0, slots, torch.stack([-n_moved, n_moved]))
-    params = state.params.index_copy(
-        0, slots, torch.where(accept, rgs2.params_split,
-                              state.params.index_select(0, slots)))
+    move_to_new = accept[..., None] & ((ctx.s_mask & (rgs2.rg == 1))
+                                       | (idx == ctx.anchor_j[..., None]))
+    assignment = torch.where(move_to_new, new_slot[..., None],
+                             state.assignment)
+    n_moved = move_to_new.sum(-1).to(torch.int32)
+    slots = torch.stack([ctx.cl_a, new_slot], dim=-1).long()
+    cluster_size = state.cluster_size.scatter_add(
+        -1, slots, torch.stack([-n_moved, n_moved], dim=-1))
+    rows = slots[..., None].expand(tuple(slots.shape)
+                                   + (state.params.shape[-1],))
+    params = state.params.scatter(-2, rows, torch.where(
+        accept[..., None, None], rgs2.params_split,
+        torch.gather(state.params, -2, rows)))
     return state._replace(assignment=assignment, params=params,
                           cluster_size=cluster_size), _counts(0, accept, dev)
 
@@ -457,9 +498,9 @@ def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
 
     # Eq. 8 prior ratio over the ORIGINAL clusters (libs/CRP.py:736-754).
     size_f = state.cluster_size.to(torch.float32)
-    n_i, n_j = _at(size_f, ctx.cl_a), _at(size_f, ctx.cl_b)
-    params_a, params_b = _at(state.params, ctx.cl_a), \
-        _at(state.params, ctx.cl_b)
+    n_i, n_j = _pick(size_f, ctx.cl_a), _pick(size_f, ctx.cl_b)
+    params_a, params_b = _row(state.params, ctx.cl_a), \
+        _row(state.params, ctx.cl_b)
     lprior = (torch.lgamma(ctx.n_move) - torch.log(state.dp_alpha)
               - torch.lgamma(n_i) - torch.lgamma(n_j))
     if not cfg.beta_prior_uniform:
@@ -468,7 +509,7 @@ def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
             - _beta_prior_sum(cfg, params_b, ax)
 
     # Eq. 12 with the original sides under the launch split params.
-    orig_rg = torch.where(state.assignment == ctx.cl_a, 0, 1)
+    orig_rg = torch.where(state.assignment == ctx.cl_a[..., None], 0, 1)
     side0, side1 = _side_masks(ctx, orig_rg)
     ll_split, ll_all = _ll_split_all(side0, side1,
                                      ctx.cells.to(torch.float32),
@@ -485,41 +526,34 @@ def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     size_ratio = rev - ctx.ltrans_size
 
     A = trans_ratio + lprior + ll_ratio + size_ratio
-    accept = torch.log(k_accept.uniform(())) < A
+    accept = torch.log(k_accept.uniform(A.shape)) < A
 
-    members_b = state.assignment == ctx.cl_b
-    assignment = torch.where(accept & members_b, ctx.cl_a, state.assignment)
-    size_b = _at(state.cluster_size, ctx.cl_b)
-    cluster_size = state.cluster_size.index_add(
-        0, ctx.cl_a.reshape(1).long(),
-        torch.where(accept, size_b, 0).reshape(1))
-    cluster_size = cluster_size.index_copy(
-        0, ctx.cl_b.reshape(1).long(),
-        torch.where(accept, 0, size_b).reshape(1).to(torch.int32))
-    params = state.params.index_copy(
-        0, ctx.cl_a.reshape(1).long(),
-        torch.where(accept, rgs2.params_merge, params_a)[None])
+    members_b = state.assignment == ctx.cl_b[..., None]
+    assignment = torch.where(accept[..., None] & members_b,
+                             ctx.cl_a[..., None], state.assignment)
+    size_b = _pick(state.cluster_size, ctx.cl_b)
+    slot_a = ctx.cl_a[..., None].long()
+    cluster_size = state.cluster_size.scatter_add(
+        -1, slot_a, torch.where(accept, size_b, 0)[..., None])
+    cluster_size = cluster_size.scatter(
+        -1, ctx.cl_b[..., None].long(),
+        torch.where(accept, 0, size_b)[..., None].to(torch.int32))
+    row_a = slot_a[..., None].expand(tuple(slot_a.shape)
+                                     + (state.params.shape[-1],))
+    params = state.params.scatter(
+        -2, row_a, torch.where(accept[..., None], rgs2.params_merge,
+                               params_a)[..., None, :])
     return state._replace(assignment=assignment, params=params,
                           cluster_size=cluster_size), _counts(1, accept, dev)
 
 
-def split_merge(draws: Draws, state: CRPState, data: PackedData,
-                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int,
-                ax: MutAxis = _NO_AXIS):
-    """One split-merge proposal. Returns (state, counts[2, 2]) where
-    counts[0] = (accepted, declined) split deltas and counts[1] the merge
-    deltas (MH_counter rows 1/2, libs/MCMC.py:320-328)."""
-    k_move, k_setup, k_init, k_scans, k_final, k_accept = draws.split(6)
-
-    n_clusters = state.n_clusters
-    forced_split = n_clusters == 1
-    # Reference forces a merge at K == n (libs/CRP.py:424); with a capacity
-    # cap a split is likewise impossible at K == k_max.
-    forced_merge = n_clusters >= cfg.k_max
-    want_split = k_move.uniform(()) < sm_split_ratio
-    is_split = bool(forced_split | (want_split & ~forced_merge))  # host sync
-
-    ctx = _setup(k_setup, state, cfg, is_split)
+def _move(is_split: bool, keys, state: CRPState, data: PackedData,
+          cfg: ModelConfig, sm_steps: int, ax: MutAxis = _NO_AXIS):
+    """The proposal, its launch scans and its branch, for chains that all
+    split or all merge; keys = (k_setup, k_init, k_scans, k_final,
+    k_accept)."""
+    k_setup, k_init, k_scans, k_final, k_accept = keys
+    ctx = _setup(k_setup, state, cfg, is_split, ax)
     rgs = _rg_init(k_init, ctx, state, data, cfg, ax)
 
     # Launch scans (libs/CRP.py:535-537): each refreshes both the split and
@@ -532,3 +566,28 @@ def split_merge(draws: Draws, state: CRPState, data: PackedData,
     k_f1, k_f2 = k_final.split(2)
     branch = _split_branch if is_split else _merge_branch
     return branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax)
+
+
+def split_merge(draws: Draws, state: CRPState, data: PackedData,
+                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int,
+                ax: MutAxis = _NO_AXIS):
+    """One split-merge proposal. Returns (state, counts[2, 2]) where
+    counts[0] = (accepted, declined) split deltas and counts[1] the merge
+    deltas (MH_counter rows 1/2, libs/MCMC.py:320-328). Under a chain axis
+    every chain makes its own proposal and counts are [C, 2, 2]."""
+    k_move, *keys = draws.split(6)
+
+    n_clusters = state.n_clusters
+    forced_split = n_clusters == 1
+    # Reference forces a merge at K == n (libs/CRP.py:424); with a capacity
+    # cap a split is likewise impossible at K == k_max.
+    forced_merge = n_clusters >= cfg.k_max
+    want_split = k_move.uniform(n_clusters.shape) < sm_split_ratio
+    split = forced_split | (want_split & ~forced_merge)
+    flags = split.reshape(-1).tolist()  # the host sync: one read a move
+
+    def move(is_split, sub, sub_ax, take, idx):
+        return _move(is_split, [take(k) for k in keys], sub, data, cfg,
+                     sm_steps, sub_ax)
+
+    return by_chain_flag(state, flags, lambda: split, move, ax)

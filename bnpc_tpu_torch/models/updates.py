@@ -1,6 +1,10 @@
 """Non-assignment moves: parameter MH, alpha resampling, error-rate MH
 (counterpart of bnpc_tpu/models/updates.py). All three run against the
 per-cluster sufficient statistics, so they cost O(k_max * m).
+
+Each also takes a batch of chains (a state with a leading chain axis,
+StackedDraws, ``ax`` a ChainAxis): every chain draws what its one-chain
+move draws and keeps its own accept flags and counts.
 """
 
 from __future__ import annotations
@@ -27,13 +31,13 @@ def update_parameters(draws: Draws, state: CRPState, n1, n0,
     live = state.cluster_size > 0
     res = mh.mh_cluster_params(draws, state.params, n1, n0, state.fp,
                                state.fn, cfg, ax=ax)
-    params = torch.where(live[:, None], res.params, state.params)
-    declined = torch.where(live, res.declined, 0).sum()
+    params = torch.where(live[..., None], res.params, state.params)
+    declined = torch.where(live, res.declined, 0).sum(-1)
     # Under padded sharding cfg.n_muts counts the padded columns: the real
     # ones are the psummed shard masks (bnpc_tpu updates.py:40-45).
     m_real = (ax.psum(ax.mask.sum()).to(torch.int32) if ax.mask is not None
               else cfg.n_muts)
-    accepted = live.sum() * m_real - declined
+    accepted = live.sum(-1) * m_real - declined
     return state._replace(params=params), declined, accepted
 
 
@@ -54,7 +58,7 @@ def update_dp_alpha(draws: Draws, state: CRPState,
     w = (a_g + k - 1.0) / (n * (b_g - log_eta))
     pi_eta = w / (1.0 + w)
 
-    use_high = k_pi.uniform(()) < pi_eta
+    use_high = k_pi.uniform(k.shape) < pi_eta
     shape = a_g + k - torch.where(use_high, 0.0, 1.0)
     new_alpha = k_gamma.gamma(shape) * (b_g - log_eta)
     alpha = torch.clamp(new_alpha, min=1.0 + EPSILON).to(torch.float32)
@@ -73,7 +77,7 @@ def _mh_error_rate(draws: Draws, old, prior_mean: float, prior_sd: float,
     k_std, k_prop, k_u = draws.split(3)
     # float32 products, as jnp.array([0.5, 1.0, 1.5]) * prior_sd
     sds = (torch.tensor([0.5, 1.0, 1.5]) * prior_sd).tolist()
-    std = mh.choose(k_std.randint((), 0, 3), sds)
+    std = mh.choose(k_std.randint(old.shape, 0, 3), sds)
     a = (0.0 - old) / std
     b = (1.0 - old) / std
     new = k_prop.truncnorm(a, b, old, std)
@@ -87,7 +91,7 @@ def _mh_error_rate(draws: Draws, old, prior_mean: float, prior_sd: float,
          + dist.truncnorm_prior_logpdf(new, prior_mean, prior_sd)
          - dist.truncnorm_prior_logpdf(old, prior_mean, prior_sd)
          + old_p_target - new_p_target)
-    accept = torch.log(k_u.uniform(())) < A
+    accept = torch.log(k_u.uniform(old.shape)) < A
     return torch.where(accept, new, old).to(torch.float32), accept
 
 

@@ -40,10 +40,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # z, aux, assign, perm, sizes, tgt, info, log_denom, n, k_pad, i0, stream
     "bnpc_lazy_segment": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n,
+    # k_pad, stream
+    "bnpc_lazy_segment_chains": [_P] * 9 + [_I, _I, _I, _P],
     # dz, lau, dtab, s_count, count1, out, n, stream
     "bnpc_rg_scan": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # dz, lau, dtab, s_count, count1, out, chains, n, stream
+    "bnpc_rg_scan_chains": [_P] * 6 + [_I, _I, _P],
     # zp, auxp, assignp, sizes, tgt, info, log_denom, n, k_pad, i0, stream
     "bnpc_lazy_stream": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # zp, auxp, assignp, sizes, tgt, info, log_denom, i0s, chains, n, k_pad,
+    # stream
+    "bnpc_lazy_stream_chains": [_P] * 8 + [_I, _I, _I, _P],
     # z, gum, lf, fresh, aux, assign, perm, sizes, params, out, log_denom,
     # n, k_pad, m, stream
     "bnpc_eager_sweep": [_P] * 11 + [_I, _I, _I, _P],

@@ -3,7 +3,7 @@
 Counterpart of bnpc_tpu/ops/pallas_gibbs.py::pallas_lazy_segment. The kernel
 (csrc/lazy_segment.cu) runs the per-cell loop of the sweep from position
 ``i0`` and exits at the first cluster birth; the caller
-(models/gibbs.py::_lazy_impl) patches the newborn's z column and relaunches.
+(models/gibbs.py::_segment_impl) patches the newborn's z column and relaunches.
 
 Interface (both versions): ``sizes`` [k_pad] f32 (-1 on padded slots) is
 updated in place, ``tgt`` [n] i32 receives the chosen slot of every visited
@@ -11,6 +11,13 @@ position in [i0, i_next), and ``info`` [4] i32 receives
 (i_next, birth_cell, birth_slot, cap_veto); birth_cell == -1 when the
 segment ran to the end, cap_veto == 1 iff some cell's new-cluster option
 won while no slot was free.
+
+``lazy_segment_chains`` runs a batch of chains' segments as one launch of
+the same kernel on a grid of one block a chain: every argument gains a
+leading chain axis, and ``i0s`` [C] i32 (a device tensor) holds each
+chain's start position, advanced in place to its i_next, so that a
+relaunch needs no host arguments; a chain with i0s[c] >= n writes only its
+info row, (n, -1, -1, 0).
 
 A CPU tensor goes to the plain twin; a CUDA tensor goes to the kernel or
 the wrapper raises.
@@ -22,8 +29,11 @@ import torch
 
 from bnpc_tpu_torch.ops import _build
 
-# Kernel launches since the last reset (the wrapper adds one per launch).
+# Kernel launches since the last reset (each wrapper adds one per launch):
+# one-chain launches, and batched launches with their count per grid size.
 launches = 0
+chain_launches = 0
+chain_grids: dict[int, int] = {}
 
 _SLOTS_PER_LANE = (1, 2, 4, 8, 16, 32)
 
@@ -133,3 +143,66 @@ def lazy_segment(z, aux, assign, perm, sizes, tgt, info, i0: int, log_denom):
         log_denom.data_ptr(), n, k_pad, int(i0),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "bnpc_lazy_segment")
+
+
+def segment_chains_ref(segment_ref, args, sizes, tgt, info, i0s, log_denom):
+    """A batched twin: the one-chain twin `segment_ref` on chain c's slices
+    (``args`` its [C, ...] inputs before the outputs), for every chain whose
+    start position is below n; the others get the info row (n, -1, -1, 0).
+    i0s advances to each chain's i_next."""
+    n = tgt.shape[1]
+    for c, i0 in enumerate(i0s.tolist()):
+        if i0 >= n:
+            info[c] = torch.tensor([n, -1, -1, 0], dtype=torch.int32)
+            continue
+        segment_ref(*(a[c] for a in args), sizes[c], tgt[c], info[c], i0,
+                    log_denom[c])
+        i0s[c] = info[c, 0]
+
+
+def lazy_segment_chains_ref(z, aux, assign, perm, sizes, tgt, info, i0s,
+                            log_denom):
+    """Plain torch twin of the batched launch: lazy_segment_ref chain by
+    chain."""
+    segment_chains_ref(lazy_segment_ref, (z, aux, assign, perm), sizes, tgt,
+                       info, i0s, log_denom)
+
+
+def lazy_segment_chains(z, aux, assign, perm, sizes, tgt, info, i0s,
+                        log_denom):
+    """One batched segment launch (see the module docstring).
+
+    z [C, n, k_pad] f32; aux [C, n] f32; assign, perm [C, n] i32; sizes
+    [C, k_pad] f32; tgt [C, n] i32; info [C, 4] i32; i0s [C] i32;
+    log_denom [C] f32.
+    """
+    if z.device.type == "cpu":
+        return lazy_segment_chains_ref(z, aux, assign, perm, sizes, tgt,
+                                       info, i0s, log_denom)
+    if z.device.type != "cuda":
+        raise ValueError(f"lazy_segment_chains: unsupported device "
+                         f"{z.device}")
+    c, n, k_pad = z.shape
+    if k_pad not in tuple(32 * s for s in _SLOTS_PER_LANE):
+        raise ValueError(f"lazy_segment_chains: k_pad={k_pad} unsupported")
+    dev = z.device
+    f32, i32 = torch.float32, torch.int32
+    _build.check_tensor(z, "z", f32, (c, n, k_pad), dev)
+    _build.check_tensor(aux, "aux", f32, (c, n), dev)
+    _build.check_tensor(assign, "assign", i32, (c, n), dev)
+    _build.check_tensor(perm, "perm", i32, (c, n), dev)
+    _build.check_tensor(sizes, "sizes", f32, (c, k_pad), dev)
+    _build.check_tensor(tgt, "tgt", i32, (c, n), dev)
+    _build.check_tensor(info, "info", i32, (c, 4), dev)
+    _build.check_tensor(i0s, "i0s", i32, (c,), dev)
+    _build.check_tensor(log_denom, "log_denom", f32, (c,), dev)
+    lib = _build.load_library()
+    global chain_launches
+    chain_launches += 1
+    chain_grids[c] = chain_grids.get(c, 0) + 1
+    rc = lib.bnpc_lazy_segment_chains(
+        z.data_ptr(), aux.data_ptr(), assign.data_ptr(), perm.data_ptr(),
+        sizes.data_ptr(), tgt.data_ptr(), info.data_ptr(),
+        log_denom.data_ptr(), i0s.data_ptr(), c, n, k_pad,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "bnpc_lazy_segment_chains")

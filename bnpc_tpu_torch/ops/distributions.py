@@ -3,7 +3,7 @@ bnpc_tpu/ops/distributions.py).
 
 Constants enter as 0-d CPU tensors: torch reads them on the host as
 scalars, where a CUDA tensor built from a Python number would be a blocking
-host-to-device copy.
+host-to-device copy. Elementwise: a leading chain axis passes through.
 """
 
 from __future__ import annotations

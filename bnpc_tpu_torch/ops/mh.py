@@ -4,7 +4,9 @@ bnpc_tpu/ops/mh.py).
 Vectorized over leading axes: clusters are conditionally independent given
 the assignment, so every slot (or both split-merge launch rows) updates in
 one shot; the math per coordinate is the reference's MH_cluster_params
-(libs/CRP.py:302-383).
+(libs/CRP.py:302-383). Under a chain axis (``ax`` a ChainAxis) the leading
+axis is the chains', FP / FN are [C], and the float sums over mutations run
+chain by chain.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def mh_cluster_params(draws, params, n1, n0, fp, fn, cfg: ModelConfig,
         # coordinate's log(1 - e^A) finite when A rounds to 0.
         contrib = torch.where(
             decline, torch.log(-torch.expm1(torch.clamp(A, max=-1e-10))), A)
-        trans = ax.psum(ax.apply_mask(contrib).sum(dim=-1))
+        trans = ax.psum(ax.sum(ax.apply_mask(contrib), dim=-1))
     else:
         trans = torch.zeros(params.shape[:-1], dtype=params.dtype,
                             device=params.device)
@@ -112,4 +114,4 @@ def realized_trans_logprob(target, source, n1, n0, a, b, std, fp, fn,
     `target`, every coordinate treated as accepted (the split-merge reverse
     paths, libs/CRP.py:668-682, 777-797)."""
     A = log_A(target, source, n1, n0, a, b, std, fp, fn, cfg, clip=True)
-    return ax.psum(ax.apply_mask(A).sum(dim=-1))
+    return ax.psum(ax.sum(ax.apply_mask(A), dim=-1))

@@ -13,7 +13,10 @@ sampler:
 
 A never-accepted element falls back to the mode scale d, with probability
 <= 0.05^rounds per component (bnpc_tpu/ops/randomx.py bounds the effect).
-Every draw comes from a :class:`bnpc_tpu_torch.draws.TorchDraws`.
+Every draw comes from a :class:`bnpc_tpu_torch.draws.TorchDraws`, or, for a
+batch of chains on the card, from a StackedDraws of them: the shapes then
+lead with the chains, and the arithmetic is elementwise, so chain c's
+slice is its one-chain draw.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ bnpc_tpu/ops/truncnorm.py).
 Bounds ``a``/``b`` are in standardized units, as in scipy: the support is
 [loc + a*scale, loc + b*scale]. Used by the random-walk proposals of cluster
 parameters (libs/CRP.py:314-357) and error rates
-(libs/CRP_learning_errors.py:66-91).
+(libs/CRP_learning_errors.py:66-91). Elementwise: a leading chain axis
+(mcmc.py's chain_exec="vmap") passes through.
 """
 
 from __future__ import annotations

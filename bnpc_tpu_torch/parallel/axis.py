@@ -19,6 +19,16 @@ Every move takes a :class:`MutAxis` (default: unsharded, a no-op):
                     multiple of the shard count) in prior sums, MH
                     transition probabilities and telemetry counts.
 
+A batch of chains (mcmc.py's ``chain_exec="vmap"``) takes a
+:class:`ChainAxis` in its place: the chain axis beside the mutation axis
+``mut`` of every chain, to which it hands ``psum``, ``fold_key`` and the
+mask. Both axes share the float sums and products of a step (``sum``,
+``rmul``): on one chain they are the plain torch calls; over a chain axis
+they run chain by chain, each the very call of the one-chain step on that
+chain's slice, so a batched chain gets its one-chain run's bits (a
+reduction or a cuBLAS product over a [C, ...] tensor may order its
+additions otherwise).
+
 The module counts its all-reduces (``all_reduces``, ``all_reduce_bytes``);
 with ``timed`` set it also sums their host seconds, synchronizing the
 device before and after each one (``all_reduce_seconds``).
@@ -64,8 +74,21 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+class _Sums:
+    """The float sums and products of a step on one chain (see the module
+    docstring)."""
+
+    def sum(self, x, dim=None):
+        """Sum of `x` (over `dim` when given, a negative dim)."""
+        return torch.sum(x) if dim is None else x.sum(dim=dim)
+
+    def rmul(self, w, x):
+        """``w @ x`` for a shared `w` (the data)."""
+        return w @ x
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class MutAxis:
+class MutAxis(_Sums):
     group: object = None  # the mutation group (a ProcessGroup), or None
     index: int = 0        # this rank's index in the group
     size: int = 1         # ranks in the group
@@ -89,3 +112,51 @@ class MutAxis:
     @property
     def sharded(self) -> bool:
         return self.group is not None
+
+    @property
+    def mut(self) -> MutAxis:
+        """The mutation axis of one chain: this axis itself."""
+        return self
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """`x`, or a copy where its address is not aligned as a fresh tensor's
+    would be (16 bytes on CUDA, 64 on the CPU): a slice of a batch starts
+    where its chain does, and a reduction or a BLAS product may take
+    another path, and another order of additions, by the address."""
+    return x.clone() if x.data_ptr() % (16 if x.is_cuda else 64) else x
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ChainAxis(_Sums):
+    """The chain axis of a batched step: every tensor of the step's state
+    has a leading axis of `chains` chains, each chain on the mutation axis
+    `mut`. Its sums and products are taken chain by chain (module
+    docstring)."""
+
+    chains: int = 1
+    mut: MutAxis = MutAxis()
+
+    def psum(self, x):
+        return self.mut.psum(x)
+
+    def fold_key(self, draws):
+        return self.mut.fold_key(draws)
+
+    def apply_mask(self, x):
+        return self.mut.apply_mask(x)
+
+    @property
+    def mask(self):
+        return self.mut.mask
+
+    @property
+    def sharded(self) -> bool:
+        return self.mut.sharded
+
+    def sum(self, x, dim=None):
+        return torch.stack([_Sums.sum(self, _own(x[c]), dim)
+                            for c in range(self.chains)])
+
+    def rmul(self, w, x):
+        return torch.stack([w @ _own(x[c]) for c in range(self.chains)])

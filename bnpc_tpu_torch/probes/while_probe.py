@@ -31,7 +31,7 @@ the card it then times (a) a full no-birth run from i0 = 0 on finite sizes,
 beside lazy_segment on the same z and perm, and (b) one relaunch at
 i0 = n - 1: by CUDA events around the call, and by host clock until the
 call returns and until ``info.tolist()`` returns, the lazy driver's fixed
-cost per birth (models/gibbs.py::_lazy_impl).
+cost per birth (models/gibbs.py::_segment_impl).
 """
 
 from __future__ import annotations

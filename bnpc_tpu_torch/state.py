@@ -7,10 +7,16 @@ A cluster is a slot in [0, k_max):
   params[k_max, m]    float32, one genotype-parameter row per slot
   cluster_size[k_max] int32, 0 == free slot (rows of free slots are stale)
   dp_alpha, fp, fn    0-d float32 tensors
+
+A batch of chains (mcmc.py's chain_exec="vmap") is one CRPState whose
+fields carry a leading chain axis: assignment [C, n], params [C, k_max, m],
+cluster_size [C, k_max], dp_alpha / fp / fn [C] (stack_states). The
+helpers below take either form.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -36,13 +42,68 @@ class CRPState(NamedTuple):
 
     @property
     def n_clusters(self) -> torch.Tensor:
-        return self.live.sum().to(torch.int32)
+        return self.live.sum(-1).to(torch.int32)
+
+
+def stack_states(states) -> CRPState:
+    """One batched state from a list of one-chain states."""
+    return CRPState(*(torch.stack(f) for f in zip(*states)))
+
+
+def unstack_states(state: CRPState) -> list[CRPState]:
+    """The one-chain states of a batched state (copies, not views)."""
+    return [CRPState(*(f[c].clone() for f in state))
+            for c in range(state.assignment.shape[0])]
+
+
+def take_states(state: CRPState, idx: torch.Tensor) -> CRPState:
+    """The chains at device indices `idx` of a batched state."""
+    return CRPState(*(f.index_select(0, idx) for f in state))
+
+
+def put_states(state: CRPState, idx: torch.Tensor, sub: CRPState):
+    """`state` with the chains at device indices `idx` replaced by `sub`."""
+    return CRPState(*(f.index_copy(0, idx, g) for f, g in zip(state, sub)))
+
+
+def by_chain_flag(state: CRPState, flags, flags_dev, fn, ax):
+    """Run a move on each group of chains with one value of a per-chain
+    host flag: fn(value, sub_state, sub_ax, take, idx) -> (sub_state,
+    counts or None), where `take(k)` gives the group's draws of the
+    provider k and `idx` its device indices (None: the whole state).
+
+    One chain (`flags` a list of one) or a batch whose chains agree runs fn
+    once on the whole state with `ax`; otherwise the chains that are True
+    and those that are False run as two sub-batches (gathered, moved,
+    scattered back), so each chain draws what its one-chain move draws.
+    `flags_dev()` gives the flags on the device and is called only then:
+    the indices come from it, so none is copied from the host. Returns
+    (state, counts), [C, ...] counts zero where fn gave None, or None where
+    every call gave None."""
+    values = sorted(set(flags), reverse=True)
+    if len(values) == 1:
+        return fn(values[0], state, ax, lambda k: k, None)
+    order = torch.argsort((~flags_dev()).to(torch.int8), stable=True)
+    n_true = sum(flags)
+    counts = None
+    for value, idx in ((True, order[:n_true]), (False, order[n_true:])):
+        host = [c for c, f in enumerate(flags) if f == value]
+        sub, c = fn(value, take_states(state, idx),
+                    dataclasses.replace(ax, chains=len(host)),
+                    lambda k, host=host: k.take(host), idx)
+        state = put_states(state, idx, sub)
+        if c is not None:
+            if counts is None:
+                counts = c.new_zeros((len(flags),) + tuple(c.shape[1:]))
+            counts = counts.index_copy(0, idx, c)
+    return state, counts
 
 
 def first_free_slot(cluster_size: torch.Tensor) -> torch.Tensor:
     """Lowest slot id with size 0 (libs/CRP.py:297-299 analogue); 0 when
     every slot is taken, as jnp.argmax of an all-False mask."""
-    return torch.argmax((cluster_size == 0).to(torch.int32)).to(torch.int32)
+    return torch.argmax((cluster_size == 0).to(torch.int32),
+                        dim=-1).to(torch.int32)
 
 
 def cluster_stats(data: PackedData, assignment: torch.Tensor, k_max: int):
@@ -50,7 +111,13 @@ def cluster_stats(data: PackedData, assignment: torch.Tensor, k_max: int):
     of cells in slot k with observed x==1 (x==0) at mutation j. Row
     scatter-adds; the counts are exact integers in float32, so the order of
     the additions does not matter. (F.one_hot would read the assignment's
-    range on the host.)"""
+    range on the host.) A [C, n] assignment gives [C, k_max, m] each."""
+    if assignment.dim() == 2:
+        shape = (assignment.shape[0],) + tuple(data.xm.shape)
+        idx = assignment.long()[:, :, None].expand(shape)
+        zeros = data.xm.new_zeros((shape[0], k_max, shape[2]))
+        return (zeros.scatter_add(1, idx, data.xm.expand(shape)),
+                zeros.scatter_add(1, idx, data.xm0.expand(shape)))
     idx = assignment.long()
     zeros = data.xm.new_zeros((k_max, data.xm.shape[1]))
     return (zeros.index_add(0, idx, data.xm),

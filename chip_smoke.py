@@ -154,12 +154,43 @@ Phases (any failure exits non-zero, and no result line is printed):
                ndtri difference shows at that scale); (e) cli.main with
                --mesh 1,2 and --mesh 2,1 at the main cell, -s 64: one set
                of files, "Writing output to" printed once.
+ 12. chains  — batched chains (MCMCRunner chain_exec="vmap": every chain
+               steps at once, kernels 1, 3 and 2 on a grid of one block a
+               chain): (a) each of the three kernels (kernel 3 in both
+               layouts, the shared-memory one at k_pad 2,016) on a crafted
+               5-chain batch, == its batched twin and == five one-chain
+               launches exactly (kernels 1 and 3: a birth at the start, a
+               birth at n - 1, no birth, a chain already done, a birth mid-
+               segment; kernel 2: s_count 0, 1, 37, 1,984 and n), and at
+               the large-n path's shapes: kernel 3 on the 131,072 x 128 Z
+               (register layout; chains started near the end: a birth, a
+               run to n, a chain already done) and kernel 2 at n =
+               131,072 (s_count n, 6,557 and 1), each == its batched twin
+               and == one one-chain launch a chain; one batched launch timed at C = 1, 4, 16, 132 chains (kernels 1
+               and 2, main shape) and C = 1, 4, 16 (kernel 3, 131,072 x
+               128), beside the one-chain wrapper; (b) the main cell, 4
+               chains x 128 steps, "vmap" against "sequential" in this call:
+               chain by chain assignments and MH counts exactly, floats to
+               rtol 1e-6 (and whether bit for bit), chain-steps/s of both,
+               every kernel launch of the batched run on a chain grid (the
+               grids counted); a profiled step of all 4 chains in each form
+               (launches, draw calls, device busy share, host syncs); the
+               lazy loop's rounds a sweep against each chain's launches;
+               64 steps saved under "vmap" resumed under "sequential" ==
+               the uninterrupted run, bit for bit; (c) 16 chains x 64 steps;
+               (d) 4 coupled chains x 64 steps; (e) the large-n cell, 2
+               chains x 16 steps, kernels 3 and 2 on grids of 2; (f)
+               cli.main -n 4 -s 128: the chain_exec "auto" chose printed,
+               the files parsed. Then whether the batch reached the
+               sequential chain-steps/s at both cells (the rule of "auto").
 
 Before each of phases 5-7, before each probe in phase 8, before each CLI
 run of phase 9 and before each run of phase 10 that is checked for its
 launches, every kernel's launch counter is set to 0; the counters read
 after it are that path's launches (the probes' paths are their main()s).
-The kernel line's launches are those of phases 5-8; phase 11's ranks
+The kernel line's launches are those of phases 5-8 (kernels 1-3 add
+batched_ms, one launch of 16 chains, and batched_launches, those of phase
+12 (b) and (e)); phase 11's ranks
 count their own launches (each rank's counters are 0 before each run).
 The last three lines are the nvidia-smi line, a JSON line with one entry
 per kernel, and {"ok": true, "device": {...}}; before them, the script's
@@ -257,9 +288,18 @@ def kernel_modules():
 def reset_launches():
     for mod in kernel_modules().values():
         mod.launches = 0
+        if hasattr(mod, "chain_launches"):
+            mod.chain_launches = 0
+            mod.chain_grids.clear()
 
 
 def read_launches():
+    """Each kernel's launches since the reset, one-chain and batched."""
+    return {name: mod.launches + getattr(mod, "chain_launches", 0)
+            for name, mod in kernel_modules().items()}
+
+
+def read_one_chain_launches():
     return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
@@ -1583,9 +1623,14 @@ def compare_inferred(tag, gpu, cpu, psrf_gpu, psrf_cpu):
                                            err_msg=f"{tag} {est} {key}")
 
 
-def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi):
+def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi,
+            verbosity="0"):
     """One CLI run through bnpc_tpu_torch.cli.main on the card; its
-    launches, outputs and stage times."""
+    launches, outputs and stage times; with a verbosity above 0, its
+    standard output (captured)."""
+    import contextlib
+    import io as pyio
+
     import torch
 
     from bnpc_tpu_torch import cli
@@ -1598,9 +1643,12 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi):
     made = time.perf_counter() - t0
     out_dir = os.path.join(tmp, f"{cell}_out")
     args = cli.parse_args([path, *argv, "-b", "0.33", "-np", "--seed", "0",
-                           "-o", out_dir, "-v", "0", "--device", dev])
+                           "-o", out_dir, "-v", verbosity, "--device", dev])
     reset_launches()
-    with Stages() as stages:
+    text = pyio.StringIO()
+    with Stages() as stages, (contextlib.redirect_stdout(text)
+                              if verbosity != "0"
+                              else contextlib.nullcontext()):
         t0 = time.perf_counter()
         cli.main(args)
         torch.cuda.synchronize()
@@ -1615,7 +1663,8 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi):
         f"; posterior ARI vs planted clones {score:.4f}")
     log(f"  stage seconds ({cell}; {smi}): {json.dumps(line)}")
     return {"wall_s": wall, "stages_s": line, "launches": launches,
-            "ari_posterior": score, "output_args": stages.output_args}
+            "ari_posterior": score, "output_args": stages.output_args,
+            "stdout": text.getvalue()}
 
 
 def phase_cli(dev, smi):
@@ -1746,9 +1795,12 @@ def check_results(tag, results, states, n, k_max, rows):
 
 
 def modes_runner(data, cfg, mc, dev, **kwargs):
+    """A runner of phase 10: its chains one after another (phase 12 runs
+    the batched form)."""
     from bnpc_tpu_torch.data import pack_data
     from bnpc_tpu_torch.mcmc import MCMCRunner
 
+    kwargs.setdefault("chain_exec", "sequential")
     return MCMCRunner(cfg, mc, pack_data(data, dev), device=dev, **kwargs)
 
 
@@ -2223,7 +2275,8 @@ def phase_mesh(dev, smi):
         # (a) each chain against its one-process run, in this process.
         data, truth = make_data(N, M, 10, 0.1, seed=0)
         cfg, mc = bench_configs(N, K_MAX)
-        one = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev)
+        one = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                         chain_exec="sequential")
         want = one.run((MESH_STEPS, 42), seed=21, n_chains=2)
         a0, a1 = ranks[0]["a"], ranks[1]["a"]
         if a1["results"] is not None or a0["seeds"] != one.seeds.tolist():
@@ -2333,6 +2386,618 @@ def phase_mesh(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: batched chains (MCMCRunner chain_exec="vmap")
+# ---------------------------------------------------------------------------
+
+CHAIN_GRIDS = (1, 4, 16, 132)
+
+
+def read_chain_launches():
+    """{kernel: (batched launches, {grid: launches})} of the three sampler
+    kernels that take a chain grid."""
+    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream
+
+    return {name: (mod.chain_launches, dict(mod.chain_grids))
+            for name, mod in (("lazy_segment", cuda_gibbs),
+                              ("rg_scan", cuda_rg),
+                              ("lazy_stream", cuda_stream))}
+
+
+# Crafted chains of a segment batch, (start, birth position or None) each:
+# a birth at the start, one at position n - 1, none, a chain already done,
+# a birth mid-segment.
+SEGMENT_PLAN = ("a birth at the start, one at n - 1, none, a chain already "
+                "done, one mid-segment",
+                lambda n: [(n // 4, n // 4), (0, n - 1), (37, None),
+                           (n, None), (5, n // 2)])
+# The large-n path's shape, the chains started near the end so that the
+# twin stays short: a birth, a run to n with none, a chain already done.
+SEGMENT_PLAN_LATE = ("starts near the end: a birth, a run to n with none, "
+                     "a chain already done",
+                     lambda n: [(n - 5000, n - 3766), (n - 4000, None),
+                                (n, None)])
+
+
+def segment_batch(dev, n, k_pad, k_max, stream, seed, plan):
+    """A crafted batch of a segment kernel, one chain for each (start,
+    birth position or None) of `plan`, each chain its own z, aux,
+    pre-sweep assignment and permutation. Returns ([C, ...] device inputs,
+    starts, expected (i_next, birth position) per chain)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    z, aux, assign, perm, sizes = [], [], [], [], []
+    for start, hot in plan:
+        z.append((rng.standard_normal((n, k_pad)) * 4.0).astype(np.float32))
+        p = np.arange(n) if stream else rng.permutation(n)
+        perm.append(p.astype(np.int32))
+        a = np.full(n, -1e30, np.float32)
+        if hot is not None:
+            a[p[hot]] = 1e30
+        aux.append(a)
+        assign.append(rng.integers(0, k_max - 56, n).astype(np.int32))
+        s = np.bincount(assign[-1], minlength=k_pad).astype(np.float32)
+        s[k_max:] = -1.0
+        sizes.append(s)
+    log_denom = np.log(n - 1.0 + np.arange(2.0, 2.0 + len(plan))).astype(
+        np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.stack(x) if isinstance(x, list)
+                                else x).to(dev)
+
+    inputs = dict(z=t(z), aux=t(aux), assign=t(assign), perm=t(perm),
+                  sizes=t(sizes), log_denom=t(log_denom))
+    want = [(n, -1) if hot is None else (hot + 1, hot) for _, hot in plan]
+    return inputs, [start for start, _ in plan], want
+
+
+def segment_chains_check(name, dev, n, k_pad, k_max, stream, seed,
+                         plan=SEGMENT_PLAN):
+    """Kernel 1 or 3 on a crafted batch (`plan`: its description and its
+    chains for n): == its batched twin (on CPU copies), == one one-chain
+    launch a chain, and each chain's info as planned. Returns the compared
+    pairs."""
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_stream
+
+    what, chains = plan
+    inp, starts, want = segment_batch(dev, n, k_pad, k_max, stream, seed,
+                                      chains(n))
+    if stream:
+        names = ("z", "aux", "assign")
+        batched = cuda_stream.lazy_segment_stream_chains
+        twin = cuda_stream.lazy_segment_stream_chains_ref
+        single = cuda_stream.lazy_segment_stream
+    else:
+        names = ("z", "aux", "assign", "perm")
+        batched = cuda_gibbs.lazy_segment_chains
+        twin = cuda_gibbs.lazy_segment_chains_ref
+        single = cuda_gibbs.lazy_segment
+    c_all = len(starts)
+
+    def run(fn, on):
+        args = [inp[k].to(on) for k in names]
+        sizes = inp["sizes"].to(on).clone()
+        tgt = torch.full((c_all, n), -7, dtype=torch.int32, device=on)
+        info = torch.zeros((c_all, 4), dtype=torch.int32, device=on)
+        i0s = torch.tensor(starts, dtype=torch.int32).to(on)
+        fn(*args, sizes, tgt, info, i0s, inp["log_denom"].to(on))
+        return [x.to(dev) for x in (tgt, sizes, info, i0s)]
+
+    got = run(batched, dev)
+    torch.cuda.synchronize()
+    ref = run(twin, "cpu")
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError(f"{name} chains: kernel {got[2].tolist()} != "
+                             f"twin {ref[2].tolist()} or targets / sizes / "
+                             "starts differ")
+    # The same kernel one chain at a time, from each chain's start.
+    for c, start in enumerate(starts):
+        sizes = inp["sizes"][c].clone()
+        tgt = torch.full((n,), -7, dtype=torch.int32, device=dev)
+        info = torch.zeros((4,), dtype=torch.int32, device=dev)
+        single(*(inp[k][c] for k in names), sizes, tgt, info, start,
+               inp["log_denom"][c])
+        if not (torch.equal(tgt, got[0][c]) and torch.equal(sizes, got[1][c])
+                and torch.equal(info, got[2][c])):
+            raise AssertionError(f"{name} chains: chain {c}'s batched "
+                                 "launch != its one-chain launch")
+    for c, (i_next, pos) in enumerate(want):
+        info = got[2][c].tolist()
+        cell = pos if stream or pos < 0 else int(inp["perm"][c][pos])
+        if info[0] != i_next or info[1] != cell or int(got[3][c]) != i_next:
+            raise AssertionError(f"{name} chains: chain {c} info {info}, "
+                                 f"expected i_next {i_next}, birth {cell}")
+    log(f"  {name} chains (n={n}, k_pad={k_pad}; {what}): info "
+        f"{got[2].tolist()} — kernel == twin == {c_all} one-chain launches")
+    return list(zip(got, ref))
+
+
+def rg_chains_check(dev, n, counts):
+    """Kernel 2 on a batch of one chain a s_count of `counts`, each chain
+    its own dz, launch sides and table: == its batched twin and == one
+    one-chain launch a chain."""
+    import torch
+
+    from bnpc_tpu_torch.ops.cuda_rg import (rg_scan, rg_scan_chains,
+                                            rg_scan_chains_ref)
+
+    dz, lau, dtab, c1 = [], [], [], []
+    for c, s_count in enumerate(counts):
+        d, la = rg_inputs(n, 40 + c, dev)
+        dz.append(d)
+        lau.append(la)
+        dtab.append(rg_table(n, s_count + 2, dev))
+        c1.append(la[:s_count].sum().to(torch.int32))
+    dz, lau, dtab = torch.stack(dz), torch.stack(lau), torch.stack(dtab)
+    s_count = torch.tensor(counts, dtype=torch.int32).to(dev)
+    count1 = torch.stack(c1)
+    got = rg_scan_chains(dz, lau, dtab, s_count, count1)
+    ref = rg_scan_chains_ref(dz.cpu(), lau.cpu(), dtab.cpu(), s_count.cpu(),
+                             count1.cpu()).to(dev)
+    pos = torch.arange(n, device=dev)
+    valid = pos < s_count[:, None]
+    if not torch.equal(torch.where(valid, got, 0), torch.where(valid, ref, 0)):
+        raise AssertionError(f"rg_scan chains (n={n}): kernel != twin")
+    for c in range(len(counts)):
+        one = rg_scan(dz[c], lau[c], dtab[c], s_count[c], count1[c])
+        if not torch.equal(one[:counts[c]], got[c, :counts[c]]):
+            raise AssertionError(f"rg_scan chains (n={n}): chain {c}'s "
+                                 "batched launch != its one-chain launch")
+    log(f"  rg_scan chains (n={n}; s_count {list(counts)}): kernel == twin "
+        f"== {len(counts)} one-chain launches")
+    return [(torch.where(valid, got, 0), torch.where(valid, ref, 0))]
+
+
+def chain_timings(dev, k_ms):
+    """Median ms of one batched launch at C chains: kernels 1 and 2 at the
+    main shape for C in CHAIN_GRIDS, kernel 3 on the 131,072 x 128 Z for
+    C in (1, 4); beside the one-chain wrapper on chain 0's input in this
+    call and phase 3's time. Returns {kernel: {...}}."""
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    out = {}
+
+    def segment_inputs(c_all, n, k_pad, k_max):
+        z = torch.randn((c_all, n, k_pad), generator=gen, device=dev) * 4.0
+        aux = torch.full((c_all, n), -1e30, device=dev)
+        assign = torch.randint(0, k_max - 56, (c_all, n), generator=gen,
+                               device=dev, dtype=torch.int32)
+        perm = torch.argsort(torch.rand((c_all, n), generator=gen,
+                                        device=dev), dim=-1).to(torch.int32)
+        sizes = torch.zeros((c_all, k_pad), device=dev).scatter_add_(
+            1, assign.long(), torch.ones((c_all, n), device=dev))
+        sizes[:, k_max:] = -1.0
+        log_denom = torch.full((c_all,), float(np.log(n - 1.0 + 10.0)),
+                               device=dev)
+        return z, aux, assign, perm, sizes, log_denom
+
+    def time_segment(name, fn, one, grids, n, k_pad, k_max, stream, reps):
+        res, single_ms = {}, None
+        for c_all in grids:
+            z, aux, assign, perm, sizes0, log_denom = segment_inputs(
+                c_all, n, k_pad, k_max)
+            args = (z, aux, assign) if stream else (z, aux, assign, perm)
+            tgt = torch.empty((c_all, n), dtype=torch.int32, device=dev)
+            info = torch.empty((c_all, 4), dtype=torch.int32, device=dev)
+            i0s = torch.zeros((c_all,), dtype=torch.int32, device=dev)
+            buf = iter([sizes0.clone() for _ in range(reps)])
+
+            def launch():
+                i0s.zero_()
+                fn(*args, next(buf), tgt, info, i0s, log_denom)
+
+            res[c_all] = cuda_ms(launch, reps)
+            if c_all == 1:
+                buf = iter([sizes0[0].clone() for _ in range(reps)])
+                single_ms = cuda_ms(lambda: one(
+                    *(a[0] for a in args), next(buf), tgt[0], info[0], 0,
+                    log_denom[0]), reps)
+            if int(info[:, 0].min()) != n:
+                raise AssertionError(f"{name} timing: a chain stopped "
+                                     "early")
+            del z, args
+        # Every chain: its z rows, aux, assign (perm) in, its targets out,
+        # its sizes row in and out.
+        per_chain = (4 * (n * k_pad + (3 if stream else 4) * n + 2 * k_pad
+                          + 4), OPS_PER_SLOT * n * k_pad)
+        return res, single_ms, per_chain
+
+    k1, k1_one, k1_chain = time_segment(
+        "lazy_segment", cuda_gibbs.lazy_segment_chains,
+        cuda_gibbs.lazy_segment, CHAIN_GRIDS, N, 256, K_MAX, False, 11)
+    k3, k3_one, k3_chain = time_segment(
+        "lazy_stream", cuda_stream.lazy_segment_stream_chains,
+        cuda_stream.lazy_segment_stream, (1, 4, 16), N_LARGE, K_LARGE,
+        K_LARGE, True, 5)
+    for name, res, one, chain in (("lazy_segment", k1, k1_one, k1_chain),
+                                  ("lazy_stream", k3, k3_one, k3_chain)):
+        out[name] = {"batched_ms": res, "one_chain_ms": one,
+                     "phase3_ms": k_ms.get(name),
+                     "bound_ms": {c: bound(c * chain[0], c * chain[1])[0]
+                                  for c in res}}
+
+    # Kernel 2 at s_count = n in every chain.
+    k2, k2_one = {}, None
+    for c_all in CHAIN_GRIDS:
+        dz = torch.randn((c_all, N), generator=gen, device=dev) * 2.0
+        lau = torch.randint(0, 2, (c_all, N), generator=gen, device=dev,
+                            dtype=torch.int32)
+        dtab = rg_table(N, N + 2, dev).expand(c_all, N + 2).contiguous()
+        sc = torch.full((c_all,), N, dtype=torch.int32, device=dev)
+        c1 = lau.sum(-1).to(torch.int32) // 2
+        k2[c_all] = cuda_ms(lambda: cuda_rg.rg_scan_chains(
+            dz, lau, dtab, sc, c1), 21)
+        if c_all == 1:
+            k2_one = cuda_ms(lambda: cuda_rg.rg_scan(dz[0], lau[0], dtab[0],
+                                                     sc[0], c1[0]), 21)
+    out["rg_scan"] = {"batched_ms": k2, "one_chain_ms": k2_one,
+                      "phase3_ms": k_ms.get("rg_scan"),
+                      "bound_ms": {c: bound(c * 4 * (4 * N + 4),
+                                            c * 4 * N)[0] for c in k2}}
+    for name, t in out.items():
+        z_mb = {"lazy_segment": 4 * N * 256, "lazy_stream":
+                4 * N_LARGE * K_LARGE, "rg_scan": 0}[name] / 1e6
+        log(f"  {name} one batched launch: " + ", ".join(
+            f"C={c} {ms:.4f} ms" for c, ms in t["batched_ms"].items())
+            + f"; one-chain wrapper on chain 0 {t['one_chain_ms']:.4f} ms"
+            + (f", phase 3 {t['phase3_ms']:.4f} ms" if t["phase3_ms"]
+               else "")
+            + (f" (Z {z_mb:.1f} MB a chain)" if z_mb else ""))
+    return out
+
+
+def chains_runner(data, cfg, mc, dev, chain_exec, **kw):
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.mcmc import MCMCRunner
+
+    return MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                      chain_exec=chain_exec, **kw)
+
+
+def close_results(tag, got, want):
+    """Two runs' ChainResults chain by chain: assignments and MH counts
+    exactly, floats to rtol 1e-6. Returns whether they are equal bit for
+    bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} chains, not {len(want)}")
+    bits = True
+    for c, (g, w) in enumerate(zip(got, want)):
+        for f in ("assignments", "mh_counts"):
+            if not np.array_equal(getattr(g, f), getattr(w, f)):
+                raise AssertionError(f"{tag}: chain {c} {f} differ")
+        for f in ("ML", "MAP", "DP_alpha", "FN", "FP", "params"):
+            np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                       rtol=1e-6, err_msg=f"{tag} {c} {f}")
+            bits &= np.array_equal(getattr(g, f), getattr(w, f))
+    return bits
+
+
+def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
+                   n, k_max, **kw):
+    """One run under chain_exec="vmap" and one under "sequential" (same
+    seed, same call): equal chain by chain; chain-steps/s of both; the
+    batched run's launches (every kernel launch of it on a chain grid)."""
+    import torch
+
+    out, results = {}, {}
+    sweep = "lazy_stream" if "lazy_stream" in kernels else "lazy_segment"
+    for ex in ("vmap", "sequential"):
+        runner = chains_runner(data, cfg, mc, dev, ex, **kw)
+        kept = KeepStates(runner)
+        reset_launches()
+        with SweepCounts() as sweeps:
+            t0 = time.perf_counter()
+            results[ex] = runner.run((steps, steps // 2), seed=seed,
+                                     n_chains=n_chains)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        check_results(f"{tag} {ex}", results[ex], kept.states, n, k_max,
+                      steps + 1)
+        out[ex] = {"chain_steps_per_s": n_chains * steps / secs,
+                   "seconds": secs}
+        if ex == "sequential":
+            # Each chain's sweep: births + 1 launches.
+            out[ex]["launches_per_sweep"] = (
+                read_launches()[sweep] / max(sweeps.one, 1))
+        else:
+            # A batched sweep: max over its chains of (births + 1) rounds.
+            out[ex]["rounds_per_sweep"] = (
+                read_chain_launches()[sweep][0] / max(sweeps.batched, 1))
+            out[ex]["sweeps"] = sweeps.batched
+            single = read_one_chain_launches()
+            batched = read_chain_launches()
+            if any(single.values()) or any(
+                    (batched[k][0] > 0) != (k in kernels) for k in batched):
+                raise AssertionError(f"{tag}: one-chain launches {single}, "
+                                     f"batched {batched}; expected only "
+                                     f"{sorted(kernels)}, batched")
+            out["launches"] = batched
+    out["bit_for_bit"] = close_results(tag, results["vmap"],
+                                       results["sequential"])
+    out["ratio"] = (out["vmap"]["chain_steps_per_s"]
+                    / out["sequential"]["chain_steps_per_s"])
+    log(f"  {tag}: {n_chains} chains x {steps} steps; vmap "
+        f"{out['vmap']['chain_steps_per_s']:.3f} chain-steps/s, sequential "
+        f"{out['sequential']['chain_steps_per_s']:.3f} (x{out['ratio']:.3f}"
+        f"); vmap == sequential chain by chain (bit for bit: "
+        f"{out['bit_for_bit']}); batched launches (kernel: (launches, "
+        f"{{grid: launches}})) {out['launches']}; {sweep}: "
+        f"{out['vmap']['rounds_per_sweep']:.3f} rounds in each of "
+        f"{out['vmap']['sweeps']} batched sweeps, "
+        f"{out['sequential']['launches_per_sweep']:.3f} launches a "
+        "one-chain sweep")
+    return out
+
+
+class SweepCounts:
+    """While active, counts the exact Gibbs sweeps of the lazy and stream
+    impls (``_segment_impl``), one-chain and batched (one call for a
+    sub-batch of chains)."""
+
+    def __enter__(self):
+        from bnpc_tpu_torch.models import gibbs
+
+        self.one, self.batched = 0, 0
+        self.saved = fn = gibbs._segment_impl
+
+        def counted(state, *args, **kwargs):
+            if state.assignment.dim() == 1:
+                self.one += 1
+            else:
+                self.batched += 1
+            return fn(state, *args, **kwargs)
+
+        gibbs._segment_impl = counted
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.models import gibbs
+
+        gibbs._segment_impl = self.saved
+
+
+class DrawCalls:
+    """While active, counts the calls of TorchDraws' primitive draws (each
+    one launch or more on the card)."""
+
+    NAMES = ("uniform", "normal", "bits", "randint", "permutation", "gamma")
+
+    def __enter__(self):
+        from bnpc_tpu_torch.draws import TorchDraws
+
+        self.calls, self.saved = 0, {}
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(TorchDraws, name)
+
+            def counted(*args, _fn=fn, **kwargs):
+                self.calls += 1
+                return _fn(*args, **kwargs)
+
+            setattr(TorchDraws, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.draws import TorchDraws
+
+        for name, fn in self.saved.items():
+            setattr(TorchDraws, name, fn)
+
+
+def step_profile(tag, step_fn, steps):
+    """`steps` calls of step_fn under torch.profiler (device activity
+    only): kernel launches and device busy share, and TorchDraws'
+    primitive draw calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with DrawCalls() as draws, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    kernels = [e for e in table
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    by_name = {}
+    for e in kernels:
+        name = e.key.replace("void ", "").replace("at::native::", "")
+        name = name.split("(")[0][:90]
+        by_name[name] = by_name.get(name, 0) + e.count / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"launches_per_step": launches / steps,
+           "busy_share": dev_ms / wall_ms, "wall_ms_per_step": wall_ms / steps,
+           "draw_calls_per_step": draws.calls / steps,
+           "draw_share_of_launches": draws.calls / max(launches, 1),
+           "top_kernels_per_step": dict(top)}
+    log(f"  {tag}: {out['launches_per_step']:.1f} kernel launches a step, "
+        f"{out['draw_calls_per_step']:.1f} of them draw calls "
+        f"({out['draw_share_of_launches']:.4f}); device busy "
+        f"{out['busy_share']:.4f} of {out['wall_ms_per_step']:.2f} ms a step "
+        "(torch.profiler)")
+    log("    most launched kernels a step: " + "; ".join(
+        f"{k} {v:.1f}" for k, v in out["top_kernels_per_step"].items()))
+    return out
+
+
+def chains_step_costs(dev, data, cfg, mc, n_chains, steps):
+    """Per step of the main cell, batched (one step of every chain) against
+    sequential (one step of each chain in turn), from the same states 16
+    steps into a run and the same generator states, so both forms take the
+    same moves: launches, draw calls, device busy share (profiled) and
+    host syncs."""
+    from bnpc_tpu_torch.draws import StackedDraws, TorchDraws
+    from bnpc_tpu_torch.state import stack_states
+
+    runner = chains_runner(data, cfg, mc, dev, "vmap")
+    states = [runner.init_chains(TorchDraws(c, dev))[0]
+              for c in range(n_chains)]
+    gens = [TorchDraws(100 + c, dev) for c in range(n_chains)]
+    # Past the first steps' many clusters.
+    states, _, gens = runner.run_chains(states, gens, 16)
+    gen_states = [d.gen.get_state() for d in gens]
+    batch = [stack_states(states)]
+
+    def batched():
+        batch[0], _ = runner._step(batch[0], StackedDraws(gens))
+
+    seq = list(states)
+
+    def sequential():
+        for c in range(n_chains):
+            seq[c], _ = runner._step(seq[c], gens[c])
+
+    out = {}
+    for tag, fn in (("vmap", batched), ("sequential", sequential)):
+        for d, g in zip(gens, gen_states):
+            d.gen.set_state(g)
+        out[tag] = step_profile(f"{tag} step of {n_chains} chains", fn,
+                                steps)
+        out[tag]["host_syncs_per_step"] = syncs_per_step(
+            lambda k: [fn() for _ in range(k)], 4)
+        log(f"    host syncs a step ({tag}, all {n_chains} chains): "
+            f"{out[tag]['host_syncs_per_step']:.3f}")
+    return out
+
+
+def chains_resume(dev, data, cfg, mc, tmp):
+    """2 chains, block 32: 32 steps under vmap with a checkpoint, resumed
+    under sequential to 64 == the uninterrupted vmap run, bit for bit."""
+    ck = os.path.join(tmp, "chains_ck")
+    kw = dict(block_size=32, checkpoint_dir=ck, checkpoint_every=1)
+    chains_runner(data, cfg, mc, dev, "vmap", **kw).run((32, 16), seed=31,
+                                                        n_chains=2)
+    resumed = chains_runner(data, cfg, mc, dev, "sequential", **kw).run(
+        (64, 16), seed=31, n_chains=2)
+    full = chains_runner(data, cfg, mc, dev, "vmap", block_size=32).run(
+        (64, 16), seed=31, n_chains=2)
+    same_results("chains: vmap checkpoint resumed under sequential",
+                 resumed, full)
+    log("  32 steps of 2 chains saved under vmap, resumed under sequential "
+        "to 64 == the uninterrupted vmap run, bit for bit: ok")
+
+
+def chains_cli(dev, tmp, smi):
+    """(f) cli.main -n 4 -s 128 at the main cell: the chain_exec "auto"
+    chose (printed), the files."""
+    from bnpc_tpu_torch import mcmc
+
+    cell = cli_run(dev, tmp, "chains", N, 10,
+                   ["-n", "4", "-s", "128", "-e", "posterior"],
+                   ["posterior"], "lazy_segment", smi, verbosity="1")
+    text = cell.pop("stdout")
+    want = f"chain_exec: {mcmc.AUTO_CUDA_CHAIN_EXEC}"
+    if want not in text:
+        raise AssertionError(f"cli -n 4: '{want}' not printed")
+    args = cell.pop("output_args")[0]
+    if len(args.chain_seeds) != 4:
+        raise AssertionError(f"cli -n 4: chain_seeds {args.chain_seeds}")
+    log(f"  (f) cli -n 4 -s 128: printed '{want}'; files parsed, 4 "
+        f"chain_seeds; {cell['wall_s']:.3f} s")
+    return {"wall_s": cell["wall_s"], "chain_exec":
+            mcmc.AUTO_CUDA_CHAIN_EXEC, "ari_posterior": cell["ari_posterior"]}
+
+
+def phase_chains(dev, smi, k):
+    """Phase 12: batched chains (chain_exec="vmap") — see the module
+    docstring. `k` holds phase 3's results (for its times)."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out, parts = {}, {}
+
+    @contextlib.contextmanager
+    def part(name):
+        t0 = time.perf_counter()
+        yield
+        parts[name] = time.perf_counter() - t0
+
+    with part("a"):
+        log("  (a) kernels 1, 3 and 2 on a chain grid")
+        pairs = []
+        pairs += segment_chains_check("lazy_segment", dev, N, 256, K_MAX,
+                                      False, 1)
+        pairs += segment_chains_check("lazy_stream", dev, N, 256, K_MAX,
+                                      True, 2)
+        # The shared-memory layout (k_pad > 1,024).
+        pairs += segment_chains_check("lazy_stream smem", dev, 1024, 2016,
+                                      2000, True, 3)
+        pairs += rg_chains_check(dev, N, (0, 1, 37, 1984, N))
+        # The large-n path's shapes: kernel 3's register layout on the
+        # 131,072 x 128 Z, and kernel 2 at n = 131,072 with s_count = n
+        # (its unstaged table, at each chain's own offset) beside a ragged
+        # count and a count of one.
+        pairs += segment_chains_check("lazy_stream large", dev, N_LARGE,
+                                      K_LARGE, K_LARGE, True, 4,
+                                      SEGMENT_PLAN_LATE)
+        pairs += rg_chains_check(dev, N_LARGE, (N_LARGE, 6557, 1))
+        out["max_abs_err"] = max_err(pairs)
+        out["timing"] = chain_timings(dev, {name: k[name]["ms"] for name in k}
+                                      if k else {})
+
+    data, _ = make_data(N, M, 10, 0.1, seed=0)
+    cfg, mc = bench_configs(N, K_MAX)
+    main_kernels = {"lazy_segment", "rg_scan"}
+    with part("b"):
+        log(f"  (b) main cell, 4 chains x 128 steps ({smi})")
+        out["main_4"] = chains_compare("main 4", dev, data, cfg, mc, 4, 128,
+                                       41, main_kernels, N, K_MAX)
+    with part("b steps"):
+        out["main_4"]["steps"] = chains_step_costs(dev, data, cfg, mc, 4, 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        with part("b resume"):
+            chains_resume(dev, data, cfg, mc, tmp)
+        with part("c"):
+            log(f"  (c) main cell, 16 chains x 64 steps ({smi})")
+            out["main_16"] = chains_compare("main 16", dev, data, cfg, mc,
+                                            16, 64, 42, main_kernels, N,
+                                            K_MAX)
+        with part("d"):
+            log(f"  (d) coupled, 4 chains x 64 steps ({smi})")
+            out["coupled_4"] = chains_compare(
+                "coupled 4", dev, data, cfg,
+                dataclasses.replace(mc, coupled_moves=True), 4, 64, 43,
+                main_kernels, N, K_MAX)
+        with part("e"):
+            log(f"  (e) large-n, 2 chains x 16 steps ({smi})")
+            data_l, _ = make_data(N_LARGE, M, 20, 0.1, seed=0)
+            cfg_l, mc_l = bench_configs(N_LARGE, K_LARGE)
+            out["large_2"] = chains_compare(
+                "large 2", dev, data_l, cfg_l, mc_l, 2, 16, 44,
+                {"lazy_stream", "rg_scan"}, N_LARGE, K_LARGE, block_size=16)
+            grids = out["large_2"]["launches"]
+            if not all(2 in grids[name][1]
+                       for name in ("lazy_stream", "rg_scan")):
+                raise AssertionError(f"large 2: no launch of kernel 3 or 2 "
+                                     f"on a grid of 2: {grids}")
+            del data_l
+        with part("f"):
+            out["cli"] = chains_cli(dev, tmp, smi)
+    out["part_seconds"] = parts
+    out["auto_rule_holds"] = all(
+        out[c]["ratio"] >= 1.0 for c in ("main_4", "main_16", "large_2"))
+    log(f"  batched >= sequential chain-steps/s at both cells in this call "
+        f"(main 4 and 16 chains, large-n 2): {out['auto_rule_holds']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {out['seconds']:.1f} s; parts (s) "
+        + ", ".join(f"{name} {sec:.1f}" for name, sec in parts.items()))
+    return out
+
+
 def main():
     import torch
 
@@ -2341,50 +3006,52 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/11] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/12] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
     from bnpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/11] build: {time.perf_counter() - t0:.1f} s "
+    log(f"[2/12] build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/11] kernels against their plain twins (exact match)")
+    log("[3/12] kernels against their plain twins (exact match)")
     k = {"lazy_segment": phase_lazy_segment(dev),
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev, smi),
          "while_exit": phase_while_exit(dev, smi)}
-    log("[4/11] small input: GPU against CPU on identical draws")
+    log("[4/12] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
-    log(f"[5/11] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
+    log(f"[5/12] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
         f"({smi})")
     main_out = phase_main(dev)
-    log(f"[6/11] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+    log(f"[6/12] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
         f"{K_LARGE} ({smi})")
     large_out = phase_large(dev)
-    log(f"[7/11] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+    log(f"[7/12] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
         f"{K_MAX} ({smi})")
     eager_out = phase_eager(dev)
     log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
         f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
         "configuration")
-    log(f"[8/11] probes: their entry points on the card ({smi})")
+    log(f"[8/12] probes: their entry points on the card ({smi})")
     probes = phase_probes()
-    log(f"[9/11] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
+    log(f"[9/12] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
     cli_out = phase_cli(dev, smi)
-    log(f"[10/11] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    log(f"[10/12] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
     modes_out = phase_modes(dev, smi)
-    log(f"[11/11] mesh: two ranks sharing the card ({smi})")
+    log(f"[11/12] mesh: two ranks sharing the card ({smi})")
     mesh_out = phase_mesh(dev, smi)
+    log(f"[12/12] batched chains: chain_exec='vmap' ({smi})")
+    chains_out = phase_chains(dev, smi, k)
 
     chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
@@ -2414,6 +3081,16 @@ def main():
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in meta.items()]
+    # Kernels 1-3 on a chain grid: one launch of 16 chains, and the batched
+    # launches of phase 12's paths (main cell, 4 chains; large-n, 2).
+    batched_path = {"lazy_segment": chains_out["main_4"]["launches"],
+                    "rg_scan": chains_out["main_4"]["launches"],
+                    "lazy_stream": chains_out["large_2"]["launches"]}
+    for entry in kernels:
+        name = entry["name"]
+        if name in batched_path:
+            entry["batched_ms"] = chains_out["timing"][name]["batched_ms"][16]
+            entry["batched_launches"] = batched_path[name][name][0]
     log(json.dumps({"paths": {
         name: {f: out[f] for f in ("steps_per_s", "launches_per_sweep",
                                    "host_syncs_per_step", "clusters", "ari",
@@ -2439,7 +3116,8 @@ def main():
         "probes": {name: {f: v for f, v in out.items()
                           if f != "launches_path"}
                    for name, out in probes.items()},
-        "cli": cli_out, "run_modes": modes_out, "mesh": mesh_out}))
+        "cli": cli_out, "run_modes": modes_out, "mesh": mesh_out,
+        "chains": chains_out}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

@@ -174,10 +174,28 @@ __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
     const float* __restrict__ z, const float* __restrict__ aux,
     const int* __restrict__ assign, const int* __restrict__ perm,
     float* __restrict__ sizes, int* __restrict__ tgt_out,
-    int* __restrict__ info, const float* __restrict__ log_denom_p, int n,
-    int i0) {
+    int* __restrict__ info, const float* __restrict__ log_denom_p,
+    int* __restrict__ i0s, int n, int i0) {
   constexpr int K = 32 * SPL;
   const int lane = threadIdx.x;
+  const size_t ch = blockIdx.x;
+  z += ch * n * K;
+  aux += ch * n;
+  assign += ch * n;
+  perm += ch * n;
+  sizes += ch * K;
+  tgt_out += ch * n;
+  info += ch * 4;
+  log_denom_p += ch;
+  if (i0s != nullptr) i0 = i0s[ch];
+  if (i0 >= n) {
+    if (lane == 0) {
+      info[0] = n;
+      info[1] = info[2] = -1;
+      info[3] = 0;
+    }
+    return;
+  }
   Chain<SPL> c;
   chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
   int veto = 0, birth_pos = -1, birth_cell = -1, birth_slot = -1;
@@ -221,6 +239,7 @@ __global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
     info[1] = birth_cell;
     info[2] = birth_slot;
     info[3] = veto;
+    if (i0s != nullptr) i0s[ch] = info[0];
   }
 }
 

@@ -55,7 +55,7 @@ def main():
     print(f"cell {args.cell}: {cfg.n_cells} x {cfg.n_muts}, k_max "
           f"{cfg.k_max}")
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev)
-    state = runner.init_chains(TorchDraws(0, dev))
+    state = runner.init_chains(TorchDraws(0, dev))[0]
     draws = TorchDraws(1, dev)
     state, _, draws = runner.run_block(state, draws, args.warmup)
     torch.cuda.synchronize()
