@@ -37,6 +37,12 @@ from scipy.special import binom
 EPSILON = float(np.finfo(np.float64).resolution)
 
 
+def check_beta_params(mean: float, var: float) -> bool:
+    """Whether (mean, var) are attainable by a Beta distribution
+    (reference: libs/utils.py:31-42)."""
+    return mean > 0.5 * (1 - (1 - 4 * var) ** 0.5)
+
+
 # ---------------------------------------------------------------------------
 # Clustering metrics (libs/utils.py:49-72), numpy only
 # ---------------------------------------------------------------------------
@@ -172,6 +178,14 @@ def coclustering_similarity(assignments: np.ndarray,
     (1 - get_dist, libs/utils.py:90-97)."""
     return _coclustering_device(assignments, device).cpu().numpy() \
         .astype(np.float64)
+
+
+def mean_hamming_condensed(assignments: np.ndarray,
+                           device="cuda") -> np.ndarray:
+    """Condensed (pdist-style) mean pairwise Hamming distance of the
+    cells' assignment vectors: 1 - the co-clustering similarity."""
+    sim = coclustering_similarity(assignments, device)
+    return squareform(1.0 - sim, checks=False)
 
 
 # ---------------------------------------------------------------------------

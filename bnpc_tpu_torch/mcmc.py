@@ -127,8 +127,8 @@ def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
     moves and returns (state, row). A move that only some chains of a batch
     take runs on their sub-batch (state.py::by_chain_flag), so each chain
     draws what its one-chain step draws. gibbs_block > 0 replaces the exact
-    Gibbs move by the blocked sweep (one chain only). Every move sums over
-    the mutation axis `ax`, and a batch over a ChainAxis on it."""
+    Gibbs move by the blocked sweep. Every move sums over the mutation axis
+    `ax`, and a batch over a ChainAxis on it."""
     # The move thresholds as float32 values: comparing the uniforms' exact
     # float32 values against them on the host is JAX's float32 comparison.
     thresholds = [float(np.float32(p)) for p in (
@@ -228,16 +228,14 @@ def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
     return step
 
 
-def _check_chains_step(mcmc_cfg: MCMCConfig, gibbs_impl: str) -> None:
-    """Refuse what has no batched-chains form (stated routing rules)."""
-    if mcmc_cfg.gibbs_block > 0:
-        raise ValueError("chain_exec='vmap' has no blocked Gibbs sweep "
-                         "(gibbs_block > 0): the blocked sweep runs one "
-                         "chain at a time; use chain_exec='sequential'")
-    if gibbs_impl not in ("auto", "lazy", "stream", "scan"):
+def _check_chains_step(gibbs_impl: str) -> None:
+    """Refuse what has no batched-chains form: the eager sweep (bnpc_tpu
+    falls back to its scan there with a warning; the port does not switch
+    implementation quietly)."""
+    if gibbs_impl not in ("auto", "lazy", "stream", "scan", "blocked"):
         raise ValueError(f"chain_exec='vmap' has no batched Gibbs impl "
-                         f"{gibbs_impl!r}: the batch runs 'lazy', 'stream' "
-                         "or 'scan'; use chain_exec='sequential'")
+                         f"{gibbs_impl!r}: the batch runs 'lazy', 'stream', "
+                         "'scan' or 'blocked'; use chain_exec='sequential'")
 
 
 def _coupled_keys(draws: Draws, n: int, chain_draws=None):
@@ -337,6 +335,49 @@ def _chain_block(step, state: CRPState, draws: Draws, n_steps: int,
     return state, _rows_to_host(rows), keys[0]
 
 
+def _batch_block(step, states: list[CRPState], draws: list[Draws],
+                 n_steps: int, keep: int | None = None,
+                 coupled: bool = False):
+    """A block of every chain of `states` as one batch (chain_exec="vmap"):
+    the chains stacked into one batched state, each step one batched step
+    on a StackedDraws of the chains' step draws (coupled: the coupled step,
+    chain 0's step draws driving the shared move choice), unstacked at the
+    block's end. Returns what _make_block's block returns."""
+    keys = [d.split(n_steps + 1) for d in draws]
+    batch = stack_states(states)
+    rows = []
+    for t in range(1, 1 + (n_steps if keep is None else keep)):
+        if coupled:
+            batch, row = step(batch, keys[0][t], _own_streams(keys, t))
+        else:
+            batch, row = step(batch, StackedDraws([k[t] for k in keys]))
+        rows.append(row)
+    host = _rows_to_host(rows)  # [steps, chains, ...]
+    return unstack_states(batch), {
+        f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
+        for f, v in host.items()}, [k[0] for k in keys]
+
+
+def _make_block(step, chain_exec: str):
+    """(states, draws, n_steps, keep=None) -> (states, rows, next_draws): a
+    block of `step` over a list of one-chain states and their draws, the
+    chains one after another (_chain_block) or, under chain_exec="vmap"
+    and more than one chain, as one batch (_batch_block). rows hold
+    [chains, steps, ...] host arrays (an empty dict without chains)."""
+    def block(states, draws, n_steps: int, keep: int | None = None):
+        if not states:
+            return [], {}, []
+        if chain_exec == "vmap" and len(states) > 1:
+            return _batch_block(step, states, draws, n_steps, keep)
+        out = [_chain_block(step, st, d, n_steps, keep)
+               for st, d in zip(states, draws)]
+        states, rows, draws = (list(x) for x in zip(*out))
+        return states, {f: np.stack([r[f] for r in rows])
+                        for f in TraceRow._fields}, draws
+
+    return block
+
+
 class _TraceBuffer:
     """Host trace blocks, one dict of [n_chains, block, ...] arrays a block
     (bnpc_tpu's _TraceBuffer without its relay workarounds: rows arrive on
@@ -410,20 +451,37 @@ CHAIN_EXECS = ("auto", "sequential", "vmap")
 # large-n 1.07-1.29 x at 2; PERF.md §6). On the CPU "auto" takes
 # "sequential".
 AUTO_CUDA_CHAIN_EXEC = "vmap"
+# The same rule for a blocked sweep (gibbs_block > 0) and for a rank's
+# local chains under a mesh: "vmap" only where the batch reached the
+# sequential chain-steps/s in every call (NVIDIA H100 80GB HBM3, 700 W,
+# three calls; PERF.md §6). Blocked (phase 12 (f)): main cell 4
+# chains 1.270-1.966 x, large-n 2 chains 1.112-1.467 x, so "vmap". Mesh
+# (phase 11 (e), two ranks sharing the card): 1 x 2 with 2 chains
+# 1.093-1.212 x, but 2 x 1 with 2 chains a rank 0.557, 1.125 and 0.990 x,
+# so "sequential".
+AUTO_CUDA_BLOCKED_CHAIN_EXEC = "vmap"
+AUTO_CUDA_MESH_CHAIN_EXEC = "sequential"
 
 
 def resolve_chain_exec(chain_exec: str, device, mesh=None,
                        gibbs_block: int = 0) -> str:
-    """"auto" -> AUTO_CUDA_CHAIN_EXEC on CUDA without a mesh or a blocked
-    sweep (neither has a batched form), "sequential" otherwise."""
+    """"auto" -> "vmap" on CUDA where every rule that applies takes it
+    (AUTO_CUDA_CHAIN_EXEC; AUTO_CUDA_BLOCKED_CHAIN_EXEC with a blocked
+    sweep; AUTO_CUDA_MESH_CHAIN_EXEC under a mesh), "sequential"
+    otherwise and on the CPU."""
     if chain_exec not in CHAIN_EXECS:
         raise ValueError(f"chain_exec={chain_exec!r}; expected one of "
                          f"{CHAIN_EXECS}")
     if chain_exec != "auto":
         return chain_exec
-    batchable = (torch.device(device).type == "cuda" and mesh is None
-                 and gibbs_block == 0)
-    return AUTO_CUDA_CHAIN_EXEC if batchable else "sequential"
+    rules = [AUTO_CUDA_CHAIN_EXEC]
+    if mesh is not None:
+        rules.append(AUTO_CUDA_MESH_CHAIN_EXEC)
+    if gibbs_block > 0:
+        rules.append(AUTO_CUDA_BLOCKED_CHAIN_EXEC)
+    batchable = (torch.device(device).type == "cuda"
+                 and all(r == "vmap" for r in rules))
+    return "vmap" if batchable else "sequential"
 
 
 class MCMCRunner:
@@ -440,11 +498,11 @@ class MCMCRunner:
         a grid of one block a chain. This is the port's own chain-axis
         step, not ``torch.func.vmap``; unlike bnpc_tpu's vmapped scan it
         keeps the kernels. Chain c gets exactly what its sequential run
-        gets on the same draws. It refuses the blocked sweep
-        (gibbs_block > 0), the eager sweep and a mesh;
-      * "auto": ``AUTO_CUDA_CHAIN_EXEC`` on CUDA without a mesh or a
-        blocked sweep (PERF.md §6 has the measurement behind it),
-        else "sequential".
+        gets on the same draws. The blocked sweep (gibbs_block > 0) runs
+        batched too; the eager sweep is refused. Under a mesh a rank's
+        local chains form the batch;
+      * "auto": see ``resolve_chain_exec`` (PERF.md §6 has the
+        measurements behind its rules); "sequential" on the CPU.
 
     One chain always runs the one-chain step. With
     ``mcmc_cfg.coupled_moves`` and more than one chain the chains step in
@@ -461,14 +519,16 @@ class MCMCRunner:
     runs ``run`` with the same arguments. Which rank runs what follows
     bnpc_tpu's precedence (mcmc.py:806-834):
 
-      * M > 1: chain shard c runs chains c * n / C ... (c + 1) * n / C - 1
-        one after another, each rank of its mutation group on its columns
-        (parallel/sharded.py::make_sharded_block); ``coupled_moves`` is not
-        honoured there, as bnpc_tpu's sharded block does not honour it;
+      * M > 1: chain shard c runs chains c * n / C ... (c + 1) * n / C - 1,
+        each rank of its mutation group on its columns
+        (parallel/sharded.py::make_sharded_block), one after another or
+        under "vmap" as one batch; ``coupled_moves`` is not honoured
+        there, as bnpc_tpu's sharded block does not honour it;
       * else, several chains with ``coupled_moves``: the coupled step runs
         every chain on chain shard 0 (bnpc_tpu's coupled pipe, which it
         takes before its chain-sharded block); the other ranks hold none;
-      * else: chain shard c runs its n / C chains one after another.
+      * else: chain shard c runs its n / C chains, one after another or
+        as one batch.
 
     Chain c starts from the seed or key it has in the one-process run, so
     under a ``C x 1`` mesh each chain is its one-process run. Rank 0
@@ -486,13 +546,6 @@ class MCMCRunner:
                  chain_exec: str = "auto"):
         self.chain_exec = resolve_chain_exec(chain_exec, device, mesh,
                                              mcmc_cfg.gibbs_block)
-        if self.chain_exec == "vmap":
-            if mesh is not None:
-                raise ValueError(
-                    "chain_exec='vmap' runs no mesh: under --mesh each rank "
-                    "runs its chains one after another "
-                    "(chain_exec='sequential')")
-            _check_chains_step(mcmc_cfg, "auto")
         self.cfg = cfg
         self.mcmc_cfg = mcmc_cfg
         self.data = data
@@ -509,14 +562,17 @@ class MCMCRunner:
         self._step_cfg, self._step_data = cfg, data
         if mesh is None:
             self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
+            self._block = _make_block(self._step, self.chain_exec)
         else:
             from bnpc_tpu_torch.data import pad_muts
             from bnpc_tpu_torch.parallel import sharded
 
             padded, self.m_pad = pad_muts(data, mesh.muts)
-            block = sharded.make_sharded_block(mesh, cfg, mcmc_cfg, padded)
-            self._step, self.ax = block.step, block.ax
-            self._step_cfg, self._step_data = block.cfg, block.data
+            self._block = sharded.make_sharded_block(
+                mesh, cfg, mcmc_cfg, padded, chain_exec=self.chain_exec)
+            self._step, self.ax = self._block.step, self._block.ax
+            self._step_cfg = self._block.cfg
+            self._step_data = self._block.data
         self._coupled_step = _make_coupled_step(cfg, mcmc_cfg, data,
                                                 self.trace_k)
         # The seed of each chain of the last run() (args.txt's chain_seeds).
@@ -553,55 +609,29 @@ class MCMCRunner:
 
     def run_chains(self, states: list[CRPState], draws: list[Draws],
                    n_steps: int, keep: int | None = None):
-        """One block of every chain of this rank (see run_block). Returns
-        (states, rows, next_draws); rows hold [n_chains, steps, ...] host
-        arrays (an empty dict on a rank without chains)."""
-        if not states:
-            return [], {}, []
-        if len(states) > 1 and self.chain_exec == "vmap":
-            return self._run_batched(states, draws, n_steps, keep)
-        if len(states) > 1 and self.mcmc_cfg.coupled_moves \
-                and not self.ax.sharded:
-            # Chain 0's key stream drives the shared move choice (bnpc_tpu
-            # _pipe_coupled); every chain's key advances.
-            keys = [d.split(n_steps + 1) for d in draws]
-            rows = [[] for _ in states]
-            for t in range(1, 1 + (n_steps if keep is None else keep)):
-                states, step_rows = self._coupled_step(
-                    states, keys[0][t], _own_streams(keys, t))
-                for chain_rows, row in zip(rows, step_rows):
-                    chain_rows.append(row)
-            blocks = [_rows_to_host(r) for r in rows]
-            draws = [k[0] for k in keys]
-        else:
-            out = [self.run_block(st, d, n_steps, keep)
-                   for st, d in zip(states, draws)]
-            states, blocks, draws = (list(x) for x in zip(*out))
-        return states, {f: np.stack([b[f] for b in blocks])
-                        for f in TraceRow._fields}, draws
-
-    def _run_batched(self, states: list[CRPState], draws: list[Draws],
-                     n_steps: int, keep: int | None = None):
-        """run_chains under chain_exec="vmap": the chains stacked into one
-        batched state for the block, each step one batched step (coupled:
-        chain 0's step key drives the shared move choice, as in
-        run_chains' sequential coupled loop), unstacked at the block's
-        end."""
+        """One block of every chain of this rank (see run_block): one after
+        another or, under chain_exec="vmap", as one batch; coupled chains
+        in lockstep (unless the mutation axis is sharded). Returns (states,
+        rows, next_draws); rows hold [n_chains, steps, ...] host arrays (an
+        empty dict on a rank without chains)."""
+        if len(states) < 2 or not self.mcmc_cfg.coupled_moves \
+                or self.ax.sharded:
+            return self._block(states, draws, n_steps, keep)
+        if self.chain_exec == "vmap":
+            return _batch_block(self._coupled_step, states, draws, n_steps,
+                                keep, coupled=True)
+        # Chain 0's key stream drives the shared move choice (bnpc_tpu
+        # _pipe_coupled); every chain's key advances.
         keys = [d.split(n_steps + 1) for d in draws]
-        batch = stack_states(states)
-        rows = []
+        rows = [[] for _ in states]
         for t in range(1, 1 + (n_steps if keep is None else keep)):
-            if self.mcmc_cfg.coupled_moves:
-                batch, row = self._coupled_step(batch, keys[0][t],
-                                                _own_streams(keys, t))
-            else:
-                batch, row = self._step(batch,
-                                        StackedDraws([k[t] for k in keys]))
-            rows.append(row)
-        host = _rows_to_host(rows)  # [steps, chains, ...]
-        return unstack_states(batch), {
-            f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
-            for f, v in host.items()}, [k[0] for k in keys]
+            states, step_rows = self._coupled_step(
+                states, keys[0][t], _own_streams(keys, t))
+            for chain_rows, row in zip(rows, step_rows):
+                chain_rows.append(row)
+        blocks = [_rows_to_host(r) for r in rows]
+        return states, {f: np.stack([b[f] for b in blocks])
+                        for f in TraceRow._fields}, [k[0] for k in keys]
 
     def _init_rows(self, states) -> dict | None:
         """Each chain's initial-state row, [n_chains, 1, ...] (on rank 0

@@ -26,7 +26,7 @@ the same result:
   * ``blocked`` — the opt-in APPROXIMATE blocked sweep (bnpc_tpu's
     ``_blocked_impl``; ``MCMCConfig.gibbs_block``): cells decide in blocks
     against frozen cluster sizes, and a block that would birth a cluster
-    is replayed exactly. Plain torch ops on every device.
+    is replayed exactly. Plain torch ops on every device, batched too.
 
 On a CPU tensor ``lazy``, ``stream`` and ``eager`` run their kernels' plain
 twins, so the CPU tests hold each path against its bnpc_tpu counterpart.
@@ -39,8 +39,10 @@ one host read of info [C, 4], the rows and Z columns of that round's
 births, and the next round. Chain c
 draws and patches what its one-chain sweep does, in the same order, so it
 gets its one-chain sweep's result; a batch takes max over c of
-(births_c + 1) rounds. ``scan`` loops its one-chain sweep over the chains.
-``eager`` and ``blocked`` have no batched form and raise.
+(births_c + 1) rounds. ``blocked`` runs its frozen passes on every chain at
+once and replays every chain's birth block in one loop over its cells
+(``_blocked_impl``). ``scan`` loops its one-chain sweep over the chains.
+``eager`` has no batched form and raises.
 
 Under a sharded mutation axis (``ax``, parallel/axis.py) Z and every birth
 column are all-reduced before a kernel or a loop reads them, so each rank of
@@ -130,10 +132,13 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
     when `ax` is sharded."""
     impl = resolve_impl(impl, cfg, state.assignment.is_cuda)
     batched = state.assignment.dim() == 2
-    if batched and impl not in ("lazy", "stream", "scan"):
-        raise ValueError(f"impl={impl!r} has no batched-chains form; under "
-                         "chain_exec='vmap' the sweep runs 'lazy', 'stream' "
-                         "or 'scan' (use chain_exec='sequential')")
+    if batched and impl == "eager":
+        # bnpc_tpu falls back to its scan here with a warning
+        # (bnpc_tpu/models/gibbs.py:201-212); the port does not switch
+        # implementation quietly.
+        raise ValueError("impl='eager' has no batched-chains form; under "
+                         "chain_exec='vmap' the sweep runs 'lazy', 'stream', "
+                         "'scan' or 'blocked' (use chain_exec='sequential')")
     if impl == "eager" and ax.sharded:
         # bnpc_tpu runs its eager kernel unsharded only (gibbs.py:160-164):
         # its [n, n] newborn product would need an all-reduce of n^2 floats
@@ -325,100 +330,147 @@ def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
 def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
                   block, ax=_NO_AXIS):
     """Opt-in APPROXIMATE blocked sweep (bnpc_tpu _blocked_impl; no
-    reference counterpart). Cells are visited in the permuted order in
-    blocks of ``block``: every cell of a block decides against the cluster
-    sizes frozen at block entry (minus its own membership), and the block's
-    moves are applied at once. A block whose frozen pass holds a birth is
-    replayed exactly, cell by cell, as ``_scan_impl`` does, with its newborn
-    Z columns patched in for every later block. block=1 is the exact sweep.
+    reference counterpart), for one chain or a batch of chains. Cells are
+    visited in the permuted order in blocks of ``block``: every cell of a
+    block decides against the cluster sizes frozen at block entry (minus
+    its own membership), and the block's moves are applied at once. A
+    block whose frozen pass holds a birth is replayed exactly, cell by
+    cell, as ``_scan_impl`` does, with its newborn Z columns patched in for
+    every later block. block=1 is the exact sweep.
 
-    A frozen pass runs from a block to the end of the sweep as [block, k]
-    tensor work per block with no host read; only its first birth block
-    comes back to the host, once a pass (bnpc_tpu's scan / while_loop
-    structure). The approximation and its O(block / n) bias are bnpc_tpu's
-    (tests/test_blocked.py); its veto channel is not ported."""
+    A frozen pass runs from a block to the end of the sweep as [C, block, k]
+    tensor work per block with no host read; only each chain's first birth
+    block comes back to the host, one [C] read a pass (bnpc_tpu's scan /
+    while_loop structure). Every chain then replays its birth block in one
+    loop over the block's cells, one host read a cell, each birth drawn
+    from its chain's own draws and patched in chain order; the next pass
+    starts each chain after its own replayed block. A chain whose sweep has
+    ended stays as it is while the others go on, so chain c gets its
+    one-chain sweep (bnpc_tpu's vmapped while_loop runs each chain to its
+    own end). One chain runs as a batch of one. The approximation and its
+    O(block / n) bias are bnpc_tpu's (tests/test_blocked.py); its veto
+    channel is not ported."""
+    one = state.assignment.dim() == 1
+    if one:
+        state = CRPState(*(f[None] for f in state))
+        perm, gumbel, z, aux, log_denom = (
+            x[None] for x in (perm, gumbel, z, aux, log_denom))
+        k_betas, mut = [k_beta], ax
+    else:
+        k_betas, mut = k_beta.chains, ax.mut
     n, k_max = cfg.n_cells, cfg.k_max
-    dev = z.device
+    c_all, dev = z.shape[0], z.device
     B = max(1, int(block))
     G = -(-n // B)
     pad = G * B - n
     order = perm.long()
     # Visit-order staging, one gather a sweep; padded positions are
     # inactive (aux -inf, assignment 0, never applied).
-    z3 = torch.nn.functional.pad(z[order], (0, 0, 0, pad)).view(G, B, k_max)
-    aux3 = torch.nn.functional.pad(aux[order], (0, pad),
-                                   value=NEG_INF).view(G, B)
-    old3 = torch.nn.functional.pad(state.assignment[order].long(),
-                                   (0, pad)).view(G, B)
+    z3 = torch.nn.functional.pad(
+        torch.take_along_dim(z, order[..., None], dim=1), (0, 0, 0, pad))
+    aux3 = torch.nn.functional.pad(torch.gather(aux, 1, order), (0, pad),
+                                   value=NEG_INF)
+    old3 = torch.nn.functional.pad(
+        torch.gather(state.assignment, 1, order).long(), (0, pad))
     act3 = (torch.arange(G * B, device=dev) < n).view(G, B)
     iota_k = torch.arange(k_max, device=dev)
     tgt3 = old3.clone()
     sizes = state.cluster_size.clone()
     params = state.params.clone()
+    ld = log_denom.to(torch.float32)[:, None]
+    z4, aux4, old4, tgt4 = (x.view((c_all, G, B) + x.shape[2:])
+                            for x in (z3, aux3, old3, tgt3))
+    perm_h = None
 
-    def frozen_pass(g0, sizes):
-        """Apply blocks g0, g0+1, ... up to (not including) the first one
-        whose frozen pass holds a birth; return the sizes and that block's
-        index (G when none)."""
-        stopped = torch.zeros((), dtype=torch.bool, device=dev)
-        first = torch.full((), G, dtype=torch.long, device=dev)
-        for g in range(g0, G):
-            oldb, actb = old3[g], act3[g]
-            oh_old = ((oldb[:, None] == iota_k) & actb[:, None]).to(
+    def frozen_pass(g0, g_lo, sizes):
+        """Apply each chain's blocks g0[c], g0[c] + 1, ... up to (not
+        including) its first one whose frozen pass holds a birth; return
+        the sizes and each chain's such block (G when none). A chain with
+        g0[c] = G stays as it is."""
+        stopped = torch.zeros((c_all,), dtype=torch.bool, device=dev)
+        first = torch.full((c_all,), G, dtype=torch.long, device=dev)
+        for g in range(g_lo, G):
+            on = g0 <= g
+            oldb = old4[:, g]
+            actb = act3[g] & on[:, None]
+            oh_old = ((oldb[..., None] == iota_k) & actb[..., None]).to(
                 sizes.dtype)
-            sizes_excl = sizes - oh_old
+            sizes_excl = sizes[:, None] - oh_old
             live = sizes_excl > 0
             prior = torch.log(torch.clamp(sizes_excl, min=1).to(
-                torch.float32)) - log_denom
-            post_old = torch.where(live, z3[g] + prior, NEG_INF)
-            best, choice = torch.max(post_old, dim=1)
-            has_free = (~live).any(dim=1)
-            cand = (aux3[g] > best) & actb
-            birth = (cand & has_free).any()
-            apply = ~(stopped | birth)
+                torch.float32)) - ld[..., None]
+            post_old = torch.where(live, z4[:, g] + prior, NEG_INF)
+            best, choice = torch.max(post_old, dim=-1)
+            has_free = (~live).any(dim=-1)
+            birth = ((aux4[:, g] > best) & actb & has_free).any(dim=-1)
+            apply = on & ~(stopped | birth)
             tgt = torch.where(actb, choice, oldb)
-            oh_new = ((tgt[:, None] == iota_k) & actb[:, None]).to(
+            oh_new = ((tgt[..., None] == iota_k) & actb[..., None]).to(
                 sizes.dtype)
-            d = oh_new.sum(0, dtype=sizes.dtype) \
-                - oh_old.sum(0, dtype=sizes.dtype)
-            sizes = torch.where(apply, sizes + d, sizes)
-            tgt3[g] = torch.where(apply, tgt, tgt3[g])
+            # Exact integer counts: batched, in any order.
+            d = oh_new.sum(1, dtype=sizes.dtype) \
+                - oh_old.sum(1, dtype=sizes.dtype)
+            sizes = torch.where(apply[:, None], sizes + d, sizes)
+            tgt4[:, g] = torch.where(apply[:, None], tgt, tgt4[:, g])
             first = torch.where(birth & ~stopped, g, first)
             stopped = stopped | birth
-        return sizes, int(first)  # one host read a pass
+        return sizes, first
 
-    def exact_block(g, sizes):
-        """The exact sequential replay of block g (``_scan_impl``'s body,
-        one host read a cell)."""
-        olds = old3[g].tolist()
-        for j in range(min(B, n - g * B)):
-            sizes[olds[j]] -= 1
+    def exact_blocks(first, first_h, sizes):
+        """The exact sequential replay (``_scan_impl``'s body) of block
+        first[c] of each chain c that has one, every such chain in one loop
+        over the block's cells, one host read a cell."""
+        nonlocal perm_h
+        rep = first < G
+        base = torch.clamp(first, max=G - 1) * B
+        for j in range(B):
+            on_h = [f < G and f * B + j < n for f in first_h]
+            if not any(on_h):
+                break
+            pos = (base + j)[:, None]
+            on = (rep & (pos[:, 0] < n))[:, None].to(sizes.dtype)
+            sizes = sizes.scatter_add(1, torch.gather(old3, 1, pos), -on)
             live = sizes > 0
             prior = torch.log(torch.clamp(sizes, min=1).to(torch.float32)) \
-                - log_denom
-            post_old = torch.where(live, z3[g, j] + prior, NEG_INF)
-            best, choice = torch.max(post_old, dim=0)
+                - ld
+            zrow = torch.take_along_dim(z3, pos[..., None], dim=1)[:, 0]
+            post_old = torch.where(live, zrow + prior, NEG_INF)
+            best, choice = torch.max(post_old, dim=-1)
             # First max, as jnp.argmax over [post_old, post_new].
-            is_new = (~live).any() & (aux3[g, j] > best)
-            free = torch.argmax((sizes == 0).to(torch.int32))
-            is_new, choice, free = torch.stack(
-                [is_new.long(), choice, free]).tolist()
-            target = free if is_new else choice
-            if is_new:
-                theta = fresh_row(k_beta, int(perm[g * B + j]), data, cfg)
-                params[target] = theta
-                col = _birth_column(theta, target, state.fp, state.fn, data,
-                                    gumbel, ax)
-                z3.view(G * B, k_max)[:n, target] = col[order]
-            sizes[target] += 1
-            tgt3[g, j] = target
+            is_new = (~live).any(dim=-1) \
+                & (torch.gather(aux3, 1, pos)[:, 0] > best)
+            free = torch.argmax((sizes == 0).to(torch.int32), dim=-1)
+            new_h, free_h = torch.stack([is_new.long(), free]).tolist()
+            for c in range(c_all):  # births in chain order
+                if not (on_h[c] and new_h[c]):
+                    continue
+                if perm_h is None:
+                    perm_h = perm.tolist()
+                slot = free_h[c]
+                theta = fresh_row(k_betas[c], perm_h[c][first_h[c] * B + j],
+                                  data, cfg)
+                params[c, slot] = theta
+                col = _birth_column(theta, slot, state.fp[c], state.fn[c],
+                                    data, gumbel[c], mut)
+                z3[c, :n, slot] = col[order[c]]
+            target = torch.where(is_new, free, choice)[:, None]
+            sizes = sizes.scatter_add(1, target, on)
+            tgt3.scatter_(1, pos, torch.where(on > 0, target,
+                                              torch.gather(tgt3, 1, pos)))
         return sizes
 
-    sizes, g = frozen_pass(0, sizes)
-    while g < G:
-        sizes = exact_block(g, sizes)
-        sizes, g = frozen_pass(g + 1, sizes)
-    assignment = torch.empty_like(state.assignment)
-    assignment[order] = tgt3.view(-1)[:n].to(assignment.dtype)
-    return state._replace(assignment=assignment, params=params,
-                          cluster_size=sizes)
+    g0 = torch.zeros((c_all,), dtype=torch.long, device=dev)
+    g_lo = 0
+    while True:
+        sizes, first = frozen_pass(g0, g_lo, sizes)
+        first_h = first.tolist()  # one host read a pass
+        if min(first_h) >= G:
+            break
+        sizes = exact_blocks(first, first_h, sizes)
+        g0 = torch.where(first < G, first + 1, G)
+        g_lo = min(first_h) + 1
+    assignment = torch.empty_like(state.assignment).scatter_(
+        1, order, tgt3[:, :n].to(state.assignment.dtype))
+    state = state._replace(assignment=assignment, params=params,
+                           cluster_size=sizes)
+    return CRPState(*(f[0] for f in state)) if one else state

@@ -56,6 +56,12 @@ def ll_matrix(data: PackedData, c1, c0, ax: MutAxis = _NO_AXIS):
     return ax.psum(ax.rmul(xcat, ccat.mT))
 
 
+def ll_row(xm_row, xm0_row, c1, c0, ax: MutAxis = _NO_AXIS):
+    """[k] log-likelihood of one cell against every row's tables (two
+    matvecs; one chain)."""
+    return ax.psum(c1 @ xm_row + c0 @ xm0_row)
+
+
 def ll_col(c1_row, c0_row, xm, xm0, ax: MutAxis = _NO_AXIS):
     """[n] log-likelihood of every cell under one parameter row's tables."""
     return ax.psum(ax.rmul(xm, c1_row) + ax.rmul(xm0, c0_row))
@@ -65,6 +71,12 @@ def ll_from_stats(n1, n0, c1, c0, ax: MutAxis = _NO_AXIS):
     """Total log-likelihood from per-slot sufficient statistics
     (get_ll_full, libs/CRP.py:237-238); free slots have zero statistics."""
     return ax.psum(ax.sum(n1 * c1 + n0 * c0))
+
+
+def ll_per_mut_from_stats(n1_row, n0_row, c1_row, c0_row):
+    """[m] per-mutation log-likelihood of one cluster from its sufficient
+    statistics and tables."""
+    return n1_row * c1_row + n0_row * c0_row
 
 
 def new_cluster_ll(data: PackedData, cfg: ModelConfig, fp, fn):
@@ -79,6 +91,12 @@ def new_cluster_ll(data: PackedData, cfg: ModelConfig, fp, fn):
 def crp_size_log_prior(size, n: float, alpha):
     """log CRP weight of joining a cluster of `size` (libs/CRP.py:83-85)."""
     return torch.log(size.to(torch.float32)) - torch.log(n - 1.0 + alpha)
+
+
+def crp_new_log_prior(n: float, alpha):
+    """log CRP weight of opening a new cluster (libs/CRP.py:191-194, index
+    -1)."""
+    return torch.log(alpha) - torch.log(n - 1.0 + alpha)
 
 
 def log_prior_full(cfg: ModelConfig, cluster_size, params, dp_alpha, fp, fn,

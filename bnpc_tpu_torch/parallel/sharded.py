@@ -7,8 +7,8 @@ port runs one process per rank under torch.distributed. Rank
 shard ``mu``:
 
   * **Chain sharding** — chain shard c runs its n / C chains one after
-    another, exactly as the one-process runner runs chains; chains never
-    talk while sampling.
+    another or, under ``chain_exec="vmap"``, as one batch, exactly as the
+    one-process runner runs chains; chains never talk while sampling.
   * **Mutation sharding** — the ranks of one chain shard form its mutation
     group. Each holds m_pad / M columns of the data planes and the
     parameter rows; every sum over mutations is all-reduced over the group
@@ -31,7 +31,8 @@ import torch.distributed as dist
 
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData, local_cols, local_mut_mask
-from bnpc_tpu_torch.mcmc import (_chain_block, _make_step_body,
+from bnpc_tpu_torch.mcmc import (_check_chains_step, _make_block,
+                                 _make_step_body, resolve_chain_exec,
                                  resolve_trace_k)
 from bnpc_tpu_torch.parallel.axis import MutAxis
 
@@ -102,9 +103,19 @@ def mut_axis(mesh: Mesh, m_pad: int, m_real: int, device) -> MutAxis:
 
 
 def make_sharded_block(mesh: Mesh, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                       data: PackedData, gibbs_impl: str = "auto"):
+                       data: PackedData, gibbs_impl: str = "auto",
+                       chain_exec: str = "auto"):
     """(states, draws, n_steps, keep=None) -> (states, rows, next_draws)
-    over this rank's local chains, one after another.
+    over this rank's local chains: one after another, or under
+    ``chain_exec="vmap"`` (bnpc_tpu's sharded.py:124-185) as one batch, the
+    step run on a ChainAxis over this rank's mutation axis with a
+    StackedDraws of the chains' providers (mcmc.py::_batch_block); "auto"
+    as mcmc.py::resolve_chain_exec decides for a mesh.
+
+    Under a batch every rank of a mutation group issues the same
+    all-reduces in the same order: each batched sum is one all-reduce of
+    the whole batch, and each birth's column one all-reduce, in chain
+    order, decided from all-reduced values (models/gibbs.py).
 
     `data` is the whole matrix padded with data.pad_muts to the mesh's
     mutation-shard count; `states` hold this rank's columns of the padded
@@ -119,19 +130,15 @@ def make_sharded_block(mesh: Mesh, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
     ax = mut_axis(mesh, m_pad, cfg.n_muts, data.xm.device)
     local = (local_cols(data, mesh.mut_index, mesh.muts) if mesh.muts > 1
              else data)
+    chain_exec = resolve_chain_exec(chain_exec, data.xm.device, mesh,
+                                    mcmc_cfg.gibbs_block)
+    if chain_exec == "vmap":
+        _check_chains_step(gibbs_impl)
     step = _make_step_body(cfg_pad, mcmc_cfg, local,
                            resolve_trace_k(cfg, mcmc_cfg), gibbs_impl, ax=ax)
-
-    def block(states, draws, n_steps: int, keep: int | None = None):
-        out = [_chain_block(step, st, d, n_steps, keep)
-               for st, d in zip(states, draws)]
-        if not out:
-            return [], {}, []
-        states, rows, draws = (list(x) for x in zip(*out))
-        return states, {f: np.stack([r[f] for r in rows])
-                        for f in rows[0]}, draws
-
+    block = _make_block(step, chain_exec)
     block.step, block.ax, block.data, block.cfg = step, ax, local, cfg_pad
+    block.chain_exec = chain_exec
     return block
 
 

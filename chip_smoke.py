@@ -128,9 +128,10 @@ Phases (any failure exits non-zero, and no result line is printed):
                burn-in: steps, burn-in, and the last block's end past the
                deadline (at most one block's time); (e) lugsail, 2 chains,
                cutoff 1.1: the PSRF log, the stop step and the burn-in;
-               (f) gibbs_block 128 at the main cell and 512 at the large-n
-               cell: steps/s beside the exact path's from the same state
-               in this call, no Gibbs kernel launched by a blocked move,
+               (f) gibbs_block 128 at the main cell (8 warm-up and 32
+               timed steps) and 512 at the large-n cell (2 and 8): steps/s
+               beside the exact path's from the same state in this call,
+               no Gibbs kernel launched by a blocked move,
                ARI against the planted clones; (g) cli.main with -n 2 -s
                256 --checkpoint_dir -e posterior: the files, two
                chain_seeds and a PSRF in args.txt, the checkpoint written.
@@ -151,9 +152,21 @@ Phases (any failure exits non-zero, and no result line is printed):
                the same state each step on identical draws: discrete
                outputs exactly, floats rtol 1e-4 (params also atol 1e-6,
                8.4 float32 ulps of 1.0: near TMIN a proposal's last-ulp
-               ndtri difference shows at that scale); (e) cli.main with
-               --mesh 1,2 and --mesh 2,1 at the main cell, -s 64: one set
-               of files, "Writing output to" printed once.
+               ndtri difference shows at that scale); (e) a rank's local
+               chains as one batch (chain_exec="vmap") against one after
+               another ("sequential"), same seed, at the main cell, 64
+               steps in blocks of 32: a 2 x 1 mesh with 4 chains (2 a rank)
+               and a 1 x 2 mesh with 2 chains; each chain == its sequential
+               run bit for bit, the hashes of the replicated state and the
+               all-reduce count after every block equal on both ranks of
+               the 1 x 2 group, kernels 1 and 2 launched batched only, on
+               grids of 1 and 2 (2 among them), chain-steps/s, all-reduces
+               a step with their MB and ms (16 more steps, timed) of both
+               forms; (f) cli.main with --mesh 1,2 and --mesh 2,1 at the
+               main cell, -s 64: one set of files, "Writing output to"
+               printed once; then run_bnpc_tpu_torch.py --mesh 1,2 -n 2 -s
+               32 as a process of its own: the chain_exec "auto" chose
+               (printed), the files.
  12. chains  — batched chains (MCMCRunner chain_exec="vmap": every chain
                steps at once, kernels 1, 3 and 2 on a grid of one block a
                chain): (a) each of the three kernels (kernel 3 in both
@@ -179,18 +192,27 @@ Phases (any failure exits non-zero, and no result line is printed):
                64 steps saved under "vmap" resumed under "sequential" ==
                the uninterrupted run, bit for bit; (c) 16 chains x 64 steps;
                (d) 4 coupled chains x 64 steps; (e) the large-n cell, 2
-               chains x 16 steps, kernels 3 and 2 on grids of 2; (f)
-               cli.main -n 4 -s 128: the chain_exec "auto" chose printed,
-               the files parsed. Then whether the batch reached the
-               sequential chain-steps/s at both cells (the rule of "auto").
+               chains x 16 steps, kernels 3 and 2 on grids of 2; (f) the
+               blocked sweep batched: gibbs_block 128 at the main cell, 4
+               chains x 64 steps, and 512 at the large-n cell, 2 x 16, each
+               "vmap" against "sequential" in this call, chain by chain bit
+               for bit (assignments, MH counts, trace floats), chain-steps/s
+               of both, rg_scan the only kernel (batched); at the main cell
+               a profiled step of all 4 chains in each form (launches, draw
+               calls, busy share, host syncs); (g) cli.main -n 4 -s 128: the
+               chain_exec "auto" chose printed, the files parsed. Then
+               whether the batch reached the sequential chain-steps/s at
+               both cells, exact and blocked (the rules of "auto").
 
 Before each of phases 5-7, before each probe in phase 8, before each CLI
 run of phase 9 and before each run of phase 10 that is checked for its
 launches, every kernel's launch counter is set to 0; the counters read
 after it are that path's launches (the probes' paths are their main()s).
 The kernel line's launches are those of phases 5-8 (kernels 1-3 add
-batched_ms, one launch of 16 chains, and batched_launches, those of phase
-12 (b) and (e)); phase 11's ranks
+batched_ms, one launch of 16 chains, batched_launches, those of phase 12
+(b) and (e), mesh_batched_launches, rank 0's of phase 11 (e) at 1 x 2,
+and blocked_batched_launches, those of phase 12 (f) at the main cell);
+phase 11's ranks
 count their own launches (each rank's counters are 0 before each run).
 The last three lines are the nvidia-smi line, a JSON line with one entry
 per kernel, and {"ok": true, "device": {...}}; before them, the script's
@@ -2036,10 +2058,10 @@ def phase_modes(dev, smi):
         out["checkpoint"] = mode_checkpoint(dev, data, cfg, mc, tmp)
         out["time"] = mode_time(dev, data, cfg, mc)
         out["lugsail"] = mode_lugsail(dev, data, cfg, mc)
-        out["blocked_main"] = mode_blocked(dev, N, 10, K_MAX, 128, 16, 64,
+        out["blocked_main"] = mode_blocked(dev, N, 10, K_MAX, 128, 8, 32,
                                            "lazy_segment")
         out["blocked_large"] = mode_blocked(dev, N_LARGE, 20, K_LARGE, 512,
-                                            4, 16, "lazy_stream")
+                                            2, 8, "lazy_stream")
         out["cli"] = mode_cli(dev, tmp, smi)
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 10: {out['seconds']:.1f} s")
@@ -2072,21 +2094,26 @@ def state_hash(st) -> str:
 
 
 class BlockHashes:
-    """Wraps runner.run_chains: each block's chain state hashes."""
+    """Wraps runner.run_chains: each block's chain state hashes, and the
+    all-reduces issued so far after each block."""
 
     def __init__(self, runner):
-        self.hashes = []
+        from bnpc_tpu_torch.parallel import axis
+
+        self.hashes, self.all_reduces = [], []
         run_chains = runner.run_chains
 
         def wrapped(*args, **kwargs):
             out = run_chains(*args, **kwargs)
             self.hashes.append([state_hash(st) for st in out[0]])
+            self.all_reduces.append(axis.all_reduces)
             return out
 
         runner.run_chains = wrapped
 
 
-def mesh_run(mesh, n, k_clones, k_max, run_var, seed, dev, block, n_chains=1):
+def mesh_run(mesh, n, k_clones, k_max, run_var, seed, dev, block, n_chains=1,
+             chain_exec="auto"):
     """One runner.run on this rank of `mesh`: (results or None, seconds,
     launches, all-reduces, their bytes, block hashes, runner)."""
     from bnpc_tpu_torch.data import pack_data
@@ -2096,7 +2123,7 @@ def mesh_run(mesh, n, k_clones, k_max, run_var, seed, dev, block, n_chains=1):
     data, truth = make_data(n, M, k_clones, 0.1, seed=0)
     cfg, mc = bench_configs(n, k_max)
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
-                        block_size=block, mesh=mesh)
+                        block_size=block, mesh=mesh, chain_exec=chain_exec)
     hashes = BlockHashes(runner)
     reset_launches()
     axis.reset_counters()
@@ -2110,8 +2137,11 @@ def mesh_run(mesh, n, k_clones, k_max, run_var, seed, dev, block, n_chains=1):
     out = {"seconds": secs, "launches": read_launches(),
            "all_reduces": axis.all_reduces,
            "all_reduce_bytes": axis.all_reduce_bytes,
-           "hashes": list(hashes.hashes), "results": res, "truth": truth,
-           "seeds": runner.seeds.tolist()}
+           "hashes": list(hashes.hashes),
+           "block_all_reduces": list(hashes.all_reduces), "results": res,
+           "truth": truth, "seeds": runner.seeds.tolist(),
+           "chain_launches": read_chain_launches(),
+           "chain_exec": runner.chain_exec}
     return out, runner
 
 
@@ -2183,12 +2213,157 @@ def mesh_rank(rank, world, port, tmp, dev):
     out["c"], _ = mesh_run(mesh, N_LARGE, 20, K_LARGE, (16, 0), 24, dev, 16)
     # (d) the card against CPU gloo ranks, step by step.
     out["d"] = mesh_small(mesh, dev)
+    # (e) a rank's local chains as one batch against one after another.
+    out["e"] = mesh_batched(dev)
     for key in ("a", "b", "c"):
         out[key].pop("truth")
     dist.barrier()
     dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+# Phase 11 (e): (mesh shape, chains, steps) at the main cell.
+MESH_BATCHES = (((2, 1), 4, 64), ((1, 2), 2, 64))
+
+
+def mesh_batched(dev):
+    """(e) on this rank: each of MESH_BATCHES under "vmap" and
+    "sequential" (same seed), in blocks of 32; then, for each form, 16
+    steps with every all-reduce timed (device synchronized around)."""
+    from bnpc_tpu_torch.parallel import axis, sharded
+
+    out = {}
+    for shape, n_chains, steps in MESH_BATCHES:
+        mesh = sharded.make_mesh(*shape)
+        for ex in ("vmap", "sequential"):
+            run, runner = mesh_run(mesh, N, 10, K_MAX, (steps, 0), 25, dev,
+                                   32, n_chains=n_chains, chain_exec=ex)
+            run.pop("truth")
+            axis.reset_counters()
+            axis.timed = True
+            try:
+                runner.run((16, 0), seed=26, n_chains=n_chains)
+            finally:
+                axis.timed = False
+            run["timed"] = {"all_reduces": axis.all_reduces,
+                            "seconds": axis.all_reduce_seconds, "steps": 16}
+            out[shape, ex] = run
+    return out
+
+
+def mesh_batched_check(ranks, smi):
+    """(e) in the parent: each chain of a batched run == its sequential run
+    bit for bit; replicated state and the all-reduces after every block
+    equal on the ranks of a mutation group; kernels 1 and 2 batched, on
+    grids of at most a rank's chains (2), a grid of 2 among them;
+    chain-steps/s and all-reduces a step of both forms."""
+    out = {}
+    for shape, n_chains, steps in MESH_BATCHES:
+        tag = f"mesh {shape[0]}x{shape[1]}"
+        runs = {ex: [r["e"][shape, ex] for r in ranks]
+                for ex in ("vmap", "sequential")}
+        for ex, (r0, r1) in runs.items():
+            if r0["chain_exec"] != ex or r1["results"] is not None:
+                raise AssertionError(f"{tag} {ex}: chain_exec "
+                                     f"{r0['chain_exec']}; results on rank 1")
+            if shape[1] > 1 and (r0["hashes"] != r1["hashes"]
+                                 or r0["block_all_reduces"]
+                                 != r1["block_all_reduces"]):
+                raise AssertionError(
+                    f"{tag} {ex}: the ranks differ: hashes {r0['hashes']} / "
+                    f"{r1['hashes']}, all-reduces after each block "
+                    f"{r0['block_all_reduces']} / {r1['block_all_reduces']}")
+        if not close_results(f"{tag} vmap against sequential",
+                             runs["vmap"][0]["results"],
+                             runs["sequential"][0]["results"]):
+            raise AssertionError(f"{tag}: vmap == sequential only to rtol "
+                                 "1e-6, not bit for bit")
+        for r, run in enumerate(runs["vmap"]):
+            grids = run["chain_launches"]
+            for name in ("lazy_segment", "rg_scan"):
+                g = grids[name][1]
+                if 2 not in g or max(g) > 2:
+                    raise AssertionError(f"{tag} vmap rank {r}: {name} "
+                                         f"grids {g}")
+            check_launches(f"{tag} vmap rank {r}", run["launches"],
+                           {"lazy_segment", "rg_scan"})
+            if any(v for k, v in read_one_chain_launches_of(run).items()):
+                raise AssertionError(f"{tag} vmap rank {r}: one-chain "
+                                     "launches")
+        cell = {}
+        for ex, (r0, r1) in runs.items():
+            secs = max(r0["seconds"], r1["seconds"])
+            cell[ex] = {
+                "chain_steps_per_s": n_chains * steps / secs,
+                "all_reduces_per_step": r0["all_reduces"] / steps,
+                "all_reduce_mb_per_step": r0["all_reduce_bytes"] / steps
+                / 1e6,
+                "all_reduce_ms_per_step": r0["timed"]["seconds"] * 1e3
+                / r0["timed"]["steps"],
+                "launches": [r0["launches"], r1["launches"]]}
+        cell["launches_grids"] = [r["chain_launches"] for r in runs["vmap"]]
+        cell["ratio"] = (cell["vmap"]["chain_steps_per_s"]
+                         / cell["sequential"]["chain_steps_per_s"])
+        out[f"{shape[0]}x{shape[1]}"] = cell
+        v, q = cell["vmap"], cell["sequential"]
+        log(f"  (e) {shape[0]} x {shape[1]}, {n_chains} chains x {steps} "
+            f"steps at {N:,} x {M} ({smi}): vmap "
+            f"{v['chain_steps_per_s']:.3f} chain-steps/s, sequential "
+            f"{q['chain_steps_per_s']:.3f} (x{cell['ratio']:.3f}); "
+            f"all-reduces a step {v['all_reduces_per_step']:.2f} / "
+            f"{q['all_reduces_per_step']:.2f} "
+            f"({v['all_reduce_mb_per_step']:.3f} / "
+            f"{q['all_reduce_mb_per_step']:.3f} MB), their ms a step "
+            f"{v['all_reduce_ms_per_step']:.3f} / "
+            f"{q['all_reduce_ms_per_step']:.3f}")
+        log(f"      each chain == its sequential-mesh run, bit for bit; "
+            f"replicated state and all-reduces equal on the group's ranks "
+            f"at every block; batched launches (kernel: (launches, {{grid: "
+            f"launches}})) {cell['launches_grids'][0]}: ok")
+    return out
+
+
+def read_one_chain_launches_of(run):
+    """The one-chain wrappers' launches of a rank's run: its launches less
+    its batched ones."""
+    return {name: run["launches"][name] - run["chain_launches"][name][0]
+            for name in run["chain_launches"]}
+
+
+def mesh_cli_batched(dev, tmp):
+    """(f) run_bnpc_tpu_torch.py --mesh 1,2 -n 2 at the main cell (a
+    process of its own): the chain_exec "auto" chose, one set of files."""
+    import subprocess
+    import sys
+
+    data, _ = make_data(N, M, 10, 0.1, seed=0)
+    path = os.path.join(tmp, "mesh_batched.txt")
+    write_input(path, data)
+    out_dir = os.path.join(tmp, "mesh_1x2_n2")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "run_bnpc_tpu_torch.py"), path,
+         "-s", "32", "-b", "0.33", "-np", "--seed", "0", "-n", "2", "-o",
+         out_dir, "-e", "posterior", "--mesh", "1,2", "--device", dev],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"run_bnpc_tpu_torch.py --mesh 1,2 -n 2: exit "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    check_outputs(out_dir, ["posterior"], N, M)
+    printed = proc.stdout
+    chosen = [ln.split(":", 1)[1].strip() for ln in printed.splitlines()
+              if ln.strip().startswith("chain_exec:")]
+    if printed.count("Writing output to") != 1 or len(chosen) != 1:
+        raise AssertionError(f"run_bnpc_tpu_torch.py --mesh 1,2 -n 2: "
+                             f"output:\n{printed[-2000:]}")
+    log(f"  (f) run_bnpc_tpu_torch.py --mesh 1,2 -n 2 -s 32: {wall:.3f} s; "
+        f"chain_exec {chosen[0]} (auto); one set of files (parsed), "
+        "printed once: ok")
+    return {"wall_s": wall, "chain_exec": chosen[0]}
 
 
 def run_captured(fn):
@@ -2212,7 +2387,7 @@ def run_captured(fn):
 
 
 def mesh_cli(dev, tmp):
-    """(e) cli.main with --mesh 1,2 and --mesh 2,1 at the main cell: the
+    """(f) cli.main with --mesh 1,2 and --mesh 2,1 at the main cell: the
     CLI starts two ranks on the card; one set of files, printed once."""
     from bnpc_tpu_torch import cli
 
@@ -2236,7 +2411,7 @@ def mesh_cli(dev, tmp):
                                  f"printed {writes} times; output:\n"
                                  f"{printed[-2000:]}")
         out[mesh] = {"wall_s": wall}
-        log(f"  (e) cli --mesh {mesh} -n {n_chains} -s 64: {wall:.3f} s; "
+        log(f"  (f) cli --mesh {mesh} -n {n_chains} -s 64: {wall:.3f} s; "
             "one set of files (parsed), printed once, backend gloo: ok")
     return out
 
@@ -2247,7 +2422,9 @@ def phase_mesh(dev, smi):
     equal across the ranks at every block, kernels 1 and 2 on each rank,
     all-reduces a step and their ms; (c) 1 x 2 at the large-n cell, kernel
     3 on each rank; (d) 500 x 201 on the card against the CPU, step by
-    step; (e) the CLI with --mesh 1,2 and 2,1."""
+    step; (e) 2 x 1 with 4 chains and 1 x 2 with 2, a rank's local chains
+    as one batch against one after another; (f) the CLI with --mesh 1,2
+    and 2,1, and run_bnpc_tpu_torch.py with --mesh 1,2 -n 2."""
     import pickle
     import socket
     import tempfile
@@ -2374,8 +2551,10 @@ def phase_mesh(dev, smi):
             f"rtol 1e-4, params atol 1e-6; params' largest difference "
             f"{worst:.3g}) on both ranks; gibbs/split/merge steps {kinds}: "
             "ok")
+        batched_out = mesh_batched_check(ranks, smi)
         cli_out = mesh_cli(dev, tmp)
-    out = {"backend": backend,
+        cli_out["1,2 -n 2"] = mesh_cli_batched(dev, tmp)
+    out = {"backend": backend, "batched": batched_out,
            "world_s": world_s, "chains": {"seconds": [a0["seconds"],
                                                       a1["seconds"]]},
            "main": b_out, "large": c_out, "small_kinds": kinds,
@@ -2681,14 +2860,17 @@ def close_results(tag, got, want):
 
 
 def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
-                   n, k_max, **kw):
+                   n, k_max, bits=False, **kw):
     """One run under chain_exec="vmap" and one under "sequential" (same
-    seed, same call): equal chain by chain; chain-steps/s of both; the
-    batched run's launches (every kernel launch of it on a chain grid)."""
+    seed, same call): equal chain by chain (with `bits`, bit for bit);
+    chain-steps/s of both; the batched run's launches (every kernel launch
+    of it on a chain grid); the Gibbs kernel's rounds a batched sweep where
+    the run's Gibbs move launches one (not the blocked sweep)."""
     import torch
 
     out, results = {}, {}
-    sweep = "lazy_stream" if "lazy_stream" in kernels else "lazy_segment"
+    sweep = next((k for k in ("lazy_stream", "lazy_segment")
+                  if k in kernels), None)
     for ex in ("vmap", "sequential"):
         runner = chains_runner(data, cfg, mc, dev, ex, **kw)
         kept = KeepStates(runner)
@@ -2703,7 +2885,9 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
                       steps + 1)
         out[ex] = {"chain_steps_per_s": n_chains * steps / secs,
                    "seconds": secs}
-        if ex == "sequential":
+        if sweep is None:
+            pass
+        elif ex == "sequential":
             # Each chain's sweep: births + 1 launches.
             out[ex]["launches_per_sweep"] = (
                 read_launches()[sweep] / max(sweeps.one, 1))
@@ -2712,6 +2896,7 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
             out[ex]["rounds_per_sweep"] = (
                 read_chain_launches()[sweep][0] / max(sweeps.batched, 1))
             out[ex]["sweeps"] = sweeps.batched
+        if ex == "vmap":
             single = read_one_chain_launches()
             batched = read_chain_launches()
             if any(single.values()) or any(
@@ -2722,18 +2907,22 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
             out["launches"] = batched
     out["bit_for_bit"] = close_results(tag, results["vmap"],
                                        results["sequential"])
+    if bits and not out["bit_for_bit"]:
+        raise AssertionError(f"{tag}: vmap == sequential only to rtol "
+                             "1e-6, not bit for bit")
     out["ratio"] = (out["vmap"]["chain_steps_per_s"]
                     / out["sequential"]["chain_steps_per_s"])
+    rounds = "" if sweep is None else (
+        f"; {sweep}: {out['vmap']['rounds_per_sweep']:.3f} rounds in each "
+        f"of {out['vmap']['sweeps']} batched sweeps, "
+        f"{out['sequential']['launches_per_sweep']:.3f} launches a "
+        "one-chain sweep")
     log(f"  {tag}: {n_chains} chains x {steps} steps; vmap "
         f"{out['vmap']['chain_steps_per_s']:.3f} chain-steps/s, sequential "
         f"{out['sequential']['chain_steps_per_s']:.3f} (x{out['ratio']:.3f}"
         f"); vmap == sequential chain by chain (bit for bit: "
         f"{out['bit_for_bit']}); batched launches (kernel: (launches, "
-        f"{{grid: launches}})) {out['launches']}; {sweep}: "
-        f"{out['vmap']['rounds_per_sweep']:.3f} rounds in each of "
-        f"{out['vmap']['sweeps']} batched sweeps, "
-        f"{out['sequential']['launches_per_sweep']:.3f} launches a "
-        "one-chain sweep")
+        f"{{grid: launches}})) {out['launches']}{rounds}")
     return out
 
 
@@ -2832,12 +3021,12 @@ def step_profile(tag, step_fn, steps):
     return out
 
 
-def chains_step_costs(dev, data, cfg, mc, n_chains, steps):
+def chains_step_costs(dev, data, cfg, mc, n_chains, steps, warm=16):
     """Per step of the main cell, batched (one step of every chain) against
-    sequential (one step of each chain in turn), from the same states 16
-    steps into a run and the same generator states, so both forms take the
-    same moves: launches, draw calls, device busy share (profiled) and
-    host syncs."""
+    sequential (one step of each chain in turn), from the same states
+    `warm` steps into a run and the same generator states, so both forms
+    take the same moves: launches, draw calls, device busy share
+    (profiled) and host syncs."""
     from bnpc_tpu_torch.draws import StackedDraws, TorchDraws
     from bnpc_tpu_torch.state import stack_states
 
@@ -2846,7 +3035,7 @@ def chains_step_costs(dev, data, cfg, mc, n_chains, steps):
               for c in range(n_chains)]
     gens = [TorchDraws(100 + c, dev) for c in range(n_chains)]
     # Past the first steps' many clusters.
-    states, _, gens = runner.run_chains(states, gens, 16)
+    states, _, gens = runner.run_chains(states, gens, warm)
     gen_states = [d.gen.get_state() for d in gens]
     batch = [stack_states(states)]
 
@@ -2889,8 +3078,37 @@ def chains_resume(dev, data, cfg, mc, tmp):
         "to 64 == the uninterrupted vmap run, bit for bit: ok")
 
 
+def chains_blocked(dev, smi, data, data_l):
+    """(f) the blocked sweep batched: gibbs_block 128 at the main cell (4
+    chains x 64 steps) and 512 at the large-n cell (2 x 16), each under
+    "vmap" against "sequential" in this call, chain by chain bit for bit;
+    at the main cell also launches, draw calls, busy share and host syncs
+    a step of both forms from the same states and generators. `data` and
+    `data_l` are the two cells' matrices."""
+    import dataclasses
+
+    out = {}
+    cfg, mc = bench_configs(N, K_MAX)
+    mc_b = dataclasses.replace(mc, gibbs_block=128)
+    log(f"  (f) blocked sweep, gibbs_block 128, main cell, 4 chains x 64 "
+        f"steps ({smi})")
+    out["main_4"] = chains_compare("blocked main 4", dev, data, cfg, mc_b,
+                                   4, 64, 45, {"rg_scan"}, N, K_MAX,
+                                   bits=True)
+    out["main_4"]["steps"] = chains_step_costs(dev, data, cfg, mc_b, 4, 4,
+                                               warm=8)
+    log(f"  (f) blocked sweep, gibbs_block 512, large-n, 2 chains x 16 "
+        f"steps ({smi})")
+    cfg_l, mc_l = bench_configs(N_LARGE, K_LARGE)
+    out["large_2"] = chains_compare(
+        "blocked large 2", dev, data_l, cfg_l,
+        dataclasses.replace(mc_l, gibbs_block=512), 2, 16, 46, {"rg_scan"},
+        N_LARGE, K_LARGE, bits=True, block_size=16)
+    return out
+
+
 def chains_cli(dev, tmp, smi):
-    """(f) cli.main -n 4 -s 128 at the main cell: the chain_exec "auto"
+    """(g) cli.main -n 4 -s 128 at the main cell: the chain_exec "auto"
     chose (printed), the files."""
     from bnpc_tpu_torch import mcmc
 
@@ -2904,7 +3122,7 @@ def chains_cli(dev, tmp, smi):
     args = cell.pop("output_args")[0]
     if len(args.chain_seeds) != 4:
         raise AssertionError(f"cli -n 4: chain_seeds {args.chain_seeds}")
-    log(f"  (f) cli -n 4 -s 128: printed '{want}'; files parsed, 4 "
+    log(f"  (g) cli -n 4 -s 128: printed '{want}'; files parsed, 4 "
         f"chain_seeds; {cell['wall_s']:.3f} s")
     return {"wall_s": cell["wall_s"], "chain_exec":
             mcmc.AUTO_CUDA_CHAIN_EXEC, "ari_posterior": cell["ari_posterior"]}
@@ -2984,14 +3202,19 @@ def phase_chains(dev, smi, k):
                        for name in ("lazy_stream", "rg_scan")):
                 raise AssertionError(f"large 2: no launch of kernel 3 or 2 "
                                      f"on a grid of 2: {grids}")
-            del data_l
         with part("f"):
+            out["blocked"] = chains_blocked(dev, smi, data, data_l)
+            del data_l
+        with part("g"):
             out["cli"] = chains_cli(dev, tmp, smi)
     out["part_seconds"] = parts
     out["auto_rule_holds"] = all(
         out[c]["ratio"] >= 1.0 for c in ("main_4", "main_16", "large_2"))
+    out["auto_blocked_rule_holds"] = all(
+        out["blocked"][c]["ratio"] >= 1.0 for c in ("main_4", "large_2"))
     log(f"  batched >= sequential chain-steps/s at both cells in this call "
-        f"(main 4 and 16 chains, large-n 2): {out['auto_rule_holds']}")
+        f"(main 4 and 16 chains, large-n 2): {out['auto_rule_holds']}; "
+        f"blocked (main 4, large-n 2): {out['auto_blocked_rule_holds']}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 12: {out['seconds']:.1f} s; parts (s) "
         + ", ".join(f"{name} {sec:.1f}" for name, sec in parts.items()))
@@ -3086,11 +3309,17 @@ def main():
     batched_path = {"lazy_segment": chains_out["main_4"]["launches"],
                     "rg_scan": chains_out["main_4"]["launches"],
                     "lazy_stream": chains_out["large_2"]["launches"]}
+    # And this rank-0 count on phase 11 (e)'s 1 x 2 batched mesh run, and
+    # on phase 12 (f)'s batched blocked run at the main cell.
+    mesh_path = mesh_out["batched"]["1x2"]["launches_grids"][0]
+    blocked_path = chains_out["blocked"]["main_4"]["launches"]
     for entry in kernels:
         name = entry["name"]
         if name in batched_path:
             entry["batched_ms"] = chains_out["timing"][name]["batched_ms"][16]
             entry["batched_launches"] = batched_path[name][name][0]
+            entry["mesh_batched_launches"] = mesh_path[name][0]
+            entry["blocked_batched_launches"] = blocked_path[name][0]
     log(json.dumps({"paths": {
         name: {f: out[f] for f in ("steps_per_s", "launches_per_sweep",
                                    "host_syncs_per_step", "clusters", "ari",

@@ -22,8 +22,8 @@ bnpc_tpu and against the port's own sequential chains.
   the one-chain move, chain by chain.
 * The batched twins of kernels 1, 3 and 2 against the Pallas kernels in
   interpret mode, chain by chain, on ragged crafted batches.
-* StackedDraws slice c == chain c's provider; the refusals (eager, blocked,
-  mesh) and "auto"'s rule.
+* StackedDraws slice c == chain c's provider; the refusals (eager) and
+  "auto"'s rule.
 """
 
 import dataclasses
@@ -399,14 +399,23 @@ def test_stacked_draws_slice_is_the_chain(provider, monkeypatch):
 
 
 def test_refusals():
-    with pytest.raises(ValueError, match="blocked"):
-        _port(gibbs_block=8)
-    with pytest.raises(ValueError, match="mesh"):
-        port_mcmc.MCMCRunner(TCFG, MCMCConfig(**MIX),
-                             port_pack(DATA, "cpu"), "cpu", mesh=object(),
-                             chain_exec="vmap")
+    """The eager sweep has no batched form: refused by the batched sweep
+    and by a batched mesh block; the blocked sweep and a mesh run batched
+    (tests/test_torch_chainbatch.py)."""
+    from bnpc_tpu_torch.parallel import sharded
+
+    assert _port(gibbs_block=8).chain_exec == "vmap"
     with pytest.raises(ValueError, match="eager"):
-        port_mcmc._check_chains_step(MCMCConfig(**MIX), "eager")
+        port_mcmc._check_chains_step("eager")
+    port_mcmc._check_chains_step("blocked")
+    mesh = sharded.Mesh(1, 1, 0, None, None)
+    with pytest.raises(ValueError, match="eager"):
+        sharded.make_sharded_block(mesh, TCFG, MCMCConfig(**MIX),
+                                   port_pack(DATA, "cpu"),
+                                   gibbs_impl="eager", chain_exec="vmap")
+    assert sharded.make_sharded_block(
+        mesh, TCFG, MCMCConfig(**MIX, gibbs_block=8), port_pack(DATA, "cpu"),
+        chain_exec="vmap").chain_exec == "vmap"
     cfg, data, states = _states((1, 2))
     with pytest.raises(ValueError, match="eager"):
         gibbs_sweep(StackedDraws([TorchDraws(1, "cpu")] * 2),
@@ -423,10 +432,22 @@ def test_auto_rule():
         == port_mcmc.AUTO_CUDA_CHAIN_EXEC
     assert port_mcmc.AUTO_CUDA_CHAIN_EXEC in ("sequential", "vmap")
     assert _port(chain_exec="auto").chain_exec == "sequential"
-    # No batched form under a mesh or with the blocked sweep.
-    assert port_mcmc.resolve_chain_exec("auto", "cuda", mesh=object()) \
-        == "sequential"
-    assert port_mcmc.resolve_chain_exec("auto", "cuda", gibbs_block=8) \
-        == "sequential"
+    # A mesh and the blocked sweep each add their own measured rule; the
+    # CPU stays sequential.
+    rules = {"mesh": port_mcmc.AUTO_CUDA_MESH_CHAIN_EXEC,
+             "gibbs_block": port_mcmc.AUTO_CUDA_BLOCKED_CHAIN_EXEC}
+    for mesh in (None, object()):
+        for block in (0, 8):
+            want = [port_mcmc.AUTO_CUDA_CHAIN_EXEC]
+            want += [rules["mesh"]] if mesh is not None else []
+            want += [rules["gibbs_block"]] if block else []
+            got = port_mcmc.resolve_chain_exec("auto", "cuda", mesh=mesh,
+                                               gibbs_block=block)
+            assert got == ("vmap" if set(want) == {"vmap"}
+                           else "sequential")
+            assert port_mcmc.resolve_chain_exec(
+                "auto", "cpu", mesh=mesh, gibbs_block=block) == "sequential"
     for ex in ("sequential", "vmap"):
         assert port_mcmc.resolve_chain_exec(ex, "cuda") == ex
+        assert port_mcmc.resolve_chain_exec(ex, "cuda", mesh=object(),
+                                            gibbs_block=8) == ex
