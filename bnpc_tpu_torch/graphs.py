@@ -1,0 +1,140 @@
+"""CUDA graphs of a step's device-only pieces (the port's counterpart of
+bnpc_tpu's compiled block: ``make_block_fn``'s ``lax.scan`` and the jitted
+one-chain pipe, bnpc_tpu/mcmc.py:345-353, 710-722).
+
+A piece is a Python function that only launches device work: it reads and
+writes tensors that outlive it (static buffers) and makes no host read. The
+captured block (mcmc.py::_CapturedBlock) runs each piece through
+:class:`Pieces` under a key that names what the host already knows about it
+(a move flag, whether a birth round relaunches). A key's first run is eager
+(it loads the kernels and makes the lazy initialisations that a capture may
+not make); its second run captures it into a graph and replays that; every
+later run replays it. So every run of a piece computes, with the same
+kernels on the same buffers, what its eager run computes.
+
+What a replay must carry over from an eager run:
+
+  * random numbers: every graph registers the block's generator
+    (``register_generator_state``), so a replay draws from the generator's
+    state at the replay and advances it by what the capture drew, as the
+    eager run would;
+  * the kernel wrappers' launch counters (ops/cuda_*.py): ``launches += 1``
+    runs in Python, so only at capture. A capture notes how far each
+    counter moved, sets it back, and each replay adds that.
+
+A capture that fails raises; nothing falls back to eager dispatch. All the
+graphs of a block share one memory pool: it holds each piece's temporaries
+only (what crosses pieces lives in the static buffers, allocated outside
+any capture), so the graphs may replay in any order.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream
+
+# The kernel wrappers a captured piece launches.
+COUNTED = (cuda_gibbs, cuda_stream, cuda_rg)
+
+
+def read_counts() -> list:
+    """The launch counters of COUNTED: (launches, chain_launches,
+    chain_grids) a module."""
+    return [(m.launches, m.chain_launches, dict(m.chain_grids))
+            for m in COUNTED]
+
+
+def set_counts(counts) -> None:
+    for m, (one, chains, grids) in zip(COUNTED, counts):
+        m.launches, m.chain_launches = one, chains
+        m.chain_grids.clear()
+        m.chain_grids.update(grids)
+
+
+def _delta(after, before) -> list:
+    return [(a[0] - b[0], a[1] - b[1],
+             {g: v - b[2].get(g, 0) for g, v in a[2].items()})
+            for a, b in zip(after, before)]
+
+
+def add_counts(delta) -> None:
+    for m, (one, chains, grids) in zip(COUNTED, delta):
+        m.launches += one
+        m.chain_launches += chains
+        for g, v in grids.items():
+            if v:
+                m.chain_grids[g] = m.chain_grids.get(g, 0) + v
+
+
+class CudaGraph:
+    """One piece as a ``torch.cuda.CUDAGraph`` that draws from `generator`
+    and allocates from `pool`."""
+
+    def __init__(self, generator: torch.Generator, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        self.pool = pool
+
+    def capture(self, fn) -> None:
+        with torch.cuda.graph(self.graph, pool=self.pool):
+            fn()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class Pieces:
+    """Runs pieces by key (module docstring). `graph_cls(generator, pool)`
+    makes a graph; on the card CudaGraph. Keeps, for the record: the graphs
+    by key with the launches each holds (``graphs``), how many replays
+    (``replays``) and eager runs (``eager_runs``) it made, and the seconds
+    its captures took (``capture_seconds``)."""
+
+    def __init__(self, generator: torch.Generator, graph_cls=CudaGraph):
+        self.generator = generator
+        self.graph_cls = graph_cls
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if graph_cls is CudaGraph else None)
+        self.graphs: dict = {}
+        self.seen: set = set()
+        self.replays = 0
+        self.eager_runs = 0
+        self.capture_seconds = 0.0
+
+    def run(self, key, fn) -> None:
+        entry = self.graphs.get(key)
+        if entry is None:
+            if key not in self.seen:
+                self.seen.add(key)
+                self.eager_runs += 1
+                fn()
+                return
+            entry = self.graphs[key] = self._capture(fn)
+        graph, delta = entry
+        graph.replay()
+        add_counts(delta)
+        self.replays += 1
+
+    def _capture(self, fn):
+        t0 = time.perf_counter()
+        before = read_counts()
+        graph = self.graph_cls(self.generator, self.pool)
+        try:
+            graph.capture(fn)
+        finally:
+            delta = _delta(read_counts(), before)
+            set_counts(before)
+        self.capture_seconds += time.perf_counter() - t0
+        return graph, delta
+
+    def pool_bytes(self) -> int | None:
+        """Bytes of the device memory segments of the graphs' pool (None
+        off the card)."""
+        if self.pool is None:
+            return None
+        pool = tuple(self.pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool)

@@ -16,11 +16,19 @@ and in either form in lockstep with one shared move selection a step
 Given a mesh of ranks (parallel/sharded.py), the runner runs this rank's
 chains on its mutation columns and rank 0 gathers, decides and writes (see
 MCMCRunner).
+
+On the card a chain that runs alone (one chain, or chains one after
+another) runs its block captured (_CapturedBlock): the device-only pieces
+of each step between the step's host reads replay as CUDA graphs
+(graphs.py), bit for bit what the eager step gives. Batched chains,
+coupled chains, the blocked sweep, the eager and scan sweeps and the mesh
+run the eager step. Nothing turns the capture off; a capture fault raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from datetime import datetime
 from typing import NamedTuple
@@ -28,12 +36,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bnpc_tpu_torch import diagnostics
+from bnpc_tpu_torch import diagnostics, graphs
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws, StackedDraws, TorchDraws
-from bnpc_tpu_torch.models.gibbs import gibbs_sweep
-from bnpc_tpu_torch.models.splitmerge import split_merge
+from bnpc_tpu_torch.models.gibbs import (_split_sweep_keys, gibbs_sweep,
+                                          resolve_impl, segment_births,
+                                          segment_finish, segment_rounds,
+                                          segment_start, segment_work)
+from bnpc_tpu_torch.models.splitmerge import _move, sm_choice, split_merge
 from bnpc_tpu_torch.models.updates import (
     update_dp_alpha,
     update_error_rates,
@@ -113,53 +124,39 @@ def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
     )
 
 
-def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
-                trace_k: int, gibbs_impl: str, gibbs_block: int,
-                ax: MutAxis = _NO_AXIS):
-    """(select, moves) of a step of one chain or of a batch of chains (a
-    state with a leading chain axis and StackedDraws; chain_exec="vmap").
+def _make_finish(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
+                 trace_k: int, ax: MutAxis = _NO_AXIS):
+    """The rest of a step after its assignment move, for one chain or a
+    batch: finish(state, flags, flags_dev, sm_counts, k_dpa, k_par, k_err)
+    runs the alpha resample, the cluster statistics, the parameter MH, the
+    error-rate MH and the trace row, and returns (state, row). `flags` and
+    `flags_dev` are select's (``_make_moves``); `sm_counts` the split-merge
+    move's [..., 2, 2] counts (None: no split-merge move)."""
 
-    select(k_sel, lead) reads the move uniforms of every chain, [*lead, 3]
-    (the step's one planned host read), and returns (flags, flags_dev):
-    each chain's (do_sm, do_dpa, do_err) on the host, a list of one for one
-    chain, and flags_dev(j), flag j of every chain on the device.
-    moves(state, flags, flags_dev, k_assign, k_dpa, k_par, k_err) runs the
-    moves and returns (state, row). A move that only some chains of a batch
-    take runs on their sub-batch (state.py::by_chain_flag), so each chain
-    draws what its one-chain step draws. gibbs_block > 0 replaces the exact
-    Gibbs move by the blocked sweep. Every move sums over the mutation axis
-    `ax`, and a batch over a ChainAxis on it."""
-    # The move thresholds as float32 values: comparing the uniforms' exact
-    # float32 values against them on the host is JAX's float32 comparison.
-    thresholds = [float(np.float32(p)) for p in (
-        mcmc_cfg.sm_prob, mcmc_cfg.dpa_prob, mcmc_cfg.error_prob)]
-    impl_g = "blocked" if gibbs_block > 0 else gibbs_impl
-
-    def select(k_sel: Draws, lead=()):
-        u = k_sel.uniform(tuple(lead) + (3,))
-        rows = u.reshape(-1, 3).tolist()  # the step's one planned host read
-        return ([[x < t for x, t in zip(row, thresholds)] for row in rows],
-                lambda j: u[..., j] < thresholds[j])
-
-    def moves(state: CRPState, flags, flags_dev, k_assign, k_dpa, k_par,
-              k_err):
+    def finish(state: CRPState, flags, flags_dev, sm_counts, k_dpa, k_par,
+               k_err):
         step_ax = (ax if state.assignment.dim() == 1
                    else ChainAxis(chains=len(flags), mut=ax))
         counts = torch.zeros(tuple(state.dp_alpha.shape) + (5, 2),
                              dtype=torch.int32,
                              device=state.assignment.device)
-
-        def assign_move(do_sm, sub, sub_ax, take, idx):
-            if do_sm:
-                return split_merge(take(k_assign), sub, data, cfg,
-                                   mcmc_cfg.sm_split_ratio,
-                                   mcmc_cfg.sm_steps, ax=sub_ax)
-            return gibbs_sweep(take(k_assign), sub, data, cfg, impl=impl_g,
-                               block=gibbs_block, ax=sub_ax), None
+        if sm_counts is not None:
+            counts[..., 1:3, :] += sm_counts
 
         def alpha_move(do_dpa, sub, sub_ax, take, idx):
             return (update_dp_alpha(take(k_dpa), sub, cfg) if do_dpa
                     else sub), None
+
+        if not mcmc_cfg.fix_assign and mcmc_cfg.dpa_prob > 0.0:
+            state, _ = by_chain_flag(state, [f[1] for f in flags],
+                                     lambda: flags_dev(1), alpha_move,
+                                     step_ax)
+
+        n1, n0 = cluster_stats(data, state.assignment, cfg.k_max)
+        state, par_dec, par_acc = update_parameters(k_par, state, n1, n0,
+                                                    cfg, step_ax)
+        counts[..., 0, :] += torch.stack([par_acc, par_dec], -1).to(
+            torch.int32)
 
         def error_move(do_err, sub, sub_ax, take, idx):
             if not do_err:
@@ -169,23 +166,6 @@ def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
                                                      s0, cfg, sub_ax)
             acc = torch.stack([fp_acc, fn_acc], -1).to(torch.int32)
             return sub, torch.stack([acc, 1 - acc], dim=-1)
-
-        if not mcmc_cfg.fix_assign:
-            state, c = by_chain_flag(
-                state, [mcmc_cfg.sm_prob > 0.0 and f[0] for f in flags],
-                lambda: flags_dev(0), assign_move, step_ax)
-            if c is not None:
-                counts[..., 1:3, :] += c
-            if mcmc_cfg.dpa_prob > 0.0:
-                state, _ = by_chain_flag(state, [f[1] for f in flags],
-                                         lambda: flags_dev(1), alpha_move,
-                                         step_ax)
-
-        n1, n0 = cluster_stats(data, state.assignment, cfg.k_max)
-        state, par_dec, par_acc = update_parameters(k_par, state, n1, n0,
-                                                    cfg, step_ax)
-        counts[..., 0, :] += torch.stack([par_acc, par_dec], -1).to(
-            torch.int32)
 
         if cfg.learn_errors and mcmc_cfg.error_prob > 0.0:
             state, c = by_chain_flag(state, [f[2] for f in flags],
@@ -198,7 +178,68 @@ def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
                         ax=step_ax)
         return state, row._replace(mh_counts=counts)
 
+    return finish
+
+
+def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
+                trace_k: int, gibbs_impl: str, gibbs_block: int,
+                ax: MutAxis = _NO_AXIS):
+    """(select, moves) of a step of one chain or of a batch of chains (a
+    state with a leading chain axis and StackedDraws; chain_exec="vmap").
+
+    select(k_sel, lead) reads the move uniforms of every chain, [*lead, 3]
+    (the step's one planned host read), and returns (flags, flags_dev):
+    each chain's (do_sm, do_dpa, do_err) on the host, a list of one for one
+    chain, and flags_dev(j), flag j of every chain on the device.
+    moves(state, flags, flags_dev, k_assign, k_dpa, k_par, k_err) runs the
+    moves and returns (state, row): the assignment move, then
+    ``_make_finish``'s. A move that only some chains of a batch take runs
+    on their sub-batch (state.py::by_chain_flag), so each chain draws what
+    its one-chain step draws. gibbs_block > 0 replaces the exact Gibbs move
+    by the blocked sweep. Every move sums over the mutation axis `ax`, and
+    a batch over a ChainAxis on it."""
+    impl_g = "blocked" if gibbs_block > 0 else gibbs_impl
+    select = _make_select(mcmc_cfg)
+    finish = _make_finish(cfg, mcmc_cfg, data, trace_k, ax)
+
+    def moves(state: CRPState, flags, flags_dev, k_assign, k_dpa, k_par,
+              k_err):
+        step_ax = (ax if state.assignment.dim() == 1
+                   else ChainAxis(chains=len(flags), mut=ax))
+
+        def assign_move(do_sm, sub, sub_ax, take, idx):
+            if do_sm:
+                return split_merge(take(k_assign), sub, data, cfg,
+                                   mcmc_cfg.sm_split_ratio,
+                                   mcmc_cfg.sm_steps, ax=sub_ax)
+            return gibbs_sweep(take(k_assign), sub, data, cfg, impl=impl_g,
+                               block=gibbs_block, ax=sub_ax), None
+
+        sm_counts = None
+        if not mcmc_cfg.fix_assign:
+            state, sm_counts = by_chain_flag(
+                state, [mcmc_cfg.sm_prob > 0.0 and f[0] for f in flags],
+                lambda: flags_dev(0), assign_move, step_ax)
+        return finish(state, flags, flags_dev, sm_counts, k_dpa, k_par,
+                      k_err)
+
     return select, moves
+
+
+def _make_select(mcmc_cfg: MCMCConfig):
+    """select(k_sel, lead=()) of ``_make_moves``."""
+    # The move thresholds as float32 values: comparing the uniforms' exact
+    # float32 values against them on the host is JAX's float32 comparison.
+    thresholds = [float(np.float32(p)) for p in (
+        mcmc_cfg.sm_prob, mcmc_cfg.dpa_prob, mcmc_cfg.error_prob)]
+
+    def select(k_sel: Draws, lead=()):
+        u = k_sel.uniform(tuple(lead) + (3,))
+        rows = u.reshape(-1, 3).tolist()  # the step's one planned host read
+        return ([[x < t for x, t in zip(row, thresholds)] for row in rows],
+                lambda j: u[..., j] < thresholds[j])
+
+    return select
 
 
 def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
@@ -335,6 +376,175 @@ def _chain_block(step, state: CRPState, draws: Draws, n_steps: int,
     return state, _rows_to_host(rows), keys[0]
 
 
+def _write(dst: CRPState, src: CRPState) -> None:
+    """Copy `src` into the tensors of `dst` in place (a field that IS the
+    destination tensor is left as it is)."""
+    for d, x in zip(dst, src):
+        if x is not d:
+            d.copy_(x)
+
+
+class _CapturedBlock:
+    """One chain's block on the card, each step's device-only pieces
+    replayed as CUDA graphs between the step's host reads (graphs.py; the
+    counterpart of bnpc_tpu's compiled block, whose step is a ``lax.scan``
+    body with the birth loop a ``lax.while_loop`` and split or merge a
+    ``lax.cond``). For the Gibbs impls ``lazy`` and ``stream``.
+
+    A step makes the host reads of the eager step (``_make_step_body``)
+    and no more: the move uniforms (select, eager: one draw), then either
+    each round's info of the sweep (models/gibbs.py::segment_rounds) or the
+    split-or-merge choice. The pieces between them, each keyed by what the
+    host knows at that point, are the eager step's own functions:
+
+      * ("sweep_head",): segment_start, the sweep's draws, Z, the staging
+        and the first launch;
+      * ("birth", relaunch): segment_births, a birth's patch, with its slot
+        and cell read on the device, and the relaunch unless the sweep has
+        ended;
+      * ("sweep_tail",): segment_finish into the state;
+      * ("sm_head",): splitmerge.sm_choice into a device flag;
+      * ("sm_move", is_split): splitmerge._move, the split or the merge;
+      * ("rest", do_dpa, do_err): ``_make_finish``'s alpha resample, cluster
+        statistics, parameter and error-rate MH and the trace row, written
+        into a [rows_cap, ...] device buffer at a device step index.
+
+    The chain's state, the sweep's buffers (models/gibbs.py::SegmentWork),
+    the split flag, the move's counts and the row buffers are static
+    tensors made at the first run and read and written in place by every
+    graph. A block copies the state in and its generator state into the
+    block's own generator (the one every graph registers), runs its steps,
+    copies the rows to the host (once a block, or each time rows_cap rows
+    are full), and hands back a copy of the state and the generator state.
+    Each step gives bit for bit what ``_chain_block`` over the eager step
+    gives on the same draws. `graph_cls` makes the graphs (graphs.Pieces);
+    a capture fault raises."""
+
+    def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
+                 data: PackedData, trace_k: int, impl: str, device,
+                 rows_cap: int, graph_cls=graphs.CudaGraph):
+        if impl not in ("lazy", "stream"):
+            raise ValueError(f"the captured block runs 'lazy' or 'stream', "
+                             f"not {impl!r}")
+        self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
+        self.trace_k, self.stream = trace_k, impl == "stream"
+        self.device = torch.device(device)
+        self.rows_cap = max(1, int(rows_cap))
+        self.graph_cls = graph_cls
+        self._select = _make_select(mcmc_cfg)
+        self._finish = _make_finish(cfg, mcmc_cfg, data, trace_k)
+        self.pieces: graphs.Pieces | None = None
+
+    def _setup(self, state: CRPState) -> None:
+        """The block's generator, its graphs and the static buffers, shaped
+        after `state`."""
+        dev = self.device
+        self.draws = TorchDraws(0, dev)
+        self.pieces = graphs.Pieces(self.draws.gen, self.graph_cls)
+        self.state = CRPState(*(torch.empty_like(f, device=dev)
+                                for f in state))
+        self.work = segment_work(self.state, self.cfg, self.stream)
+        self.split = torch.zeros((), dtype=torch.bool, device=dev)
+        self.sm_counts = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+        self.t = torch.zeros((1,), dtype=torch.long, device=dev)
+        _write(self.state, state)
+        row = summarize(self.state, self.data, self.cfg, self.trace_k)
+        self.rows = TraceRow(*(
+            torch.zeros((self.rows_cap,) + tuple(f.shape), dtype=f.dtype,
+                        device=dev) for f in row))
+
+    def run(self, state: CRPState, draws: Draws, n_steps: int,
+            keep: int | None = None):
+        """What ``_chain_block`` returns for the eager step: (state, rows,
+        next_draws), `draws` a TorchDraws on the block's device (its
+        generator's state moves on as the steps draw)."""
+        if type(draws) is not TorchDraws or draws.gen.device != self.device:
+            raise ValueError(f"the captured block draws from a TorchDraws "
+                             f"on {self.device}, not {draws!r}")
+        if self.pieces is None:
+            self._setup(state)
+        _write(self.state, state)
+        gd = self.draws
+        gd.gen.set_state(draws.gen.get_state())
+        keys = gd.split(n_steps + 1)
+        host, filled = [], 0
+        self.t.zero_()
+        for k in keys[1:1 + (n_steps if keep is None else keep)]:
+            if filled == self.rows_cap:
+                host.append(self._flush(filled))
+                self.t.zero_()
+                filled = 0
+            self._step(k)
+            filled += 1
+        host.append(self._flush(filled))
+        draws.gen.set_state(gd.gen.get_state())
+        rows = host[0] if len(host) == 1 else {
+            f: np.concatenate([h[f] for h in host]) for f in TraceRow._fields}
+        return CRPState(*(f.clone() for f in self.state)), rows, draws
+
+    def _flush(self, k: int) -> dict:
+        """The first `k` rows on the host (a copy on every device: .cpu()
+        of a CPU tensor is the tensor)."""
+        return {f: buf[:k].to("cpu", copy=True).numpy()
+                for f, buf in zip(TraceRow._fields, self.rows)}
+
+    def _step(self, key: Draws) -> None:
+        mc = self.mcmc_cfg
+        k_sel, k_assign, k_dpa, k_par, k_err = key.split(5)
+        flags, _ = self._select(k_sel)
+        do_sm, do_dpa, do_err = flags[0]
+        if not mc.fix_assign:
+            if mc.sm_prob > 0.0 and do_sm:
+                self._split_merge(k_assign)
+            else:
+                self._sweep(k_assign)
+        rest = ("rest", not mc.fix_assign and mc.dpa_prob > 0.0 and do_dpa,
+                self.cfg.learn_errors and mc.error_prob > 0.0 and do_err)
+        self.pieces.run(rest, lambda: self._rest(flags, k_dpa, k_par, k_err))
+
+    def _sweep(self, k_assign: Draws) -> None:
+        ws, st, data, cfg = self.work, self.state, self.data, self.cfg
+        k_perm, k_gumbel, k_beta = _split_sweep_keys(k_assign)
+        self.pieces.run(("sweep_head",), lambda: segment_start(
+            ws, k_perm, k_gumbel, st, data, cfg, stream=self.stream))
+
+        def births(born, relaunch):
+            self.pieces.run(("birth", relaunch), lambda: segment_births(
+                ws, born, [k_beta], st, data, cfg, stream=self.stream,
+                relaunch=relaunch))
+
+        segment_rounds(ws, cfg.n_cells, births)
+        self.pieces.run(("sweep_tail",), self._sweep_tail)
+
+    def _sweep_tail(self) -> None:
+        _write(self.state, segment_finish(self.work, self.state))
+        self.sm_counts.zero_()
+
+    def _split_merge(self, k_assign: Draws) -> None:
+        mc = self.mcmc_cfg
+        k_move, *keys = k_assign.split(6)
+        self.pieces.run(("sm_head",), lambda: self.split.copy_(sm_choice(
+            k_move, self.state, self.cfg, mc.sm_split_ratio)))
+        is_split = bool(self.split.tolist())  # the host read: one a move
+
+        def move():
+            state, counts = _move(is_split, keys, self.state, self.data,
+                                  self.cfg, mc.sm_steps)
+            _write(self.state, state)
+            self.sm_counts.copy_(counts)
+
+        self.pieces.run(("sm_move", is_split), move)
+
+    def _rest(self, flags, k_dpa, k_par, k_err) -> None:
+        sm_counts = None if self.mcmc_cfg.fix_assign else self.sm_counts
+        state, row = self._finish(self.state, flags, None, sm_counts, k_dpa,
+                                  k_par, k_err)
+        _write(self.state, state)
+        for buf, x in zip(self.rows, row):
+            buf.index_copy_(0, self.t, x[None])
+        self.t.add_(1)
+
+
 def _batch_block(step, states: list[CRPState], draws: list[Draws],
                  n_steps: int, keep: int | None = None,
                  coupled: bool = False):
@@ -358,19 +568,21 @@ def _batch_block(step, states: list[CRPState], draws: list[Draws],
         for f, v in host.items()}, [k[0] for k in keys]
 
 
-def _make_block(step, chain_exec: str):
+def _make_block(step, chain_exec: str, one=None):
     """(states, draws, n_steps, keep=None) -> (states, rows, next_draws): a
     block of `step` over a list of one-chain states and their draws, the
-    chains one after another (_chain_block) or, under chain_exec="vmap"
-    and more than one chain, as one batch (_batch_block). rows hold
-    [chains, steps, ...] host arrays (an empty dict without chains)."""
+    chains one after another (each by `one`, _chain_block's signature;
+    default _chain_block over `step`) or, under chain_exec="vmap" and more
+    than one chain, as one batch (_batch_block). rows hold [chains, steps,
+    ...] host arrays (an empty dict without chains)."""
+    one = one or functools.partial(_chain_block, step)
+
     def block(states, draws, n_steps: int, keep: int | None = None):
         if not states:
             return [], {}, []
         if chain_exec == "vmap" and len(states) > 1:
             return _batch_block(step, states, draws, n_steps, keep)
-        out = [_chain_block(step, st, d, n_steps, keep)
-               for st, d in zip(states, draws)]
+        out = [one(st, d, n_steps, keep) for st, d in zip(states, draws)]
         states, rows, draws = (list(x) for x in zip(*out))
         return states, {f: np.stack([r[f] for r in rows])
                         for f in TraceRow._fields}, draws
@@ -504,7 +716,9 @@ class MCMCRunner:
       * "auto": see ``resolve_chain_exec`` (PERF.md §6 has the
         measurements behind its rules); "sequential" on the CPU.
 
-    One chain always runs the one-chain step. With
+    One chain always runs the one-chain step; on the card, and without
+    ``gibbs_block``, a chain that runs alone takes the captured block
+    (``_CapturedBlock``, ``run_block``). With
     ``mcmc_cfg.coupled_moves`` and more than one chain the chains step in
     lockstep with one shared move selection a step, batched under "vmap"
     (bnpc_tpu's coupled pipe) and one after another within each step under
@@ -560,9 +774,21 @@ class MCMCRunner:
         # The step's config, data and axis: this rank's columns of the
         # padded matrix under mutation sharding, else the whole matrix.
         self._step_cfg, self._step_data = cfg, data
+        # One chain's block: on the card the captured block (the exact
+        # Gibbs sweep resolves to "lazy" or "stream" there), else
+        # _chain_block over the eager step.
+        self._captured = None
         if mesh is None:
             self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
-            self._block = _make_block(self._step, self.chain_exec)
+            self._one_block = functools.partial(_chain_block, self._step)
+            if self.device.type == "cuda" and mcmc_cfg.gibbs_block == 0:
+                self._captured = _CapturedBlock(
+                    cfg, mcmc_cfg, data, self.trace_k,
+                    resolve_impl("auto", cfg, on_cuda=True), self.device,
+                    block_size)
+                self._one_block = self._captured.run
+            self._block = _make_block(self._step, self.chain_exec,
+                                      self._one_block)
         else:
             from bnpc_tpu_torch.data import pad_muts
             from bnpc_tpu_torch.parallel import sharded
@@ -604,8 +830,12 @@ class MCMCRunner:
         """One chain's block of `n_steps` steps, or its first `keep` steps
         (a partial final block takes the keys of a whole block, as bnpc_tpu
         does). Returns (state, rows, next_draws): rows is a dict of host
-        arrays with a leading step axis, one entry per TraceRow field."""
-        return _chain_block(self._step, state, draws, n_steps, keep)
+        arrays with a leading step axis, one entry per TraceRow field. On
+        the card the steps run as captured graphs (_CapturedBlock); the
+        eager block is _chain_block over self._step."""
+        if self.mesh is not None:
+            return _chain_block(self._step, state, draws, n_steps, keep)
+        return self._one_block(state, draws, n_steps, keep)
 
     def run_chains(self, states: list[CRPState], draws: list[Draws],
                    n_steps: int, keep: int | None = None):

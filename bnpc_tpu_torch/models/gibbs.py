@@ -7,13 +7,14 @@ matrix Z, counter-based newborn rows drawn from ``fold_in(cell)``) and give
 the same result:
 
   * ``lazy`` — the lazy-birth host loop around the resident segment kernel
-    (ops/cuda_gibbs.py::lazy_segment): the kernel walks the cells and exits
-    at a cluster birth; the loop draws that cell's newborn Beta row,
-    patches one Z column and one params row, and relaunches. Launches per
-    sweep = births + 1, and each launch costs one host read of its info.
-    The default on CUDA while Z is at most 13 MiB and k_max <= 1024.
+    (ops/cuda_gibbs.py::lazy_segment_chains, on a grid of one block a
+    chain): the kernel walks the cells and exits at a cluster birth; the
+    loop draws that cell's newborn Beta row, patches one Z column and one
+    params row, and relaunches. Launches per sweep = births + 1, and each
+    launch costs one host read of its info. The default on CUDA while Z is
+    at most 13 MiB and k_max <= 1024.
   * ``stream`` — the same loop around the streaming segment kernel
-    (ops/cuda_stream.py::lazy_segment_stream), with Z, aux and the
+    (ops/cuda_stream.py::lazy_segment_stream_chains), with Z, aux and the
     assignment gathered into visit order once per sweep, so rows stream
     from device memory in order. The default on CUDA above that size
     (ops/cuda_gibbs.py::resolve_stream, bnpc_tpu's rule).
@@ -31,18 +32,24 @@ the same result:
 On a CPU tensor ``lazy``, ``stream`` and ``eager`` run their kernels' plain
 twins, so the CPU tests hold each path against its bnpc_tpu counterpart.
 
+The ``lazy`` and ``stream`` loop is written as pieces that make no host
+read (``segment_start``, ``segment_births``, ``segment_finish``, over the
+device buffers of a ``SegmentWork``) between the loop's reads of each
+round's info (``segment_rounds``). ``gibbs_sweep`` runs them in order;
+mcmc.py's captured block runs the same pieces as CUDA graphs.
+
 A batch of chains (a state with a leading chain axis, StackedDraws, ``ax``
 a ChainAxis; mcmc.py's chain_exec="vmap") runs ``lazy`` and ``stream`` as
 rounds of one launch of the kernel on a grid of one block a chain, in the
-loop one chain runs on a grid of one (``_segment_impl``): after each round
-one host read of info [C, 4], the rows and Z columns of that round's
-births, and the next round. Chain c
-draws and patches what its one-chain sweep does, in the same order, so it
-gets its one-chain sweep's result; a batch takes max over c of
-(births_c + 1) rounds. ``blocked`` runs its frozen passes on every chain at
-once and replays every chain's birth block in one loop over its cells
-(``_blocked_impl``). ``scan`` loops its one-chain sweep over the chains.
-``eager`` has no batched form and raises.
+loop one chain runs on a grid of one: after each round one host read of
+[C, 5] (info and each birth's cell), the rows and Z columns of that
+round's births, and the next round. Chain c draws and patches what its
+one-chain sweep does, in the same order, so it gets its one-chain sweep's
+result; a batch takes max over c of (births_c + 1) rounds. ``blocked``
+runs its frozen passes on every chain at once and replays every chain's
+birth block in one loop over its cells (``_blocked_impl``). ``scan`` loops
+its one-chain sweep over the chains. ``eager`` has no batched form and
+raises.
 
 Under a sharded mutation axis (``ax``, parallel/axis.py) Z and every birth
 column are all-reduced before a kernel or a loop reads them, so each rank of
@@ -55,6 +62,7 @@ unsharded-only, as in bnpc_tpu (gibbs.py:160-164).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -62,11 +70,9 @@ from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
 from bnpc_tpu_torch.ops import likelihood as lk
-from bnpc_tpu_torch.ops.cuda_gibbs import (lazy_k_pad, lazy_segment,
-                                           lazy_segment_chains,
+from bnpc_tpu_torch.ops.cuda_gibbs import (lazy_k_pad, lazy_segment_chains,
                                            resolve_stream, stream_k_pad)
-from bnpc_tpu_torch.ops.cuda_stream import (lazy_segment_stream,
-                                            lazy_segment_stream_chains)
+from bnpc_tpu_torch.ops.cuda_stream import lazy_segment_stream_chains
 from bnpc_tpu_torch.ops.cuda_sweep import eager_sweep
 from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import CRPState, stack_states, unstack_states
@@ -75,29 +81,48 @@ NEG_INF = float("-inf")
 _NO_AXIS = MutAxis()
 
 
+def _split_sweep_keys(draws: Draws, ax: MutAxis = _NO_AXIS):
+    """The sweep's (k_perm, k_gumbel, k_beta) keys (gibbs.py:_sweep_keys's
+    split); the newborn rows' key is the shard's own. No draw."""
+    k_perm, k_gumbel, k_beta = draws.split(3)
+    return k_perm, k_gumbel, ax.fold_key(k_beta)
+
+
 def _sweep_keys(draws: Draws, cfg: ModelConfig, ax: MutAxis = _NO_AXIS,
                 lead=()):
     """The sweep's (perm, gumbel, k_beta) randomness (gibbs.py:_sweep_keys).
     Slot j's noise is gumbel[..., j]; the new-cluster option's is
     gumbel[..., k_max]. The newborn rows' draws are the shard's own.
     `lead` is the chain axis' shape ((C,) for a batch)."""
-    k_perm, k_gumbel, k_beta = draws.split(3)
+    k_perm, k_gumbel, k_beta = _split_sweep_keys(draws, ax)
     perm = k_perm.permutation(cfg.n_cells)
     gumbel = k_gumbel.gumbel(tuple(lead) + (cfg.n_cells, cfg.k_max + 1))
-    return perm, gumbel, ax.fold_key(k_beta)
+    return perm, gumbel, k_beta
 
 
-def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig):
+def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig,
+              at=None):
     """Newborn parameter row for `cell` (libs/CRP.py:183-188, 291-294): an
-    exact Beta(p + x, q + x0) draw, counter-keyed by the cell."""
-    theta = k_beta.fold_in(cell).beta_binary(cfg.p, cfg.q, data.xm[cell],
-                                             data.xm0[cell])
+    exact Beta(p + x, q + x0) draw, counter-keyed by the cell. `at`, a [1]
+    device index, takes the data row on the device instead of at the host
+    int `cell`, which then only keys the draw (``fold_in``; a TorchDraws
+    ignores it, so a captured birth may hold a stale one)."""
+    if at is None:
+        xm, xm0 = data.xm[cell], data.xm0[cell]
+    else:
+        xm, xm0 = data.xm.index_select(0, at)[0], \
+            data.xm0.index_select(0, at)[0]
+    theta = k_beta.fold_in(cell).beta_binary(cfg.p, cfg.q, xm, xm0)
     return torch.clamp(theta, TMIN, TMAX).to(torch.float32)
 
 
-def _birth_column(theta, slot: int, fp, fn, data, gumbel, ax):
+def _birth_column(theta, slot, fp, fn, data, gumbel, ax):
+    """Slot `slot`'s newborn Z column; `slot` a host int or a [1] device
+    index."""
     f1, f0 = lk.log_prob_tables(theta, fp, fn)
-    return lk.ll_col(f1, f0, data.xm, data.xm0, ax) + gumbel[:, slot]
+    noise = (gumbel[:, slot] if isinstance(slot, int)
+             else gumbel.index_select(1, slot)[:, 0])
+    return lk.ll_col(f1, f0, data.xm, data.xm0, ax) + noise
 
 
 def _padded_sizes(state, k_pad: int):
@@ -145,9 +170,10 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
         # a sweep, and its explicit route sums shard-local columns.
         raise ValueError("impl='eager' cannot run under a sharded mutation "
                          "axis; use 'lazy', 'stream', 'scan' or 'blocked'")
-    run = {"lazy": functools.partial(_segment_impl, stream=False),
-           "stream": functools.partial(_segment_impl, stream=True),
-           "eager": _eager_impl,
+    if impl in ("lazy", "stream"):
+        return _segment_impl(draws, state, data, cfg, ax,
+                             stream=impl == "stream")
+    run = {"eager": _eager_impl,
            "scan": _scan_chains if batched else _scan_impl,
            "blocked": functools.partial(_blocked_impl,
                                         block=block or 128)}.get(impl)
@@ -155,20 +181,29 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
         raise ValueError(f"unknown Gibbs impl {impl!r}")
     if impl == "eager":
         _check_eager_fits(cfg, state.assignment.device)
+    k_perm, k_gumbel, k_beta = _split_sweep_keys(draws, ax)
+    perm, gumbel, z, aux, log_denom = _sweep_inputs(k_perm, k_gumbel, state,
+                                                    data, cfg, ax)
+    return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
+               ax=ax)
+
+
+def _sweep_inputs(k_perm: Draws, k_gumbel: Draws, state: CRPState,
+                  data: PackedData, cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
+    """The sweep's (perm, gumbel, z, aux, log_denom): its draws, and the
+    likelihood matrix with the Gumbel noise folded in (Z-formulation: the
+    categorical draw becomes a plain argmax)."""
     n, k_max = cfg.n_cells, cfg.k_max
     alpha = state.dp_alpha
     log_denom = torch.log(n - 1.0 + alpha)
     new_post = lk.new_cluster_ll(data, cfg, state.fp, state.fn) \
         + torch.log(alpha)[..., None] - log_denom[..., None]
-
-    perm, gumbel, k_beta = _sweep_keys(draws, cfg, ax, alpha.shape)
-    # Z-formulation: the Gumbel noise is folded into the likelihood matrix
-    # up front, so the categorical draw is a plain argmax.
+    perm = k_perm.permutation(n)
+    gumbel = k_gumbel.gumbel(tuple(alpha.shape) + (n, k_max + 1))
     c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
     z = lk.ll_matrix(data, c1, c0, ax) + gumbel[..., :k_max]
     aux = new_post + gumbel[..., k_max]
-    return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-               ax=ax)
+    return perm, gumbel, z, aux, log_denom
 
 
 def _check_eager_fits(cfg: ModelConfig, device) -> None:
@@ -216,8 +251,150 @@ def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
                           cluster_size=size)
 
 
-def _segment_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
-                  log_denom, ax=_NO_AXIS, *, stream: bool):
+class SegmentWork(NamedTuple):
+    """The device buffers of a ``lazy`` or ``stream`` sweep of C chains
+    (one chain: C = 1), written in place by ``segment_start``,
+    ``segment_births`` and read by ``segment_finish``. The captured block
+    (mcmc.py) keeps one for the whole run, so its graphs read and write
+    the same memory at every replay."""
+
+    zin: torch.Tensor        # [C, n, k_pad] f32 Z (stream: visit order)
+    aux: torch.Tensor        # [C, n] f32 (stream: visit order)
+    assign: torch.Tensor     # [C, n] i32 pre-sweep (stream: visit order)
+    perm: torch.Tensor       # [C, n] i32 visit order
+    gumbel: torch.Tensor     # [C, n, k_max + 1] f32
+    sizes: torch.Tensor      # [C, k_pad] f32, -1 on padded slots
+    log_denom: torch.Tensor  # [C] f32
+    params: torch.Tensor     # [C, k_max, m] f32, births patched in
+    tgt: torch.Tensor        # [C, n] i32 target by visit position
+    info: torch.Tensor       # [C, 4] i32 the kernel's info rows
+    i0s: torch.Tensor        # [C] i32 start positions
+    read: torch.Tensor       # [C, 5] i32 info and the birth's cell
+
+
+def segment_work(state: CRPState, cfg: ModelConfig,
+                 stream: bool) -> SegmentWork:
+    """Empty buffers for a sweep of `state` (one chain or a batch)."""
+    c = state.assignment.shape[0] if state.assignment.dim() == 2 else 1
+    n, k_max, m = cfg.n_cells, cfg.k_max, state.params.shape[-1]
+    k_pad = stream_k_pad(k_max) if stream else lazy_k_pad(k_max)
+    dev = state.assignment.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    return SegmentWork(
+        zin=empty(c, n, k_pad), aux=empty(c, n), assign=empty(c, n, dtype=i32),
+        perm=empty(c, n, dtype=i32), gumbel=empty(c, n, k_max + 1),
+        sizes=empty(c, k_pad), log_denom=empty(c), params=empty(c, k_max, m),
+        tgt=empty(c, n, dtype=i32), info=empty(c, 4, dtype=i32),
+        i0s=empty(c, dtype=i32), read=empty(c, 5, dtype=i32))
+
+
+def _launch(ws: SegmentWork, stream: bool) -> None:
+    """One launch of the segment kernel on its chain grid from the device
+    start positions ws.i0s, then ws.read: the info rows and each birth's
+    cell (stream: perm at the birth's visit position)."""
+    if stream:
+        lazy_segment_stream_chains(ws.zin, ws.aux, ws.assign, ws.sizes,
+                                   ws.tgt, ws.info, ws.i0s, ws.log_denom)
+        cell = torch.gather(ws.perm, 1,
+                            ws.info[:, 1:2].clamp(min=0).long())[:, 0]
+    else:
+        lazy_segment_chains(ws.zin, ws.aux, ws.assign, ws.perm, ws.sizes,
+                            ws.tgt, ws.info, ws.i0s, ws.log_denom)
+        cell = ws.info[:, 1]
+    ws.read[:, :4].copy_(ws.info)
+    ws.read[:, 4].copy_(cell)
+
+
+def segment_start(ws: SegmentWork, k_perm: Draws, k_gumbel: Draws,
+                  state: CRPState, data: PackedData, cfg: ModelConfig,
+                  ax: MutAxis = _NO_AXIS, *, stream: bool) -> None:
+    """A sweep's head: its draws and Z (``_sweep_inputs``), the staging
+    into `ws` (stream: Z, aux and the assignment gathered into visit order
+    once a sweep, so rows stream from device memory in order) and the
+    first launch. No host read."""
+    perm, gumbel, z, aux, log_denom = _sweep_inputs(k_perm, k_gumbel, state,
+                                                    data, cfg, ax)
+    if state.assignment.dim() == 1:
+        state = CRPState(*(f[None] for f in state))
+        perm, gumbel, z, aux, log_denom = (
+            x[None] for x in (perm, gumbel, z, aux, log_denom))
+    k_pad = ws.zin.shape[-1]
+    pad = (0, k_pad - cfg.k_max)
+    if stream:
+        order = perm.long()
+        ws.zin.copy_(torch.nn.functional.pad(
+            torch.take_along_dim(z, order[..., None], dim=-2), pad))
+        ws.aux.copy_(torch.gather(aux, -1, order))
+        ws.assign.copy_(torch.gather(state.assignment, -1, order))
+    else:
+        ws.zin.copy_(torch.nn.functional.pad(z, pad))
+        ws.aux.copy_(aux)
+        ws.assign.copy_(state.assignment)
+    ws.perm.copy_(perm)
+    ws.gumbel.copy_(gumbel)
+    ws.sizes.copy_(_padded_sizes(state, k_pad))
+    ws.log_denom.copy_(log_denom)
+    ws.params.copy_(state.params)
+    ws.i0s.zero_()
+    _launch(ws, stream)
+
+
+def segment_rounds(ws: SegmentWork, n: int, births_fn) -> None:
+    """The sweep's host loop: one read of ws.read a round; each round with
+    a birth calls births_fn(births, relaunch) with births [(chain, cell)]
+    in chain order and relaunch False once every chain has reached n."""
+    while True:
+        rows = ws.read.tolist()  # one host read a round
+        births = [(c, r[4]) for c, r in enumerate(rows) if r[1] >= 0]
+        done = all(r[0] >= n for r in rows)
+        if births:
+            births_fn(births, not done)
+        if done:
+            return
+
+
+def segment_births(ws: SegmentWork, births, k_betas, state: CRPState,
+                   data: PackedData, cfg: ModelConfig, ax: MutAxis = _NO_AXIS,
+                   *, stream: bool, relaunch: bool) -> None:
+    """One birth round: each birth's newborn row drawn from its chain's own
+    draws and patched into ws.params and Z, in chain order, the slot and
+    the cell taken from ws on the device (the host cell only keys
+    ``fresh_row``'s draw); then, unless every chain is done, the next
+    launch. `ax` is the chains' mutation axis."""
+    fp, fn = state.fp.reshape(-1), state.fn.reshape(-1)
+    for c, cell in births:
+        slot = ws.info[c, 2:3].long()
+        theta = fresh_row(k_betas[c], cell, data, cfg, ws.read[c, 4:5])
+        ws.params[c].index_copy_(0, slot, theta[None])
+        col = _birth_column(theta, slot, fp[c], fn[c], data, ws.gumbel[c],
+                            ax)
+        if stream:
+            col = col[ws.perm[c].long()]
+        ws.zin[c].index_copy_(1, slot, col[:, None])
+    if relaunch:
+        _launch(ws, stream)
+
+
+def segment_finish(ws: SegmentWork, state: CRPState) -> CRPState:
+    """The swept state: the targets put back in cell order, the sizes and
+    the patched params."""
+    one = state.assignment.dim() == 1
+    k_max = state.cluster_size.shape[-1]
+    assignment = torch.empty_like(ws.tgt).scatter_(-1, ws.perm.long(),
+                                                   ws.tgt)
+    sizes = ws.sizes[:, :k_max].to(torch.int32)
+    if one:
+        return state._replace(assignment=assignment[0], params=ws.params[0],
+                              cluster_size=sizes[0])
+    return state._replace(assignment=assignment, params=ws.params,
+                          cluster_size=sizes)
+
+
+def _segment_impl(draws, state, data, cfg, ax=_NO_AXIS, *, stream: bool):
     """The birth-lazy host loop around the resident segment kernel (bnpc_tpu
     _pallas_lazy_impl) or, with `stream`, the streaming one (bnpc_tpu
     _pallas_stream_impl), for one chain or a batch of chains.
@@ -229,70 +406,22 @@ def _segment_impl(state, data, cfg, perm, gumbel, k_beta, z, aux,
     position p is cell perm[p], and its Z column is computed in cell order
     and gathered into visit order, in bnpc_tpu's order of operations.
 
-    One chain is run as a batch of one on the one-chain wrapper, whose
-    start position is a host int; a batch launches the kernel on a grid of
-    one block a chain, each chain's start position on the device (i0s), so a
+    Every launch runs the kernel on a grid of one block a chain (one chain:
+    a grid of one), each chain's start position on the device (i0s), so a
     relaunch takes no host arguments. Each round is one launch and one host
-    read of info [C, 4]; every birth of the round is then drawn from its
-    chain's own draws and patched (``fresh_row``, ``_birth_column``) in
-    chain order, as its one-chain sweep does."""
+    read of ws.read [C, 5]; every birth of the round is then drawn from its
+    chain's own draws and patched in chain order, as its one-chain sweep
+    does. The pieces (``segment_start``, ``segment_births``,
+    ``segment_finish``) are what mcmc.py's captured block runs as graphs."""
     one = state.assignment.dim() == 1
-    if one:
-        state = CRPState(*(f[None] for f in state))
-        perm, gumbel, z, aux, log_denom = (
-            x[None] for x in (perm, gumbel, z, aux, log_denom))
-        k_betas, mut = [k_beta], ax
-    else:
-        k_betas, mut = k_beta.chains, ax.mut
-    n, k_max = cfg.n_cells, cfg.k_max
-    c_all, dev = z.shape[0], z.device
-    order = perm.long()
-    if stream:
-        k_pad = stream_k_pad(k_max)
-        zin = torch.nn.functional.pad(
-            torch.take_along_dim(z, order[..., None], dim=-2),
-            (0, k_pad - k_max)).contiguous()
-        args = (zin, torch.gather(aux, -1, order).contiguous(),
-                torch.gather(state.assignment, -1, order).contiguous())
-        launch = lazy_segment_stream if one else lazy_segment_stream_chains
-    else:
-        k_pad = lazy_k_pad(k_max)
-        zin = torch.nn.functional.pad(z, (0, k_pad - k_max)).contiguous()
-        args = (zin, aux.contiguous(), state.assignment.contiguous(),
-                perm.contiguous())
-        launch = lazy_segment if one else lazy_segment_chains
-    sizes = _padded_sizes(state, k_pad)
-    log_denom = log_denom.to(torch.float32).contiguous()
-    tgt_v = torch.empty((c_all, n), dtype=torch.int32, device=dev)
-    info = torch.empty((c_all, 4), dtype=torch.int32, device=dev)
-    i0s = None if one else torch.zeros((c_all,), dtype=torch.int32,
-                                       device=dev)
-    params = state.params.clone()
-    rows, perm_h = [[0]], None
-    while True:
-        if one:
-            launch(*(a[0] for a in args), sizes[0], tgt_v[0], info[0],
-                   rows[0][0], log_denom[0])
-        else:
-            launch(*args, sizes, tgt_v, info, i0s, log_denom)
-        rows = info.tolist()  # one host read a round
-        for c, (_, b, slot, _) in enumerate(rows):
-            if b < 0:
-                continue
-            if stream and perm_h is None:
-                perm_h = perm.tolist()
-            cell = perm_h[c][b] if stream else b
-            theta = fresh_row(k_betas[c], cell, data, cfg)
-            params[c, slot] = theta
-            col = _birth_column(theta, slot, state.fp[c], state.fn[c], data,
-                                gumbel[c], mut)
-            zin[c, :, slot] = col[order[c]] if stream else col
-        if all(r[0] >= n for r in rows):
-            break
-    assignment = torch.empty_like(tgt_v).scatter_(-1, order, tgt_v)
-    state = state._replace(assignment=assignment, params=params,
-                           cluster_size=sizes[..., :k_max].to(torch.int32))
-    return CRPState(*(f[0] for f in state)) if one else state
+    k_perm, k_gumbel, k_beta = _split_sweep_keys(draws, ax)
+    k_betas, mut = ([k_beta], ax) if one else (k_beta.chains, ax.mut)
+    ws = segment_work(state, cfg, stream)
+    segment_start(ws, k_perm, k_gumbel, state, data, cfg, ax, stream=stream)
+    segment_rounds(ws, cfg.n_cells, lambda births, relaunch: segment_births(
+        ws, births, k_betas, state, data, cfg, mut, stream=stream,
+        relaunch=relaunch))
+    return segment_finish(ws, state)
 
 
 def _scan_chains(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,

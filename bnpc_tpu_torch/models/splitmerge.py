@@ -568,22 +568,31 @@ def _move(is_split: bool, keys, state: CRPState, data: PackedData,
     return branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax)
 
 
-def split_merge(draws: Draws, state: CRPState, data: PackedData,
-                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int,
-                ax: MutAxis = _NO_AXIS):
-    """One split-merge proposal. Returns (state, counts[2, 2]) where
-    counts[0] = (accepted, declined) split deltas and counts[1] the merge
-    deltas (MH_counter rows 1/2, libs/MCMC.py:320-328). Under a chain axis
-    every chain makes its own proposal and counts are [C, 2, 2]."""
-    k_move, *keys = draws.split(6)
-
+def sm_choice(k_move: Draws, state: CRPState, cfg: ModelConfig,
+              sm_split_ratio: float) -> torch.Tensor:
+    """Whether each chain splits ([] bool, [C] under a chain axis): a split
+    with probability sm_split_ratio, forced at one cluster; a merge forced
+    at k_max clusters."""
     n_clusters = state.n_clusters
     forced_split = n_clusters == 1
     # Reference forces a merge at K == n (libs/CRP.py:424); with a capacity
     # cap a split is likewise impossible at K == k_max.
     forced_merge = n_clusters >= cfg.k_max
     want_split = k_move.uniform(n_clusters.shape) < sm_split_ratio
-    split = forced_split | (want_split & ~forced_merge)
+    return forced_split | (want_split & ~forced_merge)
+
+
+def split_merge(draws: Draws, state: CRPState, data: PackedData,
+                cfg: ModelConfig, sm_split_ratio: float, sm_steps: int,
+                ax: MutAxis = _NO_AXIS):
+    """One split-merge proposal. Returns (state, counts[2, 2]) where
+    counts[0] = (accepted, declined) split deltas and counts[1] the merge
+    deltas (MH_counter rows 1/2, libs/MCMC.py:320-328). Under a chain axis
+    every chain makes its own proposal and counts are [C, 2, 2]. mcmc.py's
+    captured block runs ``sm_choice`` and ``_move`` as graphs around the
+    same host read."""
+    k_move, *keys = draws.split(6)
+    split = sm_choice(k_move, state, cfg, sm_split_ratio)
     flags = split.reshape(-1).tolist()  # the host sync: one read a move
 
     def move(is_split, sub, sub_ax, take, idx):

@@ -203,6 +203,27 @@ Phases (any failure exits non-zero, and no result line is printed):
                chain_exec "auto" chose printed, the files parsed. Then
                whether the batch reached the sequential chain-steps/s at
                both cells, exact and blocked (the rules of "auto").
+ 13. captured — the one-chain block as CUDA graphs (MCMCRunner.run_block
+               on the card, mcmc.py::_CapturedBlock) against the eager
+               block (mcmc._chain_block over the runner's own step) in
+               this call: (a) from the same state and generator state,
+               bit for bit in every trace field, the state and the
+               generator's state: the main cell 2 x 256 steps from the
+               initial state (a birth round, a split and a merge among
+               them) and the large-n cell 32 steps; (b) blocks of 128
+               (main) and 16 (large-n) steps from one state, eager,
+               captured, captured, eager: min / median / max steps/s of
+               each form and the ratio of the medians; (c) a step's costs
+               of each form: host-side launches (cudaGraphLaunch and the
+               kernel launches among torch.profiler's runtime and driver
+               events), kernel executions, host syncs, device busy share,
+               peak memory; the graphs captured, their capture seconds
+               and their pool's MB. At the main cell the captured form
+               must make fewer than 20 host-side launches a step and no
+               more host syncs than the eager one.
+Phases 5-12 run the captured block wherever they take the one-chain lazy
+or stream path (the runner's run_block and run, chains one after another,
+the CLI); a launch counter counts each replay's launches there.
 
 Before each of phases 5-7, before each probe in phase 8, before each CLI
 run of phase 9 and before each run of phase 10 that is checked for its
@@ -1285,24 +1306,28 @@ def syncs_per_step(run, steps):
 
 class ScanLengths:
     """While active, notes the s_count of every rg_scan launch of the
-    split-merge move in a device buffer (one small device copy a launch,
-    no host read); `read()` fetches them once, afterwards."""
+    split-merge move in a device buffer at a device position (one small
+    device copy a launch, no host read). The noting runs inside the
+    captured block's graphs too, so it counts every replay; it must be
+    active when the runner first runs (captures) its split-merge pieces.
+    `reset()` starts over; `read()` fetches the notes once, afterwards."""
 
     def __init__(self, dev, cap=4096):
         import torch
 
         self.buf = torch.zeros((cap,), dtype=torch.int32, device=dev)
-        self.count = 0
+        self.pos = torch.zeros((1,), dtype=torch.long, device=dev)
 
     def __enter__(self):
         from bnpc_tpu_torch.models import splitmerge
 
         self.scan = splitmerge.rg_scan
+        last = self.buf.shape[0] - 1
 
         def noting(dz_v, lau_v, dtab, s_count, count1):
-            if self.count < self.buf.shape[0]:
-                self.buf[self.count].copy_(s_count)
-            self.count += 1
+            self.buf.index_copy_(0, self.pos.clamp(max=last),
+                                 s_count.reshape(1))
+            self.pos.add_(1)
             return self.scan(dz_v, lau_v, dtab, s_count, count1)
 
         splitmerge.rg_scan = noting
@@ -1313,27 +1338,32 @@ class ScanLengths:
 
         splitmerge.rg_scan = self.scan
 
+    def reset(self):
+        self.pos.zero_()
+
     def read(self):
-        return self.buf[:min(self.count, self.buf.shape[0])].cpu().numpy()
+        count = int(self.pos.item())
+        return self.buf[:min(count, self.buf.shape[0])].cpu().numpy()
 
 
 def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
-               sweep_kernel):
+               sweep_kernel, scans):
     """Warm up, time, check and summarize one path. `run_block(state,
-    draws, steps)` returns (state, rows, draws)."""
+    draws, steps)` returns (state, rows, draws); `scans` is an active
+    ScanLengths."""
     import torch
 
     from bnpc_tpu_torch.estimators import ari
 
     reset_launches()
-    with ScanLengths(state.assignment.device) as scans:
-        state, warm_rows, draws = run_block(state, draws, warm)
-        torch.cuda.synchronize()
-        warm_launches = read_launches()
-        t0 = time.perf_counter()
-        state, rows, draws = run_block(state, draws, timed)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+    scans.reset()
+    state, warm_rows, draws = run_block(state, draws, warm)
+    torch.cuda.synchronize()
+    warm_launches = read_launches()
+    t0 = time.perf_counter()
+    state, rows, draws = run_block(state, draws, timed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = read_launches()
     s_counts = scans.read()
     if s_counts.size != launches["rg_scan"]:
@@ -1385,16 +1415,18 @@ def phase_main(dev):
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                         block_size=256)
 
-    # The user-facing entry point once, at a short length.
-    res = runner.run((32, 16), seed=0)[0]
-    if res.assignments.shape != (33, N) or res.params.shape[0] != 17 \
-            or not np.isfinite(res.ML).all():
-        raise AssertionError("run(): unexpected result shapes or values")
-
-    return timed_path("main", runner.run_block,
-                      runner.init_chains(TorchDraws(0, dev))[0],
-                      TorchDraws(1, dev), 256, 256, N, K_MAX, truth,
-                      "lazy_segment")
+    # Active from the runner's first step: its graphs note the scans.
+    with ScanLengths(dev) as scans:
+        # The user-facing entry point once, at a short length.
+        res = runner.run((32, 16), seed=0)[0]
+        if res.assignments.shape != (33, N) or res.params.shape[0] != 17 \
+                or not np.isfinite(res.ML).all():
+            raise AssertionError("run(): unexpected result shapes or "
+                                 "values")
+        return timed_path("main", runner.run_block,
+                          runner.init_chains(TorchDraws(0, dev))[0],
+                          TorchDraws(1, dev), 256, 256, N, K_MAX, truth,
+                          "lazy_segment", scans)
 
 
 def phase_large(dev):
@@ -1409,10 +1441,11 @@ def phase_large(dev):
         raise AssertionError("the large-n path must resolve to 'stream'")
     runner = MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                         block_size=64)
-    out = timed_path("large", runner.run_block,
-                     runner.init_chains(TorchDraws(0, dev))[0],
-                     TorchDraws(1, dev), 16, 64, N_LARGE, K_LARGE, truth,
-                     "lazy_stream")
+    with ScanLengths(dev) as scans:
+        out = timed_path("large", runner.run_block,
+                         runner.init_chains(TorchDraws(0, dev))[0],
+                         TorchDraws(1, dev), 16, 64, N_LARGE, K_LARGE,
+                         truth, "lazy_stream", scans)
     # The scan alone at the lengths this path really gave it.
     for key in ("mean", "max"):
         s_count = int(out[f"s_count_{key}"])
@@ -1445,8 +1478,9 @@ def phase_eager(dev):
         return state, _rows_to_host(rows), keys[0]
 
     state = init_state(TorchDraws(0, dev).split(1)[0], cfg, packed, dev)
-    return timed_path("eager", run_block, state, TorchDraws(1, dev), 64, 256,
-                      N, K_MAX, truth, "eager_sweep")
+    with ScanLengths(dev) as scans:
+        return timed_path("eager", run_block, state, TorchDraws(1, dev), 64,
+                          256, N, K_MAX, truth, "eager_sweep", scans)
 
 
 def phase_probes():
@@ -2928,29 +2962,39 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
 
 class SweepCounts:
     """While active, counts the exact Gibbs sweeps of the lazy and stream
-    impls (``_segment_impl``), one-chain and batched (one call for a
-    sub-batch of chains)."""
+    impls: one-chain (``_segment_impl`` on a one-chain state, or the
+    captured block's sweep, which runs as graphs) and batched (one
+    ``_segment_impl`` call for a sub-batch of chains)."""
 
     def __enter__(self):
+        from bnpc_tpu_torch import mcmc
         from bnpc_tpu_torch.models import gibbs
 
         self.one, self.batched = 0, 0
         self.saved = fn = gibbs._segment_impl
+        self.saved_captured = sweep = mcmc._CapturedBlock._sweep
 
-        def counted(state, *args, **kwargs):
+        def counted(draws, state, *args, **kwargs):
             if state.assignment.dim() == 1:
                 self.one += 1
             else:
                 self.batched += 1
-            return fn(state, *args, **kwargs)
+            return fn(draws, state, *args, **kwargs)
+
+        def captured(block, k_assign):
+            self.one += 1
+            return sweep(block, k_assign)
 
         gibbs._segment_impl = counted
+        mcmc._CapturedBlock._sweep = captured
         return self
 
     def __exit__(self, *exc):
+        from bnpc_tpu_torch import mcmc
         from bnpc_tpu_torch.models import gibbs
 
         gibbs._segment_impl = self.saved
+        mcmc._CapturedBlock._sweep = self.saved_captured
 
 
 class DrawCalls:
@@ -3221,6 +3265,211 @@ def phase_chains(dev, smi, k):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the captured block against the eager block
+# ---------------------------------------------------------------------------
+
+# Host-side launch calls in the profiler's runtime (and driver) events.
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def same_block(tag, got, want):
+    """Two blocks' (state, rows, draws), bit for bit: every TraceRow field,
+    every state field and the generator's state."""
+    import torch
+
+    (g_state, g_rows, g_draws), (w_state, w_rows, w_draws) = got, want
+    for f, w in w_rows.items():
+        if g_rows[f].dtype != w.dtype or not np.array_equal(g_rows[f], w):
+            raise AssertionError(f"{tag}: trace field {f} differs")
+    for f, g, w in zip(type(w_state)._fields, g_state, w_state):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{tag}: state field {f} differs")
+    if not torch.equal(g_draws.gen.get_state(), w_draws.gen.get_state()):
+        raise AssertionError(f"{tag}: the generator's state differs")
+
+
+class BirthRounds:
+    """While active, counts the birth rounds of the eager sweeps
+    (models/gibbs.py::segment_births calls)."""
+
+    def __enter__(self):
+        from bnpc_tpu_torch.models import gibbs
+
+        self.rounds = 0
+        self.saved = fn = gibbs.segment_births
+
+        def counted(*args, **kwargs):
+            self.rounds += 1
+            return fn(*args, **kwargs)
+
+        gibbs.segment_births = counted
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.models import gibbs
+
+        gibbs.segment_births = self.saved
+
+
+def launch_profile(fn, steps):
+    """A step's costs over `steps` steps of fn() (torch.profiler, device
+    activity): host-side launch calls by name (cudaGraphLaunch and the
+    kernel launches among the runtime and driver events; with the host
+    activity added when the device activity alone shows none), kernel
+    executions on the device, device busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(activities):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof.key_averages(), wall_ms
+
+    table, wall_ms = window([ProfilerActivity.CUDA])
+    kernels = [e for e in table
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = {e.key: e.count for e in table if e.key in LAUNCH_EVENTS}
+    source = "device activity"
+    if not calls:
+        more, _ = window([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        calls = {e.key: e.count for e in more if e.key in LAUNCH_EVENTS}
+        source = "host and device activity"
+    return {"host_launches_per_step": sum(calls.values()) / steps,
+            "host_launch_calls_per_step": {k: v / steps
+                                           for k, v in calls.items()},
+            "host_launch_source": source,
+            "kernel_executions_per_step": sum(e.count for e in kernels)
+            / steps,
+            "busy_share": sum(e.self_device_time_total for e in kernels)
+            / 1e3 / wall_ms,
+            "wall_ms_per_step": wall_ms / steps}
+
+
+def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
+                  steps_b, steps_c):
+    """Phase 13 at one cell: (a) `windows` blocks of `steps_a` steps from
+    the initial state, eager (_chain_block over the runner's step) and
+    captured (MCMCRunner.run_block) from the same state and generator
+    state, bit for bit; (b) eager, captured, captured, eager blocks of
+    `steps_b` steps from one state, steps/s; (c) a step's costs of each
+    form over `steps_c` steps."""
+    import functools
+
+    import torch
+
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.data import pack_data
+
+    data, _ = make_data(n, M, k_clones, 0.1, seed=0)
+    cfg, mc = bench_configs(n, k_max)
+    runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                             block_size=steps_a)
+    del data
+    forms = {"eager": functools.partial(mcmc._chain_block, runner._step),
+             "captured": runner.run_block}
+
+    def fresh(gen_state):
+        d = TorchDraws(1, dev)
+        d.gen.set_state(gen_state)
+        return d
+
+    out = {"windows": []}
+    state = runner.init_chains(TorchDraws(0, dev))[0]
+    draws = TorchDraws(1, dev)
+    for w in range(windows):
+        gen = draws.gen.get_state()
+        with BirthRounds() as births:
+            want = forms["eager"](state, fresh(gen), steps_a)
+        got = forms["captured"](state, fresh(gen), steps_a)
+        same_block(f"{cell} window {w}", got, want)
+        counts = want[1]["mh_counts"]
+        out["windows"].append({
+            "steps": steps_a, "birth_rounds": births.rounds,
+            "splits": int((counts[:, 1].sum(-1) > 0).sum()),
+            "merges": int((counts[:, 2].sum(-1) > 0).sum())})
+        state, draws = got[0], got[2]
+    totals = {k: sum(w[k] for w in out["windows"])
+              for k in ("birth_rounds", "splits", "merges")}
+    log(f"  (a) {cell}: {windows} x {steps_a} steps, captured == eager bit "
+        f"for bit (every trace field, the state, the generator's state); "
+        f"windows {out['windows']}")
+
+    gen = draws.gen.get_state()
+    rates = {"eager": [], "captured": []}
+    for form in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forms[form](state, fresh(gen), steps_b)
+        torch.cuda.synchronize()
+        rates[form].append(steps_b / (time.perf_counter() - t0))
+    for form, r in rates.items():
+        out[form] = {"steps_per_s": r, "min": min(r),
+                     "median": float(np.median(r)), "max": max(r)}
+    out["ratio"] = out["captured"]["median"] / out["eager"]["median"]
+    log(f"  (b) {cell}, {steps_b} steps a block, eager / captured / "
+        f"captured / eager ({smi}): eager {rates['eager']}, captured "
+        f"{rates['captured']} steps/s; median ratio {out['ratio']:.3f}")
+
+    for form, fn in forms.items():
+        d = fresh(gen)
+        torch.cuda.reset_peak_memory_stats()
+        costs = launch_profile(lambda: fn(state, d, steps_c), steps_c)
+        costs["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        d = fresh(gen)
+        costs["host_syncs_per_step"] = syncs_per_step(
+            lambda k: fn(state, d, k), steps_c)
+        out[form].update(costs)
+        log(f"  (c) {cell} {form}: {costs['host_launches_per_step']:.2f} "
+            f"host-side launches a step {costs['host_launch_calls_per_step']}"
+            f" ({costs['host_launch_source']}), "
+            f"{costs['kernel_executions_per_step']:.1f} kernel executions, "
+            f"{costs['host_syncs_per_step']:.3f} host syncs, busy "
+            f"{costs['busy_share']:.4f} of {costs['wall_ms_per_step']:.3f} "
+            f"ms, peak {costs['peak_mb']:.1f} MB")
+    pieces = runner._captured.pieces
+    out["graphs"] = sorted(str(k) for k in pieces.graphs)
+    out["capture_seconds"] = pieces.capture_seconds
+    out["pool_mb"] = (pieces.pool_bytes() or 0) / 1e6
+    log(f"  (c) {cell}: {len(pieces.graphs)} graphs captured "
+        f"({', '.join(out['graphs'])}) in {out['capture_seconds']:.3f} s; "
+        f"pool {out['pool_mb']:.1f} MB")
+    return out, totals
+
+
+def phase_captured(dev, smi):
+    """Phase 13: the one-chain block as captured graphs against the eager
+    block in one call, at the main and the large-n cells."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["main"], totals = captured_cell(dev, smi, "main", N, K_MAX, 10, 2,
+                                        256, 128, 16)
+    if not all(totals.values()):
+        raise AssertionError(f"main: the compared blocks need a birth "
+                             f"round, a split and a merge: {totals}")
+    out["large"], _ = captured_cell(dev, smi, "large", N_LARGE, K_LARGE, 20,
+                                    1, 32, 16, 4)
+    # At the main cell: the profiler sees the eager step's launches, the
+    # captured step makes fewer than 20 and no more host syncs.
+    e, c = out["main"]["eager"], out["main"]["captured"]
+    if not (e["host_launches_per_step"] > 100
+            and c["host_launches_per_step"] < 20
+            and c["host_syncs_per_step"] <= e["host_syncs_per_step"]):
+        raise AssertionError(
+            f"main: host-side launches a step {c['host_launches_per_step']} "
+            f"captured / {e['host_launches_per_step']} eager (want < 20 / "
+            f"> 100), host syncs {c['host_syncs_per_step']} / "
+            f"{e['host_syncs_per_step']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3229,52 +3478,54 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = "cuda"
     smi = nvidia_smi()
-    log(f"[1/12] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/13] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
     from bnpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[2/12] build: {time.perf_counter() - t0:.1f} s "
+    log(f"[2/13] build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[3/12] kernels against their plain twins (exact match)")
+    log("[3/13] kernels against their plain twins (exact match)")
     k = {"lazy_segment": phase_lazy_segment(dev),
          "rg_scan": phase_rg_scan(dev),
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev, smi),
          "while_exit": phase_while_exit(dev, smi)}
-    log("[4/12] small input: GPU against CPU on identical draws")
+    log("[4/13] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
-    log(f"[5/12] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
+    log(f"[5/13] main path: MCMCRunner at {N:,} x {M}, k_max {K_MAX} "
         f"({smi})")
     main_out = phase_main(dev)
-    log(f"[6/12] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
+    log(f"[6/13] large-n path: MCMCRunner at {N_LARGE:,} x {M}, k_max "
         f"{K_LARGE} ({smi})")
     large_out = phase_large(dev)
-    log(f"[7/12] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
+    log(f"[7/13] eager path: gibbs_impl='eager' at {N:,} x {M}, k_max "
         f"{K_MAX} ({smi})")
     eager_out = phase_eager(dev)
     log(f"  eager {eager_out['steps_per_s']:.3f} steps/s against lazy "
         f"{main_out['steps_per_s']:.3f} steps/s (phase 5), same "
         "configuration")
-    log(f"[8/12] probes: their entry points on the card ({smi})")
+    log(f"[8/13] probes: their entry points on the card ({smi})")
     probes = phase_probes()
-    log(f"[9/12] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
+    log(f"[9/13] cli: bnpc_tpu_torch.cli.main on the card ({smi})")
     cli_out = phase_cli(dev, smi)
-    log(f"[10/12] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
+    log(f"[10/13] run modes at {N:,} x {M}, k_max {K_MAX} ({smi})")
     modes_out = phase_modes(dev, smi)
-    log(f"[11/12] mesh: two ranks sharing the card ({smi})")
+    log(f"[11/13] mesh: two ranks sharing the card ({smi})")
     mesh_out = phase_mesh(dev, smi)
-    log(f"[12/12] batched chains: chain_exec='vmap' ({smi})")
+    log(f"[12/13] batched chains: chain_exec='vmap' ({smi})")
     chains_out = phase_chains(dev, smi, k)
+    log(f"[13/13] the one-chain block captured against eager ({smi})")
+    captured_out = phase_captured(dev, smi)
 
     chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
@@ -3346,7 +3597,7 @@ def main():
                           if f != "launches_path"}
                    for name, out in probes.items()},
         "cli": cli_out, "run_modes": modes_out, "mesh": mesh_out,
-        "chains": chains_out}))
+        "chains": chains_out, "captured": captured_out}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
