@@ -14,15 +14,19 @@ kernels on the same buffers, what its eager run computes.
 
 What a replay must carry over from an eager run:
 
-  * random numbers: every graph registers the block's generator
-    (``register_generator_state``), so a replay draws from the generator's
-    state at the replay and advances it by what the capture drew, as the
-    eager run would;
+  * random numbers: every graph registers the generators it draws from
+    (``register_generator_state``; the one-chain block's own generator, or
+    a batch's slot generators, mcmc.py::_CapturedBatch), so a replay draws
+    from each generator's state at the replay and advances it by what the
+    capture drew, as the eager run would;
   * the kernel wrappers' launch counters (ops/cuda_*.py): ``launches += 1``
     runs in Python, so only at capture. A capture notes how far each
     counter moved, sets it back, and each replay adds that.
 
-A capture that fails raises; nothing falls back to eager dispatch. All the
+A capture runs with Python's cyclic garbage collector off (collecting a
+dead runner there would free its graphs' memory inside the capture and
+invalidate it). A capture that fails raises; nothing falls back to eager
+dispatch. All the
 graphs of a block share one memory pool: it holds each piece's temporaries
 only (what crosses pieces lives in the static buffers, allocated outside
 any capture), so the graphs may replay in any order.
@@ -30,6 +34,7 @@ any capture), so the graphs may replay in any order.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -70,30 +75,43 @@ def add_counts(delta) -> None:
 
 
 class CudaGraph:
-    """One piece as a ``torch.cuda.CUDAGraph`` that draws from `generator`
-    and allocates from `pool`."""
+    """One piece as a ``torch.cuda.CUDAGraph`` that draws from `generators`
+    (one generator, or a tuple of them) and allocates from `pool`."""
 
-    def __init__(self, generator: torch.Generator, pool):
+    def __init__(self, generators, pool):
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
+        for gen in (generators if isinstance(generators, tuple)
+                    else (generators,)):
+            self.graph.register_generator_state(gen)
         self.pool = pool
 
     def capture(self, fn) -> None:
-        with torch.cuda.graph(self.graph, pool=self.pool):
-            fn()
+        # No cyclic garbage collection inside a capture: collecting a dead
+        # runner destroys its graphs and frees their pool's memory, which
+        # invalidates the capture in progress.
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                fn()
+        finally:
+            if enabled:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()
 
 
 class Pieces:
-    """Runs pieces by key (module docstring). `graph_cls(generator, pool)`
-    makes a graph; on the card CudaGraph. Keeps, for the record: the graphs
-    by key with the launches each holds (``graphs``), how many replays
-    (``replays``) and eager runs (``eager_runs``) it made, and the seconds
-    its captures took (``capture_seconds``)."""
+    """Runs pieces by key (module docstring). `graph_cls(generators, pool)`
+    makes a graph that draws from `generators` (`generator`, or what
+    ``run`` names); on the card CudaGraph. Keeps, for the record: the
+    graphs by key with the launches each holds (``graphs``), how many
+    replays (``replays``) and eager runs (``eager_runs``) it made, and the
+    seconds its captures took (``capture_seconds``)."""
 
-    def __init__(self, generator: torch.Generator, graph_cls=CudaGraph):
+    def __init__(self, generator: torch.Generator | None,
+                 graph_cls=CudaGraph):
         self.generator = generator
         self.graph_cls = graph_cls
         self.pool = (torch.cuda.graph_pool_handle()
@@ -104,7 +122,10 @@ class Pieces:
         self.eager_runs = 0
         self.capture_seconds = 0.0
 
-    def run(self, key, fn) -> None:
+    def run(self, key, fn, generators: tuple | None = None) -> None:
+        """Run piece `fn` under `key`; its graph draws from `generators`
+        (a tuple, the same for every run of the key), default the
+        generator given at construction."""
         entry = self.graphs.get(key)
         if entry is None:
             if key not in self.seen:
@@ -112,16 +133,17 @@ class Pieces:
                 self.eager_runs += 1
                 fn()
                 return
-            entry = self.graphs[key] = self._capture(fn)
+            entry = self.graphs[key] = self._capture(
+                fn, self.generator if generators is None else generators)
         graph, delta = entry
         graph.replay()
         add_counts(delta)
         self.replays += 1
 
-    def _capture(self, fn):
+    def _capture(self, fn, generators):
         t0 = time.perf_counter()
         before = read_counts()
-        graph = self.graph_cls(self.generator, self.pool)
+        graph = self.graph_cls(generators, self.pool)
         try:
             graph.capture(fn)
         finally:

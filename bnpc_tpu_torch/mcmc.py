@@ -20,9 +20,11 @@ MCMCRunner).
 On the card a chain that runs alone (one chain, or chains one after
 another) runs its block captured (_CapturedBlock): the device-only pieces
 of each step between the step's host reads replay as CUDA graphs
-(graphs.py), bit for bit what the eager step gives. Batched chains,
-coupled chains, the blocked sweep, the eager and scan sweeps and the mesh
-run the eager step. Nothing turns the capture off; a capture fault raises.
+(graphs.py), bit for bit what the eager step gives. A batch of chains,
+exact or coupled, runs captured too (_CapturedBatch), its pieces keyed by
+how many chains take each branch. The blocked sweep, the eager and scan
+sweeps and the mesh run the eager step. Nothing turns the capture off; a
+capture fault raises.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from bnpc_tpu_torch import diagnostics, graphs
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws, StackedDraws, TorchDraws
-from bnpc_tpu_torch.models.gibbs import (_split_sweep_keys, gibbs_sweep,
+from bnpc_tpu_torch.models.gibbs import (SegmentWork, _launch,
+                                          _split_sweep_keys, gibbs_sweep,
                                           resolve_impl, segment_births,
                                           segment_finish, segment_rounds,
                                           segment_start, segment_work)
@@ -53,7 +56,8 @@ from bnpc_tpu_torch.models.updates import (
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.parallel.axis import ChainAxis, MutAxis
 from bnpc_tpu_torch.state import (CRPState, by_chain_flag, cluster_stats,
-                                  init_state, stack_states, unstack_states)
+                                  init_state, stack_states, take_states,
+                                  unstack_states)
 
 _NO_AXIS = MutAxis()
 
@@ -226,12 +230,17 @@ def _make_moves(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
     return select, moves
 
 
+def _thresholds(mcmc_cfg: MCMCConfig) -> list[float]:
+    """The move thresholds (split-merge, alpha, errors) as float32 values:
+    comparing the uniforms' exact float32 values against them on the host
+    is JAX's float32 comparison, and on the device the same."""
+    return [float(np.float32(p)) for p in (
+        mcmc_cfg.sm_prob, mcmc_cfg.dpa_prob, mcmc_cfg.error_prob)]
+
+
 def _make_select(mcmc_cfg: MCMCConfig):
     """select(k_sel, lead=()) of ``_make_moves``."""
-    # The move thresholds as float32 values: comparing the uniforms' exact
-    # float32 values against them on the host is JAX's float32 comparison.
-    thresholds = [float(np.float32(p)) for p in (
-        mcmc_cfg.sm_prob, mcmc_cfg.dpa_prob, mcmc_cfg.error_prob)]
+    thresholds = _thresholds(mcmc_cfg)
 
     def select(k_sel: Draws, lead=()):
         u = k_sel.uniform(tuple(lead) + (3,))
@@ -510,8 +519,8 @@ class _CapturedBlock:
 
         def births(born, relaunch):
             self.pieces.run(("birth", relaunch), lambda: segment_births(
-                ws, born, [k_beta], st, data, cfg, stream=self.stream,
-                relaunch=relaunch))
+                ws, born, [k_beta], st.fp.reshape(-1), st.fn.reshape(-1),
+                data, cfg, stream=self.stream, relaunch=relaunch))
 
         segment_rounds(ws, cfg.n_cells, births)
         self.pieces.run(("sweep_tail",), self._sweep_tail)
@@ -568,20 +577,334 @@ def _batch_block(step, states: list[CRPState], draws: list[Draws],
         for f, v in host.items()}, [k[0] for k in keys]
 
 
-def _make_block(step, chain_exec: str, one=None):
+class _CapturedBatch:
+    """A block of C > 1 chains as one batch on the card (chain_exec="vmap",
+    exact or coupled), each step's device-only pieces replayed as CUDA
+    graphs between the step's host reads (graphs.py; the counterpart of
+    bnpc_tpu's compiled batch: ``_pipe_vmap``, jax.vmap of
+    ``make_block_fn``'s scan, and ``_pipe_coupled``, a scan of
+    ``make_coupled_step_fn``). For the Gibbs impls ``lazy`` and ``stream``.
+
+    A step makes the eager batched step's host reads (``_batch_block``
+    over ``_make_step_body`` or ``_make_coupled_step``) and no more: the
+    move uniforms (select, eager: one draw a chain, or chain 0's draw of a
+    coupled step), the split flags of the split-merge chains together with
+    the sweep's first round, and each later round's info. A move that only
+    some chains take runs on their sub-batch, as ``state.py::by_chain_flag``
+    runs it; which chains those are is known on the host but never reaches
+    a graph: every piece is keyed by how many chains take its branch, and
+    takes the chains themselves as device indices, the stable argsort of
+    the device flags (or of the round's births) that by_chain_flag orders
+    them by. The pieces, the eager batch's own functions on the sub-batch:
+
+      * ("head", ks): the ks split-merge chains' sm_choice and the other
+        C - ks chains' segment_start (draws, Z, staging, first launch),
+        their indices and the first host read's buffer;
+      * ("split", ns), ("merge", nm): splitmerge._move on the chains that
+        split, and on those that merge;
+      * ("birth", nb): segment_births on the round's nb born chains;
+        ("launch", kg): the relaunch of the kg-chain sweep;
+        ("tail", kg): segment_finish into the state;
+      * ("alpha", ka): the alpha resample of the ka chains that take it;
+      * ("params",): the cluster statistics and the parameter MH;
+      * ("errors", ke): the error-rate MH of ke chains (none: ke = 0) and
+        the trace row, written into [rows_cap, C, ...] device buffers at a
+        device step index.
+
+    Chain c must draw from its own stream, as it does in its sequential
+    run, but a graph draws from the generators it registered at capture.
+    So the block owns C slot generators; a piece of k chains draws from
+    slots 0..k-1 (``_run``): slot j takes the state of the j-th chain's
+    generator before the piece runs and gives it back after (host values,
+    no sync). Everything that crosses pieces lives in static tensors made
+    at the first run (per chain count): the batched state, one
+    SegmentWork of C rows (a sweep of k chains works on its first k rows,
+    contiguous prefixes), the move uniforms, the index buffers, the
+    statistics, counts and row buffers. Each step gives bit for bit what
+    ``_batch_block`` over the eager batched step gives on the same draws.
+    `graph_cls` makes the graphs (graphs.Pieces); a capture fault
+    raises."""
+
+    def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
+                 data: PackedData, trace_k: int, impl: str, device,
+                 rows_cap: int, graph_cls=graphs.CudaGraph):
+        if impl not in ("lazy", "stream"):
+            raise ValueError(f"the captured batch runs 'lazy' or 'stream', "
+                             f"not {impl!r}")
+        self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
+        self.trace_k, self.stream = trace_k, impl == "stream"
+        self.device = torch.device(device)
+        self.rows_cap = max(1, int(rows_cap))
+        self.graph_cls = graph_cls
+        self.thresholds = _thresholds(mcmc_cfg)
+        self.pieces: graphs.Pieces | None = None
+        self.n_chains = 0
+
+    def _setup(self, batch: CRPState) -> None:
+        """The slot generators, the graphs and the static buffers, shaped
+        after the batched state `batch`."""
+        dev, c = self.device, batch.assignment.shape[0]
+        self.n_chains = c
+        self.slots = [TorchDraws(0, dev) for _ in range(c)]
+        self.pieces = graphs.Pieces(None, self.graph_cls)
+        self.state = CRPState(*(torch.empty_like(f) for f in batch))
+        self.work = segment_work(self.state, self.cfg, self.stream)
+
+        def zeros(*shape, dtype=torch.long):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        i32, f32 = torch.int32, torch.float32
+        self.u = zeros(c, 3, dtype=f32)
+        # The sweep's chains and their error rates by SegmentWork row; the
+        # chains that split and those that merge, each first.
+        self.gidx, self.split_idx, self.merge_idx = (zeros(c), zeros(c),
+                                                     zeros(c))
+        self.gfp, self.gfn = zeros(c, dtype=f32), zeros(c, dtype=f32)
+        # The head's host read: split flags, then the sweep's read rows.
+        self.hread = zeros(6 * c, dtype=i32)
+        self.sm_counts = zeros(c, 2, 2, dtype=i32)
+        self.par_counts = zeros(c, 2, dtype=i32)
+        k, m = self.cfg.k_max, batch.params.shape[-1]
+        self.n1, self.n0 = zeros(c, k, m, dtype=f32), zeros(c, k, m,
+                                                           dtype=f32)
+        self.t = zeros(1)
+        _write(self.state, batch)
+        row = summarize(self.state, self.data, self.cfg, self.trace_k,
+                        ax=ChainAxis(chains=c))
+        self.rows = TraceRow(*(
+            torch.zeros((self.rows_cap,) + tuple(f.shape), dtype=f.dtype,
+                        device=dev) for f in row))
+
+    def statics(self) -> list[torch.Tensor]:
+        """Every static tensor the pieces read and write."""
+        return [*self.state, *self.work, self.u, self.gidx, self.split_idx,
+                self.merge_idx, self.gfp, self.gfn, self.hread,
+                self.sm_counts, self.par_counts, self.n1, self.n0, self.t,
+                *self.rows]
+
+    def run(self, states: list[CRPState], draws: list[Draws], n_steps: int,
+            keep: int | None = None, coupled: bool = False):
+        """What ``_batch_block`` returns for the eager batched step (the
+        coupled one with `coupled`): (states, rows, next_draws), `draws`
+        one TorchDraws a chain on the block's device (each generator's
+        state moves on as its chain draws)."""
+        for d in draws:
+            if type(d) is not TorchDraws or d.gen.device != self.device:
+                raise ValueError(f"the captured batch draws from TorchDraws "
+                                 f"on {self.device}, not {d!r}")
+        batch = stack_states(states)
+        if self.pieces is None or self.n_chains != len(states):
+            self._setup(batch)
+        _write(self.state, batch)
+        host, filled = [], 0
+        self.t.zero_()
+        for _ in range(n_steps if keep is None else keep):
+            if filled == self.rows_cap:
+                host.append(self._flush(filled))
+                self.t.zero_()
+                filled = 0
+            self._step(draws, coupled)
+            filled += 1
+        host.append(self._flush(filled))
+        rows = {f: np.ascontiguousarray(np.swapaxes(
+            np.concatenate([h[f] for h in host]), 0, 1))
+            for f in TraceRow._fields}
+        # A TorchDraws splits into itself: each chain's next draws are its
+        # own, moved on.
+        return unstack_states(self.state), rows, list(draws)
+
+    def _flush(self, k: int) -> dict:
+        """The first `k` rows, [k, C, ...], on the host."""
+        return {f: buf[:k].to("cpu", copy=True).numpy()
+                for f, buf in zip(TraceRow._fields, self.rows)}
+
+    def _run(self, key, draws, chains, fn) -> None:
+        """Piece `fn` under `key`, slot j drawing for chain chains[j]."""
+        slots = [self.slots[j].gen for j in range(len(chains))]
+        for gen, c in zip(slots, chains):
+            gen.set_state(draws[c].gen.get_state())
+        self.pieces.run(key, fn, tuple(slots))
+        for gen, c in zip(slots, chains):
+            draws[c].gen.set_state(gen.get_state())
+
+    def _flag(self, j: int) -> torch.Tensor:
+        """Flag j of every chain on the device (select's flags_dev)."""
+        return self.u[:, j] < self.thresholds[j]
+
+    def _first(self, flag: torch.Tensor) -> torch.Tensor:
+        """The chains where `flag` holds, then the others, each in chain
+        order: by_chain_flag's order."""
+        return torch.argsort((~flag).to(torch.int8), stable=True)
+
+    def _step(self, draws: list[TorchDraws], coupled: bool) -> None:
+        mc, c = self.mcmc_cfg, self.n_chains
+        if coupled:
+            # Chain 0's step draws drive the shared move choice.
+            u0 = draws[0].uniform((3,))
+            self.u.copy_(u0.expand(c, 3))
+            rows = u0[None].tolist() * c  # the step's first host read
+        else:
+            torch.stack([d.uniform((3,)) for d in draws], out=self.u)
+            rows = self.u.tolist()  # the step's first host read
+        flags = [[x < t for x, t in zip(row, self.thresholds)]
+                 for row in rows]
+        if not mc.fix_assign:
+            sm = [i for i in range(c) if mc.sm_prob > 0.0 and flags[i][0]]
+            self._assign(draws, sm, [i for i in range(c) if i not in sm])
+        if not mc.fix_assign and mc.dpa_prob > 0.0:
+            alpha = [i for i in range(c) if flags[i][1]]
+            if alpha:
+                self._run(("alpha", len(alpha)), draws, alpha,
+                          functools.partial(self._alpha, len(alpha)))
+        self._run(("params",), draws, range(c), self._params)
+        errs = ([i for i in range(c) if flags[i][2]]
+                if self.cfg.learn_errors and mc.error_prob > 0.0 else [])
+        self._run(("errors", len(errs)), draws, errs,
+                  functools.partial(self._errors, len(errs)))
+
+    def _ws(self, k: int) -> SegmentWork:
+        """The first `k` rows of the sweep's buffers."""
+        return SegmentWork(*(f[:k] for f in self.work))
+
+    def _assign(self, draws, sm: list[int], gibbs: list[int]) -> None:
+        """The assignment move: split-merge on the chains `sm`, the sweep
+        on the chains `gibbs`."""
+        ks, kg, n = len(sm), len(gibbs), self.cfg.n_cells
+        self._run(("head", ks), draws, sm + gibbs,
+                  functools.partial(self._head, ks))
+        read = self.hread[:ks + 5 * kg].tolist()  # split flags, first round
+        if ks:
+            split = [i for i, f in zip(sm, read[:ks]) if f]
+            merge = [i for i, f in zip(sm, read[:ks]) if not f]
+            if split:
+                self._run(("split", len(split)), draws, split,
+                          functools.partial(self._sm_move, True, len(split)))
+            if merge:
+                self._run(("merge", len(merge)), draws, merge,
+                          functools.partial(self._sm_move, False,
+                                            len(merge)))
+        if not kg:
+            return
+        rows = [read[ks + 5 * r:ks + 5 * r + 5] for r in range(kg)]
+        while True:
+            births = [(r, row[4]) for r, row in enumerate(rows)
+                      if row[1] >= 0]
+            done = all(row[0] >= n for row in rows)
+            if births:
+                self._run(("birth", len(births)), draws,
+                          [gibbs[r] for r, _ in births], functools.partial(
+                              segment_births, self.work, births, self.slots,
+                              self.gfp, self.gfn, self.data, self.cfg,
+                              stream=self.stream, relaunch=False))
+                if not done:
+                    self._run(("launch", kg), draws, [], functools.partial(
+                        _launch, self._ws(kg), self.stream))
+            if done:
+                break
+            rows = self.work.read[:kg].tolist()  # one host read a round
+        self._run(("tail", kg), draws, [],
+                  functools.partial(self._tail, kg))
+
+    def _head(self, ks: int) -> None:
+        c, cfg, st = self.n_chains, self.cfg, self.state
+        kg = c - ks
+        order = self._first(self._flag(0))
+        if ks:
+            idx = order[:ks]
+            k_move = StackedDraws(self.slots[:ks]).split(6)[0]
+            split = sm_choice(k_move, take_states(st, idx), cfg,
+                              self.mcmc_cfg.sm_split_ratio)
+            self.split_idx[:ks].copy_(idx[self._first(split)])
+            self.merge_idx[:ks].copy_(idx[self._first(~split)])
+            self.hread[:ks].copy_(split)
+        if kg:
+            idx = order[ks:]
+            sub = take_states(st, idx)
+            self.gidx[:kg].copy_(idx)
+            self.gfp[:kg].copy_(sub.fp)
+            self.gfn[:kg].copy_(sub.fn)
+            ax = ChainAxis(chains=kg)
+            k_perm, k_gumbel, _ = _split_sweep_keys(
+                StackedDraws(self.slots[ks:]), ax)
+            ws = self._ws(kg)
+            segment_start(ws, k_perm, k_gumbel, sub, self.data, cfg, ax,
+                          stream=self.stream)
+            # Rows past the sweep's hold no birth for segment_births.
+            self.work.read[kg:, 1].fill_(-1)
+            self.hread[ks:ks + 5 * kg].copy_(ws.read.reshape(-1))
+
+    def _put(self, idx: torch.Tensor, sub: CRPState) -> None:
+        for f, g in zip(self.state, sub):
+            f.index_copy_(0, idx, g)
+
+    def _sm_move(self, is_split: bool, k: int) -> None:
+        idx = (self.split_idx if is_split else self.merge_idx)[:k]
+        keys = StackedDraws(self.slots[:k]).split(6)[1:]
+        sub, counts = _move(is_split, keys, take_states(self.state, idx),
+                            self.data, self.cfg, self.mcmc_cfg.sm_steps,
+                            ChainAxis(chains=k))
+        self._put(idx, sub)
+        self.sm_counts.index_copy_(0, idx, counts)
+
+    def _tail(self, kg: int) -> None:
+        idx = self.gidx[:kg]
+        self._put(idx, segment_finish(self._ws(kg),
+                                      take_states(self.state, idx)))
+
+    def _alpha(self, k: int) -> None:
+        idx = self._first(self._flag(1))[:k]
+        self._put(idx, update_dp_alpha(StackedDraws(self.slots[:k]),
+                                       take_states(self.state, idx),
+                                       self.cfg))
+
+    def _params(self) -> None:
+        st, c = self.state, self.n_chains
+        n1, n0 = cluster_stats(self.data, st.assignment, self.cfg.k_max)
+        self.n1.copy_(n1)
+        self.n0.copy_(n0)
+        new, dec, acc = update_parameters(StackedDraws(self.slots), st, n1,
+                                          n0, self.cfg, ChainAxis(chains=c))
+        st.params.copy_(new.params)
+        self.par_counts.copy_(torch.stack([acc, dec], -1))
+
+    def _errors(self, k: int) -> None:
+        st, c = self.state, self.n_chains
+        counts = torch.zeros((c, 5, 2), dtype=torch.int32, device=self.device)
+        counts[:, 1:3, :] += self.sm_counts
+        counts[:, 0, :] += self.par_counts
+        if k:
+            idx = self._first(self._flag(2))[:k]
+            sub, fp_acc, fn_acc = update_error_rates(
+                StackedDraws(self.slots[:k]), take_states(st, idx),
+                self.n1[idx], self.n0[idx], self.cfg, ChainAxis(chains=k))
+            self._put(idx, sub)
+            acc = torch.stack([fp_acc, fn_acc], -1).to(torch.int32)
+            counts[:, 3:5, :] += torch.zeros_like(counts[:, 3:5, :]) \
+                .index_copy(0, idx, torch.stack([acc, 1 - acc], -1))
+        row = summarize(st, self.data, self.cfg, self.trace_k,
+                        stats=(self.n1, self.n0), ax=ChainAxis(chains=c))
+        for buf, x in zip(self.rows, row._replace(mh_counts=counts)):
+            buf.index_copy_(0, self.t, x[None])
+        self.t.add_(1)
+        self.sm_counts.zero_()
+
+
+def _make_block(step, chain_exec: str, one=None, batch=None):
     """(states, draws, n_steps, keep=None) -> (states, rows, next_draws): a
     block of `step` over a list of one-chain states and their draws, the
     chains one after another (each by `one`, _chain_block's signature;
     default _chain_block over `step`) or, under chain_exec="vmap" and more
-    than one chain, as one batch (_batch_block). rows hold [chains, steps,
-    ...] host arrays (an empty dict without chains)."""
+    than one chain, as one batch (by `batch`, _CapturedBatch.run's
+    signature; default _batch_block over `step`). rows hold [chains,
+    steps, ...] host arrays (an empty dict without chains)."""
     one = one or functools.partial(_chain_block, step)
+    batch = batch or functools.partial(_batch_block, step)
 
     def block(states, draws, n_steps: int, keep: int | None = None):
         if not states:
             return [], {}, []
         if chain_exec == "vmap" and len(states) > 1:
-            return _batch_block(step, states, draws, n_steps, keep)
+            return batch(states, draws, n_steps, keep)
         out = [one(st, d, n_steps, keep) for st, d in zip(states, draws)]
         states, rows, draws = (list(x) for x in zip(*out))
         return states, {f: np.stack([r[f] for r in rows])
@@ -656,17 +979,23 @@ CHECKPOINT_FORMAT = "bnpc_tpu_torch.mcmc/1"
 
 CHAIN_EXECS = ("auto", "sequential", "vmap")
 
-# What chain_exec="auto" takes on a CUDA device for more than one chain:
-# chip_smoke.py phase 12 measured the batch at or above the sequential
-# chain-steps/s at both cells in each call (NVIDIA H100 80GB HBM3, 700 W,
-# six calls: main cell 1.05-1.72 x at 4 chains, 2.47-3.47 x at 16;
-# large-n 1.07-1.29 x at 2; PERF.md §6). On the CPU "auto" takes
-# "sequential".
-AUTO_CUDA_CHAIN_EXEC = "vmap"
-# The same rule for a blocked sweep (gibbs_block > 0) and for a rank's
-# local chains under a mesh: "vmap" only where the batch reached the
-# sequential chain-steps/s in every call (NVIDIA H100 80GB HBM3, 700 W,
-# three calls; PERF.md §6). Blocked (phase 12 (f)): main cell 4
+# What chain_exec="auto" takes on a CUDA device for more than one exact,
+# uncoupled chain: "vmap" only where chip_smoke.py phase 12 measured the
+# batch at or above the sequential chain-steps/s at both cells (main cell
+# 4 x 128 and 16 x 64, large-n 2 x 16) in every call. With both forms
+# captured the batch fell short (NVIDIA H100 80GB HBM3, 700.00 W, six
+# calls, PERF.md §6): main 4 chains 0.511-1.357 x, 16 chains 0.996-1.446
+# x, large-n 2 chains 0.939-1.033 x, a fresh runner a run (each run holds
+# its captures). So "sequential". On the CPU "auto" takes "sequential".
+AUTO_CUDA_CHAIN_EXEC = "sequential"
+# Coupled chains (coupled_moves) take their own rule in its place: phase
+# 12 (d), the captured coupled batch against the coupled chains one after
+# another, 3.644-5.912 x in each of five calls, so "vmap".
+AUTO_CUDA_COUPLED_CHAIN_EXEC = "vmap"
+# Rules that apply beside those: a blocked sweep (gibbs_block > 0) and a
+# rank's local chains under a mesh, "vmap" only where the batch reached
+# the sequential chain-steps/s in every call (NVIDIA H100 80GB HBM3, 700
+# W, three calls; PERF.md §6). Blocked (phase 12 (f)): main cell 4
 # chains 1.270-1.966 x, large-n 2 chains 1.112-1.467 x, so "vmap". Mesh
 # (phase 11 (e), two ranks sharing the card): 1 x 2 with 2 chains
 # 1.093-1.212 x, but 2 x 1 with 2 chains a rank 0.557, 1.125 and 0.990 x,
@@ -676,17 +1005,19 @@ AUTO_CUDA_MESH_CHAIN_EXEC = "sequential"
 
 
 def resolve_chain_exec(chain_exec: str, device, mesh=None,
-                       gibbs_block: int = 0) -> str:
+                       gibbs_block: int = 0, coupled: bool = False) -> str:
     """"auto" -> "vmap" on CUDA where every rule that applies takes it
-    (AUTO_CUDA_CHAIN_EXEC; AUTO_CUDA_BLOCKED_CHAIN_EXEC with a blocked
-    sweep; AUTO_CUDA_MESH_CHAIN_EXEC under a mesh), "sequential"
-    otherwise and on the CPU."""
+    (AUTO_CUDA_CHAIN_EXEC, or AUTO_CUDA_COUPLED_CHAIN_EXEC for coupled
+    chains; AUTO_CUDA_BLOCKED_CHAIN_EXEC with a blocked sweep;
+    AUTO_CUDA_MESH_CHAIN_EXEC under a mesh), "sequential" otherwise and on
+    the CPU."""
     if chain_exec not in CHAIN_EXECS:
         raise ValueError(f"chain_exec={chain_exec!r}; expected one of "
                          f"{CHAIN_EXECS}")
     if chain_exec != "auto":
         return chain_exec
-    rules = [AUTO_CUDA_CHAIN_EXEC]
+    rules = [AUTO_CUDA_COUPLED_CHAIN_EXEC if coupled
+             else AUTO_CUDA_CHAIN_EXEC]
     if mesh is not None:
         rules.append(AUTO_CUDA_MESH_CHAIN_EXEC)
     if gibbs_block > 0:
@@ -718,7 +1049,8 @@ class MCMCRunner:
 
     One chain always runs the one-chain step; on the card, and without
     ``gibbs_block``, a chain that runs alone takes the captured block
-    (``_CapturedBlock``, ``run_block``). With
+    (``_CapturedBlock``, ``run_block``), and a batch the captured batch
+    (``_CapturedBatch``; not under a mesh). With
     ``mcmc_cfg.coupled_moves`` and more than one chain the chains step in
     lockstep with one shared move selection a step, batched under "vmap"
     (bnpc_tpu's coupled pipe) and one after another within each step under
@@ -759,7 +1091,8 @@ class MCMCRunner:
                  checkpoint_every: int = 4, mesh=None,
                  chain_exec: str = "auto"):
         self.chain_exec = resolve_chain_exec(chain_exec, device, mesh,
-                                             mcmc_cfg.gibbs_block)
+                                             mcmc_cfg.gibbs_block,
+                                             mcmc_cfg.coupled_moves)
         self.cfg = cfg
         self.mcmc_cfg = mcmc_cfg
         self.data = data
@@ -777,18 +1110,22 @@ class MCMCRunner:
         # One chain's block: on the card the captured block (the exact
         # Gibbs sweep resolves to "lazy" or "stream" there), else
         # _chain_block over the eager step.
-        self._captured = None
+        self._captured = self._captured_batch = None
         if mesh is None:
             self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
             self._one_block = functools.partial(_chain_block, self._step)
             if self.device.type == "cuda" and mcmc_cfg.gibbs_block == 0:
+                impl = resolve_impl("auto", cfg, on_cuda=True)
                 self._captured = _CapturedBlock(
-                    cfg, mcmc_cfg, data, self.trace_k,
-                    resolve_impl("auto", cfg, on_cuda=True), self.device,
+                    cfg, mcmc_cfg, data, self.trace_k, impl, self.device,
+                    block_size)
+                self._captured_batch = _CapturedBatch(
+                    cfg, mcmc_cfg, data, self.trace_k, impl, self.device,
                     block_size)
                 self._one_block = self._captured.run
-            self._block = _make_block(self._step, self.chain_exec,
-                                      self._one_block)
+            self._block = _make_block(
+                self._step, self.chain_exec, self._one_block,
+                self._captured_batch and self._captured_batch.run)
         else:
             from bnpc_tpu_torch.data import pad_muts
             from bnpc_tpu_torch.parallel import sharded
@@ -848,6 +1185,9 @@ class MCMCRunner:
                 or self.ax.sharded:
             return self._block(states, draws, n_steps, keep)
         if self.chain_exec == "vmap":
+            if self._captured_batch is not None:
+                return self._captured_batch.run(states, draws, n_steps, keep,
+                                                coupled=True)
             return _batch_block(self._coupled_step, states, draws, n_steps,
                                 keep, coupled=True)
         # Chain 0's key stream drives the shared move choice (bnpc_tpu

@@ -116,13 +116,10 @@ def fresh_row(k_beta: Draws, cell: int, data: PackedData, cfg: ModelConfig,
     return torch.clamp(theta, TMIN, TMAX).to(torch.float32)
 
 
-def _birth_column(theta, slot, fp, fn, data, gumbel, ax):
-    """Slot `slot`'s newborn Z column; `slot` a host int or a [1] device
-    index."""
+def _birth_column(theta, slot: int, fp, fn, data, gumbel, ax):
+    """Slot `slot`'s newborn Z column."""
     f1, f0 = lk.log_prob_tables(theta, fp, fn)
-    noise = (gumbel[:, slot] if isinstance(slot, int)
-             else gumbel.index_select(1, slot)[:, 0])
-    return lk.ll_col(f1, f0, data.xm, data.xm0, ax) + noise
+    return lk.ll_col(f1, f0, data.xm, data.xm0, ax) + gumbel[:, slot]
 
 
 def _padded_sizes(state, k_pad: int):
@@ -357,24 +354,34 @@ def segment_rounds(ws: SegmentWork, n: int, births_fn) -> None:
             return
 
 
-def segment_births(ws: SegmentWork, births, k_betas, state: CRPState,
+def segment_births(ws: SegmentWork, births, k_betas, fp, fn,
                    data: PackedData, cfg: ModelConfig, ax: MutAxis = _NO_AXIS,
                    *, stream: bool, relaunch: bool) -> None:
-    """One birth round: each birth's newborn row drawn from its chain's own
-    draws and patched into ws.params and Z, in chain order, the slot and
-    the cell taken from ws on the device (the host cell only keys
-    ``fresh_row``'s draw); then, unless every chain is done, the next
-    launch. `ax` is the chains' mutation axis."""
-    fp, fn = state.fp.reshape(-1), state.fn.reshape(-1)
-    for c, cell in births:
-        slot = ws.info[c, 2:3].long()
-        theta = fresh_row(k_betas[c], cell, data, cfg, ws.read[c, 4:5])
-        ws.params[c].index_copy_(0, slot, theta[None])
-        col = _birth_column(theta, slot, fp[c], fn[c], data, ws.gumbel[c],
-                            ax)
+    """One birth round: `births` [(chain, cell)] in chain order (the
+    round's host read), the j-th newborn row drawn from ``k_betas[j]`` and
+    patched into ws.params and Z, in chain order; then, unless every chain
+    is done, the next launch. The born rows of `ws` are taken on the
+    device, the first len(births) rows whose info holds a birth, and so
+    are each one's slot and cell (the host cell only keys ``fresh_row``'s
+    draw): a captured round depends on the number of births only. `fp`,
+    `fn` hold each row's error rates; `ax` is the chains' mutation axis."""
+    _, n, k_pad = ws.zin.shape
+    k_max, m = ws.params.shape[1:]
+    rows = torch.argsort((ws.read[:, 1] < 0).to(torch.int8), stable=True)
+    cells = torch.arange(n, device=ws.zin.device)
+    for j, ((_, cell), k_beta) in enumerate(zip(births, k_betas)):
+        r = rows[j:j + 1]
+        slot = ws.info.index_select(0, r)[0, 2:3].long()
+        theta = fresh_row(k_beta, cell, data, cfg,
+                          ws.read.index_select(0, r)[0, 4:5])
+        ws.params.view(-1, m).index_copy_(0, r * k_max + slot, theta[None])
+        f1, f0 = lk.log_prob_tables(theta, fp.index_select(0, r)[0],
+                                    fn.index_select(0, r)[0])
+        noise = torch.take(ws.gumbel, (r * n + cells) * (k_max + 1) + slot)
+        col = lk.ll_col(f1, f0, data.xm, data.xm0, ax) + noise
         if stream:
-            col = col[ws.perm[c].long()]
-        ws.zin[c].index_copy_(1, slot, col[:, None])
+            col = col[ws.perm.index_select(0, r)[0].long()]
+        ws.zin.view(-1).index_copy_(0, (r * n + cells) * k_pad + slot, col)
     if relaunch:
         _launch(ws, stream)
 
@@ -418,9 +425,10 @@ def _segment_impl(draws, state, data, cfg, ax=_NO_AXIS, *, stream: bool):
     k_betas, mut = ([k_beta], ax) if one else (k_beta.chains, ax.mut)
     ws = segment_work(state, cfg, stream)
     segment_start(ws, k_perm, k_gumbel, state, data, cfg, ax, stream=stream)
+    fp, fn = state.fp.reshape(-1), state.fn.reshape(-1)
     segment_rounds(ws, cfg.n_cells, lambda births, relaunch: segment_births(
-        ws, births, k_betas, state, data, cfg, mut, stream=stream,
-        relaunch=relaunch))
+        ws, births, [k_betas[c] for c, _ in births], fp, fn, data, cfg, mut,
+        stream=stream, relaunch=relaunch))
     return segment_finish(ws, state)
 
 

@@ -181,18 +181,23 @@ Phases (any failure exits non-zero, and no result line is printed):
                131,072 (s_count n, 6,557 and 1), each == its batched twin
                and == one one-chain launch a chain; one batched launch timed at C = 1, 4, 16, 132 chains (kernels 1
                and 2, main shape) and C = 1, 4, 16 (kernel 3, 131,072 x
-               128), beside the one-chain wrapper; (b) the main cell, 4
-               chains x 128 steps, "vmap" against "sequential" in this call:
-               chain by chain assignments and MH counts exactly, floats to
-               rtol 1e-6 (and whether bit for bit), chain-steps/s of both,
+               128), beside the one-chain wrapper; (b) after 2 chains x 8
+               steps of each form (untimed: the kernels load), the main
+               cell, 4 chains x 128 steps, "vmap" (the captured batch)
+               against "sequential" (each chain's captured block) in this
+               call, a fresh runner a run, runs vmap, sequential,
+               sequential, vmap: chain by chain bit for bit, median, min
+               and max chain-steps/s of both,
                every kernel launch of the batched run on a chain grid (the
                grids counted); a profiled step of all 4 chains in each form
-               (launches, draw calls, device busy share, host syncs); the
+               (the eager forms: launches, draw calls, device busy share,
+               host syncs); the
                lazy loop's rounds a sweep against each chain's launches;
                64 steps saved under "vmap" resumed under "sequential" ==
                the uninterrupted run, bit for bit; (c) 16 chains x 64 steps;
                (d) 4 coupled chains x 64 steps; (e) the large-n cell, 2
-               chains x 16 steps, kernels 3 and 2 on grids of 2; (f) the
+               chains x 16 steps, kernels 3 and 2 on grids of 2 ((c)-(e)
+               interleaved as (b)); (f) the
                blocked sweep batched: gibbs_block 128 at the main cell, 4
                chains x 64 steps, and 512 at the large-n cell, 2 x 16, each
                "vmap" against "sequential" in this call, chain by chain bit
@@ -220,10 +225,26 @@ Phases (any failure exits non-zero, and no result line is printed):
                peak memory; the graphs captured, their capture seconds
                and their pool's MB. At the main cell the captured form
                must make fewer than 20 host-side launches a step and no
-               more host syncs than the eager one.
+               more host syncs than the eager one. (d) the captured batch
+               (MCMCRunner.run_chains under chain_exec="vmap",
+               mcmc.py::_CapturedBatch) against the eager batch
+               (mcmc._batch_block over the runner's own step) at the main
+               cell, 4 chains x 128 steps, 16 x 64 and 4 coupled x 64, and
+               at the large-n cell, 2 x 16: from the same initial states
+               and generator states, blocks eager, captured, captured,
+               eager, each bit for bit against the first (every trace
+               field, each chain's state and generator state); min /
+               median / max chain-steps/s of each form, the replay share
+               of each captured block's piece runs; a step of all chains'
+               costs in each form as in (c); the graphs a runner, their
+               capture seconds and pool MB. At the main cell with 4 chains
+               the captured batch must make fewer than 100 host-side
+               launches a step and no more host syncs than the eager one.
 Phases 5-12 run the captured block wherever they take the one-chain lazy
 or stream path (the runner's run_block and run, chains one after another,
-the CLI); a launch counter counts each replay's launches there.
+the CLI), and the captured batch wherever they batch chains under "vmap"
+without a mesh or a blocked sweep; a launch counter counts each replay's
+launches there.
 
 Before each of phases 5-7, before each probe in phase 8, before each CLI
 run of phase 9 and before each run of phase 10 that is checked for its
@@ -2894,31 +2915,42 @@ def close_results(tag, got, want):
 
 
 def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
-                   n, k_max, bits=False, **kw):
+                   n, k_max, bits=False, interleave=False, **kw):
     """One run under chain_exec="vmap" and one under "sequential" (same
-    seed, same call): equal chain by chain (with `bits`, bit for bit);
-    chain-steps/s of both; the batched run's launches (every kernel launch
-    of it on a chain grid); the Gibbs kernel's rounds a batched sweep where
-    the run's Gibbs move launches one (not the blocked sweep)."""
+    seed, same call, a fresh runner each): equal chain by chain (with
+    `bits`, bit for bit); chain-steps/s of both; the batched run's
+    launches (every kernel launch of it on a chain grid); the Gibbs
+    kernel's rounds a batched sweep where the run's Gibbs move launches one
+    (not the blocked sweep). With `interleave` the runs go vmap,
+    sequential, sequential, vmap, each later run bit for bit against its
+    form's first, and each form's chain-steps/s is the median of its two
+    (min and max beside it)."""
     import torch
 
     out, results = {}, {}
     sweep = next((k for k in ("lazy_stream", "lazy_segment")
                   if k in kernels), None)
-    for ex in ("vmap", "sequential"):
+    order = (("vmap", "sequential", "sequential", "vmap") if interleave
+             else ("vmap", "sequential"))
+    for ex in order:
         runner = chains_runner(data, cfg, mc, dev, ex, **kw)
         kept = KeepStates(runner)
         reset_launches()
         with SweepCounts() as sweeps:
             t0 = time.perf_counter()
-            results[ex] = runner.run((steps, steps // 2), seed=seed,
-                                     n_chains=n_chains)
+            res = runner.run((steps, steps // 2), seed=seed,
+                             n_chains=n_chains)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        check_results(f"{tag} {ex}", results[ex], kept.states, n, k_max,
-                      steps + 1)
-        out[ex] = {"chain_steps_per_s": n_chains * steps / secs,
-                   "seconds": secs}
+        check_results(f"{tag} {ex}", res, kept.states, n, k_max, steps + 1)
+        if ex in results:
+            if not close_results(f"{tag} {ex} again", res, results[ex]):
+                raise AssertionError(f"{tag}: a second {ex} run differs "
+                                     "from the first")
+            out[ex]["runs"].append(n_chains * steps / secs)
+            continue
+        results[ex] = res
+        out[ex] = {"runs": [n_chains * steps / secs]}
         if sweep is None:
             pass
         elif ex == "sequential":
@@ -2939,6 +2971,10 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
                                      f"batched {batched}; expected only "
                                      f"{sorted(kernels)}, batched")
             out["launches"] = batched
+    for ex in ("vmap", "sequential"):
+        r = out[ex]["runs"]
+        out[ex].update(chain_steps_per_s=float(np.median(r)), min=min(r),
+                       max=max(r))
     out["bit_for_bit"] = close_results(tag, results["vmap"],
                                        results["sequential"])
     if bits and not out["bit_for_bit"]:
@@ -2951,8 +2987,10 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
         f"of {out['vmap']['sweeps']} batched sweeps, "
         f"{out['sequential']['launches_per_sweep']:.3f} launches a "
         "one-chain sweep")
-    log(f"  {tag}: {n_chains} chains x {steps} steps; vmap "
-        f"{out['vmap']['chain_steps_per_s']:.3f} chain-steps/s, sequential "
+    log(f"  {tag}: {n_chains} chains x {steps} steps, runs "
+        f"{' / '.join(order)}; vmap {out['vmap']['runs']}, sequential "
+        f"{out['sequential']['runs']} chain-steps/s; medians "
+        f"{out['vmap']['chain_steps_per_s']:.3f} / "
         f"{out['sequential']['chain_steps_per_s']:.3f} (x{out['ratio']:.3f}"
         f"); vmap == sequential chain by chain (bit for bit: "
         f"{out['bit_for_bit']}); batched launches (kernel: (launches, "
@@ -2960,11 +2998,20 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
     return out
 
 
+def chains_warm(dev, data, cfg, mc):
+    """2 chains x 8 steps under each chain_exec, untimed: the kernels a
+    batch and a chain run first load here, not inside a timed run."""
+    for ex in ("vmap", "sequential"):
+        chains_runner(data, cfg, mc, dev, ex).run((8, 4), seed=40,
+                                                  n_chains=2)
+
+
 class SweepCounts:
     """While active, counts the exact Gibbs sweeps of the lazy and stream
     impls: one-chain (``_segment_impl`` on a one-chain state, or the
     captured block's sweep, which runs as graphs) and batched (one
-    ``_segment_impl`` call for a sub-batch of chains)."""
+    ``_segment_impl`` call for a sub-batch of chains, or one sub-batch
+    sweep of the captured batch)."""
 
     def __enter__(self):
         from bnpc_tpu_torch import mcmc
@@ -2973,6 +3020,7 @@ class SweepCounts:
         self.one, self.batched = 0, 0
         self.saved = fn = gibbs._segment_impl
         self.saved_captured = sweep = mcmc._CapturedBlock._sweep
+        self.saved_batch = assign = mcmc._CapturedBatch._assign
 
         def counted(draws, state, *args, **kwargs):
             if state.assignment.dim() == 1:
@@ -2985,8 +3033,13 @@ class SweepCounts:
             self.one += 1
             return sweep(block, k_assign)
 
+        def batch(block, draws, sm, gibbs_chains):
+            self.batched += bool(gibbs_chains)
+            return assign(block, draws, sm, gibbs_chains)
+
         gibbs._segment_impl = counted
         mcmc._CapturedBlock._sweep = captured
+        mcmc._CapturedBatch._assign = batch
         return self
 
     def __exit__(self, *exc):
@@ -2995,6 +3048,7 @@ class SweepCounts:
 
         gibbs._segment_impl = self.saved
         mcmc._CapturedBlock._sweep = self.saved_captured
+        mcmc._CapturedBatch._assign = self.saved_batch
 
 
 class DrawCalls:
@@ -3216,8 +3270,10 @@ def phase_chains(dev, smi, k):
     main_kernels = {"lazy_segment", "rg_scan"}
     with part("b"):
         log(f"  (b) main cell, 4 chains x 128 steps ({smi})")
+        chains_warm(dev, data, cfg, mc)
         out["main_4"] = chains_compare("main 4", dev, data, cfg, mc, 4, 128,
-                                       41, main_kernels, N, K_MAX)
+                                       41, main_kernels, N, K_MAX, bits=True,
+                                       interleave=True)
     with part("b steps"):
         out["main_4"]["steps"] = chains_step_costs(dev, data, cfg, mc, 4, 4)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3227,20 +3283,22 @@ def phase_chains(dev, smi, k):
             log(f"  (c) main cell, 16 chains x 64 steps ({smi})")
             out["main_16"] = chains_compare("main 16", dev, data, cfg, mc,
                                             16, 64, 42, main_kernels, N,
-                                            K_MAX)
+                                            K_MAX, bits=True,
+                                            interleave=True)
         with part("d"):
             log(f"  (d) coupled, 4 chains x 64 steps ({smi})")
             out["coupled_4"] = chains_compare(
                 "coupled 4", dev, data, cfg,
                 dataclasses.replace(mc, coupled_moves=True), 4, 64, 43,
-                main_kernels, N, K_MAX)
+                main_kernels, N, K_MAX, bits=True, interleave=True)
         with part("e"):
             log(f"  (e) large-n, 2 chains x 16 steps ({smi})")
             data_l, _ = make_data(N_LARGE, M, 20, 0.1, seed=0)
             cfg_l, mc_l = bench_configs(N_LARGE, K_LARGE)
             out["large_2"] = chains_compare(
                 "large 2", dev, data_l, cfg_l, mc_l, 2, 16, 44,
-                {"lazy_stream", "rg_scan"}, N_LARGE, K_LARGE, block_size=16)
+                {"lazy_stream", "rg_scan"}, N_LARGE, K_LARGE, bits=True,
+                interleave=True, block_size=16)
             grids = out["large_2"]["launches"]
             if not all(2 in grids[name][1]
                        for name in ("lazy_stream", "rg_scan")):
@@ -3256,9 +3314,19 @@ def phase_chains(dev, smi, k):
         out[c]["ratio"] >= 1.0 for c in ("main_4", "main_16", "large_2"))
     out["auto_blocked_rule_holds"] = all(
         out["blocked"][c]["ratio"] >= 1.0 for c in ("main_4", "large_2"))
+    from bnpc_tpu_torch import mcmc
+
+    out["auto_coupled_rule_holds"] = out["coupled_4"]["ratio"] >= 1.0
+    out["auto_constant_agrees"] = (
+        (mcmc.AUTO_CUDA_CHAIN_EXEC == "vmap") == out["auto_rule_holds"])
     log(f"  batched >= sequential chain-steps/s at both cells in this call "
-        f"(main 4 and 16 chains, large-n 2): {out['auto_rule_holds']}; "
-        f"blocked (main 4, large-n 2): {out['auto_blocked_rule_holds']}")
+        f"(main 4 and 16 chains, large-n 2): {out['auto_rule_holds']} "
+        f"(AUTO_CUDA_CHAIN_EXEC = {mcmc.AUTO_CUDA_CHAIN_EXEC!r}, \"vmap\" "
+        f"only where it holds in every call; this call agrees: "
+        f"{out['auto_constant_agrees']}); coupled (main 4): "
+        f"{out['auto_coupled_rule_holds']} (AUTO_CUDA_COUPLED_CHAIN_EXEC = "
+        f"{mcmc.AUTO_CUDA_COUPLED_CHAIN_EXEC!r}); blocked (main 4, large-n "
+        f"2): {out['auto_blocked_rule_holds']}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 12: {out['seconds']:.1f} s; parts (s) "
         + ", ".join(f"{name} {sec:.1f}" for name, sec in parts.items()))
@@ -3442,9 +3510,169 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
     return out, totals
 
 
+def same_batch(tag, got, want):
+    """Two batch blocks' (states, rows, draws), bit for bit: every TraceRow
+    field, each chain's state and each chain's generator state."""
+    import torch
+
+    (g_states, g_rows, g_draws), (w_states, w_rows, w_draws) = got, want
+    for f, w in w_rows.items():
+        if g_rows[f].dtype != w.dtype or not np.array_equal(g_rows[f], w):
+            raise AssertionError(f"{tag}: trace field {f} differs")
+    for c, (g_st, w_st) in enumerate(zip(g_states, w_states)):
+        for f, g, w in zip(type(w_st)._fields, g_st, w_st):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{tag}: chain {c} state field {f} "
+                                     "differs")
+    for c, (g, w) in enumerate(zip(g_draws, w_draws)):
+        if not torch.equal(g.gen.get_state(), w.gen.get_state()):
+            raise AssertionError(f"{tag}: chain {c}'s generator state "
+                                 "differs")
+
+
+# Phase 13 (d): (case, cell, chains, steps, coupled, profiled steps).
+BATCH_CASES = (("main 4", "main", 4, 128, False, 8),
+               ("main 16", "main", 16, 64, False, 4),
+               ("coupled 4", "main", 4, 64, True, 8),
+               ("large 2", "large", 2, 16, False, 4))
+
+
+def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
+                        steps_c):
+    """Phase 13 (d) at one case: the captured batch (MCMCRunner.run_chains
+    under chain_exec="vmap") against the eager batch (mcmc._batch_block over
+    the runner's own step) in blocks of `steps` steps from the same initial
+    states and generator states, eager, captured, captured, eager, each
+    bit for bit against the first: chain-steps/s of each block, the
+    replay share of each captured block's piece runs; then a step's costs
+    of each form over `steps_c` steps from the end states."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.data import pack_data
+
+    n, k_max, k_clones = ((N, K_MAX, 10) if cell == "main"
+                          else (N_LARGE, K_LARGE, 20))
+    data, _ = make_data(n, M, k_clones, 0.1, seed=0)
+    cfg, mc = bench_configs(n, k_max)
+    mc = dataclasses.replace(mc, coupled_moves=coupled)
+    runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                             block_size=steps, chain_exec="vmap")
+    del data
+    step = runner._coupled_step if coupled else runner._step
+    forms = {"eager": functools.partial(mcmc._batch_block, step,
+                                        coupled=coupled),
+             "captured": runner.run_chains}
+    states = [runner.init_chains(TorchDraws(50 + c, dev))[0]
+              for c in range(n_chains)]
+    gens = [TorchDraws(150 + c, dev).gen.get_state()
+            for c in range(n_chains)]
+
+    def fresh(gen_states):
+        out = []
+        for g in gen_states:
+            d = TorchDraws(1, dev)
+            d.gen.set_state(g)
+            out.append(d)
+        return out
+
+    out = {"eager": {"chain_steps_per_s": []},
+           "captured": {"chain_steps_per_s": [], "replay_share": []}}
+    want = None
+    for form in ("eager", "captured", "captured", "eager"):
+        pieces = runner._captured_batch.pieces
+        before = (pieces.replays, pieces.eager_runs) if pieces else (0, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = forms[form](states, fresh(gens), steps)
+        torch.cuda.synchronize()
+        out[form]["chain_steps_per_s"].append(
+            n_chains * steps / (time.perf_counter() - t0))
+        if want is None:
+            want = got
+        else:
+            same_batch(f"{case} {form}", got, want)
+        if form == "captured":
+            pieces = runner._captured_batch.pieces
+            runs = (pieces.replays - before[0], pieces.eager_runs - before[1])
+            out["captured"]["replay_share"].append(runs[0] / sum(runs))
+    counts = want[1]["mh_counts"]  # [chains, steps, 5, 2]
+    out["moves"] = {"splits": int((counts[:, :, 1].sum(-1) > 0).sum()),
+                    "merges": int((counts[:, :, 2].sum(-1) > 0).sum())}
+    for form in ("eager", "captured"):
+        r = out[form]["chain_steps_per_s"]
+        out[form].update(min=min(r), median=float(np.median(r)), max=max(r))
+    out["ratio"] = out["captured"]["median"] / out["eager"]["median"]
+    log(f"  (d) {case}: {n_chains} chains x {steps} steps, captured batch "
+        f"== eager batch bit for bit (every trace field, each chain's state "
+        f"and generator state) in all 4 blocks; {out['moves']}; eager / "
+        f"captured / captured / eager ({smi}): eager "
+        f"{out['eager']['chain_steps_per_s']}, captured "
+        f"{out['captured']['chain_steps_per_s']} chain-steps/s; median "
+        f"ratio {out['ratio']:.3f}; replay share of the captured blocks' "
+        f"piece runs {out['captured']['replay_share']}")
+
+    end, end_gens = want[0], [d.gen.get_state() for d in want[2]]
+    for form, fn in forms.items():
+        d = fresh(end_gens)
+        torch.cuda.reset_peak_memory_stats()
+        costs = launch_profile(lambda: fn(end, d, steps_c), steps_c)
+        costs["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        d = fresh(end_gens)
+        costs["host_syncs_per_step"] = syncs_per_step(
+            lambda k: fn(end, d, k), steps_c)
+        out[form].update(costs)
+        log(f"  (d) {case} {form}, a step of all {n_chains} chains: "
+            f"{costs['host_launches_per_step']:.2f} host-side launches "
+            f"{costs['host_launch_calls_per_step']} "
+            f"({costs['host_launch_source']}), "
+            f"{costs['kernel_executions_per_step']:.1f} kernel executions, "
+            f"{costs['host_syncs_per_step']:.3f} host syncs, busy "
+            f"{costs['busy_share']:.4f} of {costs['wall_ms_per_step']:.3f} "
+            f"ms, peak {costs['peak_mb']:.1f} MB")
+    pieces = runner._captured_batch.pieces
+    out["graphs"] = len(pieces.graphs)
+    out["keys"] = sorted(str(k) for k in pieces.graphs)
+    out["capture_seconds"] = pieces.capture_seconds
+    out["pool_mb"] = (pieces.pool_bytes() or 0) / 1e6
+    log(f"  (d) {case}: {out['graphs']} graphs captured "
+        f"({', '.join(out['keys'])}) in {out['capture_seconds']:.3f} s; "
+        f"pool {out['pool_mb']:.1f} MB")
+    return out
+
+
+def phase_captured_batch(dev, smi):
+    """Phase 13 (d): the captured batch against the eager batch in one
+    call, at the main cell (4 and 16 chains, 4 coupled) and at the large-n
+    cell (2 chains)."""
+    t0 = time.perf_counter()
+    out = {}
+    for case, cell, chains, steps, coupled, steps_c in BATCH_CASES:
+        out[case] = captured_batch_case(dev, smi, case, cell, chains, steps,
+                                        coupled, steps_c)
+    # At the main cell, 4 chains: fewer than 100 host-side launches a step
+    # captured, no more host syncs than eager.
+    e, c = out["main 4"]["eager"], out["main 4"]["captured"]
+    if not (e["host_launches_per_step"] > 100
+            and c["host_launches_per_step"] < 100
+            and c["host_syncs_per_step"] <= e["host_syncs_per_step"]):
+        raise AssertionError(
+            f"main 4: host-side launches a step {c['host_launches_per_step']}"
+            f" captured / {e['host_launches_per_step']} eager (want < 100 / "
+            f"> 100), host syncs {c['host_syncs_per_step']} / "
+            f"{e['host_syncs_per_step']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  (d): {out['seconds']:.1f} s")
+    return out
+
+
 def phase_captured(dev, smi):
     """Phase 13: the one-chain block as captured graphs against the eager
-    block in one call, at the main and the large-n cells."""
+    block in one call, at the main and the large-n cells; then (d), the
+    captured batch against the eager batch."""
     t_phase = time.perf_counter()
     out = {}
     out["main"], totals = captured_cell(dev, smi, "main", N, K_MAX, 10, 2,
@@ -3465,6 +3693,7 @@ def phase_captured(dev, smi):
             f"captured / {e['host_launches_per_step']} eager (want < 20 / "
             f"> 100), host syncs {c['host_syncs_per_step']} / "
             f"{e['host_syncs_per_step']}")
+    out["batch"] = phase_captured_batch(dev, smi)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13: {out['seconds']:.1f} s")
     return out
@@ -3524,7 +3753,8 @@ def main():
     mesh_out = phase_mesh(dev, smi)
     log(f"[12/13] batched chains: chain_exec='vmap' ({smi})")
     chains_out = phase_chains(dev, smi, k)
-    log(f"[13/13] the one-chain block captured against eager ({smi})")
+    log(f"[13/13] the one-chain block and the batch captured against "
+        f"eager ({smi})")
     captured_out = phase_captured(dev, smi)
 
     chain = probes.pop("chain")
