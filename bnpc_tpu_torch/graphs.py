@@ -39,10 +39,10 @@ import time
 
 import torch
 
-from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream
+from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream, cuda_sweep
 
 # The kernel wrappers a captured piece launches.
-COUNTED = (cuda_gibbs, cuda_stream, cuda_rg)
+COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep)
 
 
 def read_counts() -> list:

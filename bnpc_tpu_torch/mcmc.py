@@ -18,13 +18,14 @@ chains on its mutation columns and rank 0 gathers, decides and writes (see
 MCMCRunner).
 
 On the card a chain that runs alone (one chain, or chains one after
-another) runs its block captured (_CapturedBlock): the device-only pieces
-of each step between the step's host reads replay as CUDA graphs
-(graphs.py), bit for bit what the eager step gives. A batch of chains,
-exact or coupled, runs captured too (_CapturedBatch), its pieces keyed by
-how many chains take each branch. The blocked sweep, the eager and scan
-sweeps and the mesh run the eager step. Nothing turns the capture off; a
-capture fault raises.
+another) runs its block captured (_CapturedBlock; make_block_fn, bnpc_tpu's
+name, gives it): the device-only pieces of each step between the step's
+host reads replay as CUDA graphs (graphs.py), bit for bit what the eager
+step gives, for the lazy, stream, eager and blocked sweeps. A batch of
+chains, exact, blocked or coupled, runs captured too (_CapturedBatch), its
+pieces keyed by how many chains take each branch. The scan sweep and the
+mesh run the eager step. Nothing turns the capture off; a capture fault
+raises.
 """
 
 from __future__ import annotations
@@ -42,8 +43,13 @@ from bnpc_tpu_torch import diagnostics, graphs
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws, StackedDraws, TorchDraws
-from bnpc_tpu_torch.models.gibbs import (SegmentWork, _launch,
-                                          _split_sweep_keys, gibbs_sweep,
+from bnpc_tpu_torch.models.gibbs import (SegmentWork, _check_eager_fits,
+                                          _eager_impl, _launch,
+                                          _split_sweep_keys, blocked_births,
+                                          blocked_cell, blocked_finish,
+                                          blocked_pass, blocked_rounds,
+                                          blocked_rows, blocked_start,
+                                          blocked_work, gibbs_sweep,
                                           resolve_impl, segment_births,
                                           segment_finish, segment_rounds,
                                           segment_start, segment_work)
@@ -251,11 +257,12 @@ def _make_select(mcmc_cfg: MCMCConfig):
     return select
 
 
-def _make_step_body(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                    data: PackedData, trace_k: int, gibbs_impl: str = "auto",
-                    ax: MutAxis = _NO_AXIS):
-    """The single-step body (do_step, libs/MCMC.py:320-342); draws are
-    split exactly as in bnpc_tpu/mcmc.py:_make_step_body. ``gibbs_impl`` is
+def make_step_fn(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
+                 trace_k: int, ax: MutAxis = _NO_AXIS,
+                 gibbs_impl: str = "auto"):
+    """The single-step function (bnpc_tpu make_step_fn; do_step,
+    libs/MCMC.py:320-342); draws are split exactly as in
+    bnpc_tpu/mcmc.py:_make_step_body. ``gibbs_impl`` is
     the Gibbs sweep's impl (models/gibbs.py::gibbs_sweep);
     ``mcmc_cfg.gibbs_block`` > 0 routes the Gibbs move to the blocked
     sweep, as bnpc_tpu does. Under a sharded `ax`, `data` and the params
@@ -299,9 +306,9 @@ def _coupled_keys(draws: Draws, n: int, chain_draws=None):
     return k_sel, [tuple(d.split(5)[1:]) for d in chain_draws]
 
 
-def _make_coupled_step(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                       data: PackedData, trace_k: int,
-                       gibbs_impl: str = "auto"):
+def make_coupled_step_fn(cfg: ModelConfig, mcmc_cfg: MCMCConfig,
+                         data: PackedData, trace_k: int,
+                         gibbs_impl: str = "auto"):
     """A step of every chain with one SHARED move-type selection
     (bnpc_tpu make_coupled_step_fn); the move, alpha, parameter and error
     draws as ``_coupled_keys`` gives them. Like bnpc_tpu's, it does not
@@ -393,18 +400,56 @@ def _write(dst: CRPState, src: CRPState) -> None:
             d.copy_(x)
 
 
+CAPTURED_IMPLS = ("lazy", "stream", "blocked", "eager")
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one ("cuda" is the current CUDA device)."""
+    def index(d):
+        if d.index is None and d.type == "cuda":
+            return torch.cuda.current_device()
+        return d.index
+
+    return a.type == b.type and index(a) == index(b)
+
+
+def _sweep_impl(cfg: ModelConfig, mcmc_cfg: MCMCConfig, gibbs_impl: str,
+                on_cuda: bool) -> str:
+    """The Gibbs move's impl that make_step_fn's step runs: "blocked" when
+    mcmc_cfg.gibbs_block > 0, else `gibbs_impl` as gibbs_sweep resolves
+    it."""
+    if mcmc_cfg.gibbs_block > 0:
+        return "blocked"
+    return resolve_impl(gibbs_impl, cfg, on_cuda)
+
+
+def _sweep_work(impl: str, state: CRPState, cfg: ModelConfig,
+                mcmc_cfg: MCMCConfig):
+    """The static buffers of a captured sweep of `state` (none for the
+    eager sweep, one piece)."""
+    if impl == "blocked":
+        return blocked_work(state, cfg, mcmc_cfg.gibbs_block or 128)
+    if impl == "eager":
+        return ()
+    return segment_work(state, cfg, impl == "stream")
+
+
 class _CapturedBlock:
     """One chain's block on the card, each step's device-only pieces
     replayed as CUDA graphs between the step's host reads (graphs.py; the
     counterpart of bnpc_tpu's compiled block, whose step is a ``lax.scan``
     body with the birth loop a ``lax.while_loop`` and split or merge a
-    ``lax.cond``). For the Gibbs impls ``lazy`` and ``stream``.
+    ``lax.cond``). For the Gibbs impls ``lazy``, ``stream``, ``eager`` and
+    ``blocked`` (the blocked sweep, ``mcmc_cfg.gibbs_block`` cells a block;
+    128 when that is 0, as gibbs_sweep takes it).
 
-    A step makes the host reads of the eager step (``_make_step_body``)
-    and no more: the move uniforms (select, eager: one draw), then either
-    each round's info of the sweep (models/gibbs.py::segment_rounds) or the
-    split-or-merge choice. The pieces between them, each keyed by what the
-    host knows at that point, are the eager step's own functions:
+    A step makes the host reads of the eager step (``make_step_fn``) and
+    no more: the move uniforms (select, eager: one draw), then the sweep's
+    reads (lazy and stream: each round's info, models/gibbs.py::
+    segment_rounds; blocked: one a frozen pass and one a replayed cell,
+    ``blocked_rounds``; eager: none) or the split-or-merge choice. The
+    pieces between them, each keyed by what the host knows at that point,
+    are the eager step's own functions:
 
       * ("sweep_head",): segment_start, the sweep's draws, Z, the staging
         and the first launch;
@@ -412,47 +457,67 @@ class _CapturedBlock:
         and cell read on the device, and the relaunch unless the sweep has
         ended;
       * ("sweep_tail",): segment_finish into the state;
+      * ("blocked_head",): blocked_start, the sweep's draws, Z and staging,
+        and the first frozen pass;
+      * ("blocked_cell",): blocked_cell, one cell of a birth block's exact
+        replay, its position a device counter;
+      * ("blocked_birth",): blocked_births, that cell's newborn row and Z
+        column, with its slot and cell read on the device;
+      * ("blocked_pass",): blocked_pass from block 0 (the blocks below the
+        chain's start change nothing, so one graph serves every later
+        pass, where the eager sweep starts at the host's block);
+      * ("blocked_tail",): blocked_finish into the state;
+      * ("eager_sweep",): the whole eager sweep (models/gibbs.py::
+        _eager_impl: its draws, the fresh rows, the [n, n] product and
+        kernel 4) into the state; ``_check_eager_fits`` runs once, at the
+        block's setup, never inside a capture;
       * ("sm_head",): splitmerge.sm_choice into a device flag;
       * ("sm_move", is_split): splitmerge._move, the split or the merge;
       * ("rest", do_dpa, do_err): ``_make_finish``'s alpha resample, cluster
         statistics, parameter and error-rate MH and the trace row, written
         into a [rows_cap, ...] device buffer at a device step index.
 
-    The chain's state, the sweep's buffers (models/gibbs.py::SegmentWork),
-    the split flag, the move's counts and the row buffers are static
-    tensors made at the first run and read and written in place by every
-    graph. A block copies the state in and its generator state into the
-    block's own generator (the one every graph registers), runs its steps,
-    copies the rows to the host (once a block, or each time rows_cap rows
-    are full), and hands back a copy of the state and the generator state.
-    Each step gives bit for bit what ``_chain_block`` over the eager step
-    gives on the same draws. `graph_cls` makes the graphs (graphs.Pieces);
-    a capture fault raises."""
+    The chain's state, the sweep's buffers (models/gibbs.py::SegmentWork or
+    BlockedWork), the split flag, the move's counts and the row buffers are
+    static tensors made at the first run and read and written in place by
+    every graph. A block copies the state in and its generator state into
+    the block's own generator (the one every graph registers), runs its
+    steps, copies the rows to the host (once a block, or each time rows_cap
+    rows are full), and hands back a copy of the state and the generator
+    state. Each step gives bit for bit what ``_chain_block`` over the eager
+    step gives on the same draws. `graph_cls` makes the graphs
+    (graphs.Pieces); a capture fault raises."""
 
     def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                  data: PackedData, trace_k: int, impl: str, device,
                  rows_cap: int, graph_cls=graphs.CudaGraph):
-        if impl not in ("lazy", "stream"):
-            raise ValueError(f"the captured block runs 'lazy' or 'stream', "
-                             f"not {impl!r}")
+        if impl not in CAPTURED_IMPLS:
+            raise ValueError(f"the captured block runs one of "
+                             f"{CAPTURED_IMPLS}, not {impl!r}")
         self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
-        self.trace_k, self.stream = trace_k, impl == "stream"
+        self.trace_k, self.impl = trace_k, impl
+        self.stream = impl == "stream"
         self.device = torch.device(device)
         self.rows_cap = max(1, int(rows_cap))
         self.graph_cls = graph_cls
         self._select = _make_select(mcmc_cfg)
         self._finish = _make_finish(cfg, mcmc_cfg, data, trace_k)
+        self._gibbs = {"lazy": self._sweep, "stream": self._sweep,
+                       "blocked": self._blocked, "eager": self._eager}[impl]
         self.pieces: graphs.Pieces | None = None
 
     def _setup(self, state: CRPState) -> None:
         """The block's generator, its graphs and the static buffers, shaped
         after `state`."""
         dev = self.device
+        if self.impl == "eager":
+            _check_eager_fits(self.cfg, dev)
         self.draws = TorchDraws(0, dev)
         self.pieces = graphs.Pieces(self.draws.gen, self.graph_cls)
         self.state = CRPState(*(torch.empty_like(f, device=dev)
                                 for f in state))
-        self.work = segment_work(self.state, self.cfg, self.stream)
+        self.work = _sweep_work(self.impl, self.state, self.cfg,
+                                self.mcmc_cfg)
         self.split = torch.zeros((), dtype=torch.bool, device=dev)
         self.sm_counts = torch.zeros((2, 2), dtype=torch.int32, device=dev)
         self.t = torch.zeros((1,), dtype=torch.long, device=dev)
@@ -462,12 +527,18 @@ class _CapturedBlock:
             torch.zeros((self.rows_cap,) + tuple(f.shape), dtype=f.dtype,
                         device=dev) for f in row))
 
+    def statics(self) -> list[torch.Tensor]:
+        """Every static tensor the pieces read and write."""
+        return [*self.state, *self.work, self.split, self.sm_counts, self.t,
+                *self.rows]
+
     def run(self, state: CRPState, draws: Draws, n_steps: int,
             keep: int | None = None):
         """What ``_chain_block`` returns for the eager step: (state, rows,
         next_draws), `draws` a TorchDraws on the block's device (its
         generator's state moves on as the steps draw)."""
-        if type(draws) is not TorchDraws or draws.gen.device != self.device:
+        if type(draws) is not TorchDraws or not _same_device(
+                draws.gen.device, self.device):
             raise ValueError(f"the captured block draws from a TorchDraws "
                              f"on {self.device}, not {draws!r}")
         if self.pieces is None:
@@ -506,7 +577,7 @@ class _CapturedBlock:
             if mc.sm_prob > 0.0 and do_sm:
                 self._split_merge(k_assign)
             else:
-                self._sweep(k_assign)
+                self._gibbs(k_assign)
         rest = ("rest", not mc.fix_assign and mc.dpa_prob > 0.0 and do_dpa,
                 self.cfg.learn_errors and mc.error_prob > 0.0 and do_err)
         self.pieces.run(rest, lambda: self._rest(flags, k_dpa, k_par, k_err))
@@ -523,11 +594,42 @@ class _CapturedBlock:
                 data, cfg, stream=self.stream, relaunch=relaunch))
 
         segment_rounds(ws, cfg.n_cells, births)
-        self.pieces.run(("sweep_tail",), self._sweep_tail)
+        self.pieces.run(("sweep_tail",), functools.partial(
+            self._tail, segment_finish))
 
-    def _sweep_tail(self) -> None:
-        _write(self.state, segment_finish(self.work, self.state))
+    def _blocked(self, k_assign: Draws) -> None:
+        ws, st, data, cfg = self.work, self.state, self.data, self.cfg
+        k_perm, k_gumbel, k_beta = _split_sweep_keys(k_assign)
+
+        def head():
+            blocked_start(ws, k_perm, k_gumbel, st, data, cfg)
+            blocked_pass(ws)
+
+        self.pieces.run(("blocked_head",), head)
+        fp, fn = st.fp.reshape(-1), st.fn.reshape(-1)
+        blocked_rounds(
+            ws, [r[0] for r in ws.read.tolist()],  # one host read a pass
+            lambda: self.pieces.run(("blocked_cell",),
+                                    functools.partial(blocked_cell, ws)),
+            lambda born: self.pieces.run(
+                ("blocked_birth",), functools.partial(
+                    blocked_births, ws, born, [k_beta], fp, fn, data, cfg)),
+            lambda g_lo: self.pieces.run(
+                ("blocked_pass",), functools.partial(blocked_pass, ws)))
+        self.pieces.run(("blocked_tail",), functools.partial(
+            self._tail, blocked_finish))
+
+    def _tail(self, finish) -> None:
+        _write(self.state, finish(self.work, self.state))
         self.sm_counts.zero_()
+
+    def _eager(self, k_assign: Draws) -> None:
+        def sweep():
+            _write(self.state, _eager_impl(k_assign, self.state, self.data,
+                                           self.cfg))
+            self.sm_counts.zero_()
+
+        self.pieces.run(("eager_sweep",), sweep)
 
     def _split_merge(self, k_assign: Draws) -> None:
         mc = self.mcmc_cfg
@@ -552,6 +654,32 @@ class _CapturedBlock:
         for buf, x in zip(self.rows, row):
             buf.index_copy_(0, self.t, x[None])
         self.t.add_(1)
+
+
+def make_block_fn(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
+                  trace_k: int, ax: MutAxis = _NO_AXIS,
+                  gibbs_impl: str = "auto"):
+    """A block of make_step_fn's steps (bnpc_tpu make_block_fn, a
+    ``lax.scan`` of the step): block(state, draws, n_steps, keep=None) ->
+    (state, rows, next_draws), ``_chain_block``'s signature (rows: host
+    arrays with a leading step axis, one a TraceRow field).
+
+    With `data` on a CUDA device and an unsharded `ax` it is the captured
+    block (``_CapturedBlock.run``: each step's device-only pieces replayed
+    as CUDA graphs between the step's host reads, `draws` a TorchDraws on
+    that device, rows reaching the host every 256 steps) for the
+    sweeps ``lazy``, ``stream``, ``eager`` and the blocked one
+    (``mcmc_cfg.gibbs_block`` > 0). ``scan`` (a host read a cell) and a
+    sharded `ax` (its all-reduces go through gloo on the host, which no
+    graph holds) run ``_chain_block`` over the eager step on every device,
+    by design, until their captured forms come; so does the CPU."""
+    step = make_step_fn(cfg, mcmc_cfg, data, trace_k, ax, gibbs_impl)
+    device = data.xm.device
+    impl = _sweep_impl(cfg, mcmc_cfg, gibbs_impl, device.type == "cuda")
+    if device.type != "cuda" or ax.sharded or impl not in CAPTURED_IMPLS:
+        return functools.partial(_chain_block, step)
+    return _CapturedBlock(cfg, mcmc_cfg, data, trace_k, impl, device,
+                          256).run
 
 
 def _batch_block(step, states: list[CRPState], draws: list[Draws],
@@ -583,10 +711,12 @@ class _CapturedBatch:
     graphs between the step's host reads (graphs.py; the counterpart of
     bnpc_tpu's compiled batch: ``_pipe_vmap``, jax.vmap of
     ``make_block_fn``'s scan, and ``_pipe_coupled``, a scan of
-    ``make_coupled_step_fn``). For the Gibbs impls ``lazy`` and ``stream``.
+    ``make_coupled_step_fn``). For the Gibbs impls ``lazy``, ``stream`` and
+    ``blocked`` (uncoupled: the coupled step runs the exact sweep, as
+    bnpc_tpu's does).
 
     A step makes the eager batched step's host reads (``_batch_block``
-    over ``_make_step_body`` or ``_make_coupled_step``) and no more: the
+    over ``make_step_fn`` or ``make_coupled_step_fn``) and no more: the
     move uniforms (select, eager: one draw a chain, or chain 0's draw of a
     coupled step), the split flags of the split-merge chains together with
     the sweep's first round, and each later round's info. A move that only
@@ -605,6 +735,12 @@ class _CapturedBatch:
       * ("birth", nb): segment_births on the round's nb born chains;
         ("launch", kg): the relaunch of the kg-chain sweep;
         ("tail", kg): segment_finish into the state;
+      * blocked: the head runs blocked_start and the first frozen pass on
+        the kg chains; then ("bcell", kg): blocked_cell, one cell of every
+        replaying chain's birth block; ("bbirth", nb): blocked_births on
+        the cell's nb born chains; ("bpass", kg): the next frozen pass, from
+        block 0 (each chain starts at its own g0 on the device);
+        ("btail", kg): blocked_finish into the state;
       * ("alpha", ka): the alpha resample of the ka chains that take it;
       * ("params",): the cluster statistics and the parameter MH;
       * ("errors", ke): the error-rate MH of ke chains (none: ke = 0) and
@@ -618,21 +754,22 @@ class _CapturedBatch:
     generator before the piece runs and gives it back after (host values,
     no sync). Everything that crosses pieces lives in static tensors made
     at the first run (per chain count): the batched state, one
-    SegmentWork of C rows (a sweep of k chains works on its first k rows,
-    contiguous prefixes), the move uniforms, the index buffers, the
-    statistics, counts and row buffers. Each step gives bit for bit what
-    ``_batch_block`` over the eager batched step gives on the same draws.
-    `graph_cls` makes the graphs (graphs.Pieces); a capture fault
-    raises."""
+    SegmentWork or BlockedWork of C rows (a sweep of k chains works on its
+    first k rows, contiguous prefixes), the move uniforms, the index
+    buffers, the statistics, counts and row buffers. Each step gives bit
+    for bit what ``_batch_block`` over the eager batched step gives on the
+    same draws. `graph_cls` makes the graphs (graphs.Pieces); a capture
+    fault raises."""
 
     def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                  data: PackedData, trace_k: int, impl: str, device,
                  rows_cap: int, graph_cls=graphs.CudaGraph):
-        if impl not in ("lazy", "stream"):
-            raise ValueError(f"the captured batch runs 'lazy' or 'stream', "
-                             f"not {impl!r}")
+        if impl not in ("lazy", "stream", "blocked"):
+            raise ValueError(f"the captured batch runs 'lazy', 'stream' or "
+                             f"'blocked', not {impl!r}")
         self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
-        self.trace_k, self.stream = trace_k, impl == "stream"
+        self.trace_k, self.impl = trace_k, impl
+        self.stream = impl == "stream"
         self.device = torch.device(device)
         self.rows_cap = max(1, int(rows_cap))
         self.graph_cls = graph_cls
@@ -648,7 +785,8 @@ class _CapturedBatch:
         self.slots = [TorchDraws(0, dev) for _ in range(c)]
         self.pieces = graphs.Pieces(None, self.graph_cls)
         self.state = CRPState(*(torch.empty_like(f) for f in batch))
-        self.work = segment_work(self.state, self.cfg, self.stream)
+        self.work = _sweep_work(self.impl, self.state, self.cfg,
+                                self.mcmc_cfg)
 
         def zeros(*shape, dtype=torch.long):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -660,7 +798,8 @@ class _CapturedBatch:
         self.gidx, self.split_idx, self.merge_idx = (zeros(c), zeros(c),
                                                      zeros(c))
         self.gfp, self.gfn = zeros(c, dtype=f32), zeros(c, dtype=f32)
-        # The head's host read: split flags, then the sweep's read rows.
+        # The head's host read: split flags, then the sweep's read rows
+        # (blocked: [first birth block, -] a chain).
         self.hread = zeros(6 * c, dtype=i32)
         self.sm_counts = zeros(c, 2, 2, dtype=i32)
         self.par_counts = zeros(c, 2, dtype=i32)
@@ -689,9 +828,13 @@ class _CapturedBatch:
         one TorchDraws a chain on the block's device (each generator's
         state moves on as its chain draws)."""
         for d in draws:
-            if type(d) is not TorchDraws or d.gen.device != self.device:
+            if type(d) is not TorchDraws or not _same_device(d.gen.device,
+                                                            self.device):
                 raise ValueError(f"the captured batch draws from TorchDraws "
                                  f"on {self.device}, not {d!r}")
+        if coupled and self.impl == "blocked":
+            raise ValueError("the coupled step runs the exact sweep, not "
+                             "the blocked one")
         batch = stack_states(states)
         if self.pieces is None or self.n_chains != len(states):
             self._setup(batch)
@@ -762,17 +905,21 @@ class _CapturedBatch:
         self._run(("errors", len(errs)), draws, errs,
                   functools.partial(self._errors, len(errs)))
 
-    def _ws(self, k: int) -> SegmentWork:
+    def _ws(self, k: int):
         """The first `k` rows of the sweep's buffers."""
+        if self.impl == "blocked":
+            return blocked_rows(self.work, k)
         return SegmentWork(*(f[:k] for f in self.work))
 
     def _assign(self, draws, sm: list[int], gibbs: list[int]) -> None:
         """The assignment move: split-merge on the chains `sm`, the sweep
         on the chains `gibbs`."""
         ks, kg, n = len(sm), len(gibbs), self.cfg.n_cells
+        blocked = self.impl == "blocked"
         self._run(("head", ks), draws, sm + gibbs,
                   functools.partial(self._head, ks))
-        read = self.hread[:ks + 5 * kg].tolist()  # split flags, first round
+        # Split flags, then the sweep's first round or pass.
+        read = self.hread[:ks + (2 if blocked else 5) * kg].tolist()
         if ks:
             split = [i for i, f in zip(sm, read[:ks]) if f]
             merge = [i for i, f in zip(sm, read[:ks]) if not f]
@@ -784,6 +931,9 @@ class _CapturedBatch:
                           functools.partial(self._sm_move, False,
                                             len(merge)))
         if not kg:
+            return
+        if blocked:
+            self._blocked(draws, gibbs, read[ks::2])
             return
         rows = [read[ks + 5 * r:ks + 5 * r + 5] for r in range(kg)]
         while True:
@@ -803,7 +953,26 @@ class _CapturedBatch:
                 break
             rows = self.work.read[:kg].tolist()  # one host read a round
         self._run(("tail", kg), draws, [],
-                  functools.partial(self._tail, kg))
+                  functools.partial(self._tail, segment_finish, kg))
+
+    def _blocked(self, draws, gibbs: list[int], first: list[int]) -> None:
+        """The blocked sweep's rounds on the chains `gibbs` after the head's
+        first pass; `first` holds each one's first birth block."""
+        kg = len(gibbs)
+        ws = self._ws(kg)
+        blocked_rounds(
+            ws, first,
+            lambda: self._run(("bcell", kg), draws, [],
+                              functools.partial(blocked_cell, ws)),
+            lambda births: self._run(
+                ("bbirth", len(births)), draws,
+                [gibbs[r] for r, _ in births], functools.partial(
+                    blocked_births, self.work, births, self.slots, self.gfp,
+                    self.gfn, self.data, self.cfg)),
+            lambda g_lo: self._run(("bpass", kg), draws, [],
+                                   functools.partial(blocked_pass, ws)))
+        self._run(("btail", kg), draws, [],
+                  functools.partial(self._tail, blocked_finish, kg))
 
     def _head(self, ks: int) -> None:
         c, cfg, st = self.n_chains, self.cfg, self.state
@@ -827,11 +996,17 @@ class _CapturedBatch:
             k_perm, k_gumbel, _ = _split_sweep_keys(
                 StackedDraws(self.slots[ks:]), ax)
             ws = self._ws(kg)
-            segment_start(ws, k_perm, k_gumbel, sub, self.data, cfg, ax,
-                          stream=self.stream)
-            # Rows past the sweep's hold no birth for segment_births.
-            self.work.read[kg:, 1].fill_(-1)
-            self.hread[ks:ks + 5 * kg].copy_(ws.read.reshape(-1))
+            if self.impl == "blocked":
+                blocked_start(ws, k_perm, k_gumbel, sub, self.data, cfg, ax)
+                blocked_pass(ws)
+                # Rows past the sweep's hold no birth for blocked_births.
+                self.work.read[kg:, 0].fill_(0)
+            else:
+                segment_start(ws, k_perm, k_gumbel, sub, self.data, cfg, ax,
+                              stream=self.stream)
+                # Rows past the sweep's hold no birth for segment_births.
+                self.work.read[kg:, 1].fill_(-1)
+            self.hread[ks:ks + ws.read.numel()].copy_(ws.read.reshape(-1))
 
     def _put(self, idx: torch.Tensor, sub: CRPState) -> None:
         for f, g in zip(self.state, sub):
@@ -846,10 +1021,11 @@ class _CapturedBatch:
         self._put(idx, sub)
         self.sm_counts.index_copy_(0, idx, counts)
 
-    def _tail(self, kg: int) -> None:
+    def _tail(self, finish, kg: int) -> None:
+        """`finish` (segment_finish or blocked_finish) on the sweep's first
+        kg rows, into the sweep's chains."""
         idx = self.gidx[:kg]
-        self._put(idx, segment_finish(self._ws(kg),
-                                      take_states(self.state, idx)))
+        self._put(idx, finish(self._ws(kg), take_states(self.state, idx)))
 
     def _alpha(self, k: int) -> None:
         idx = self._first(self._flag(1))[:k]
@@ -995,8 +1171,15 @@ AUTO_CUDA_COUPLED_CHAIN_EXEC = "vmap"
 # Rules that apply beside those: a blocked sweep (gibbs_block > 0) and a
 # rank's local chains under a mesh, "vmap" only where the batch reached
 # the sequential chain-steps/s in every call (NVIDIA H100 80GB HBM3, 700
-# W, three calls; PERF.md §6). Blocked (phase 12 (f)): main cell 4
-# chains 1.270-1.966 x, large-n 2 chains 1.112-1.467 x, so "vmap". Mesh
+# W; PERF.md §6). Blocked (phase 12 (f)), with both forms eager: main
+# cell 4 chains 1.270-1.966 x, large-n 2 chains 1.112-1.467 x (three
+# calls), so "vmap"; it composes with the exact rule, so blocked runs go
+# "sequential" under "auto". With both forms captured (the captured batch
+# against captured sequential chains, a fresh runner a run, vmap /
+# sequential / sequential / vmap): main 4 chains 1.002 and 1.123 x,
+# large-n 2 chains 0.855 and 0.806 x (NVIDIA H100 80GB HBM3, 700.00 W,
+# two calls; PERF.md §6), not ahead in every call, so the exact rule
+# keeps its place. Mesh
 # (phase 11 (e), two ranks sharing the card): 1 x 2 with 2 chains
 # 1.093-1.212 x, but 2 x 1 with 2 chains a rank 0.557, 1.125 and 0.990 x,
 # so "sequential".
@@ -1037,7 +1220,7 @@ class MCMCRunner:
         device (the form bnpc_tpu takes on one device whenever its kernels
         run);
       * "vmap": every chain of the run steps at once as one batch with a
-        leading chain axis (``_make_step_body``), the sampler kernels on
+        leading chain axis (``make_step_fn``), the sampler kernels on
         a grid of one block a chain. This is the port's own chain-axis
         step, not ``torch.func.vmap``; unlike bnpc_tpu's vmapped scan it
         keeps the kernels. Chain c gets exactly what its sequential run
@@ -1047,10 +1230,10 @@ class MCMCRunner:
       * "auto": see ``resolve_chain_exec`` (PERF.md §6 has the
         measurements behind its rules); "sequential" on the CPU.
 
-    One chain always runs the one-chain step; on the card, and without
-    ``gibbs_block``, a chain that runs alone takes the captured block
-    (``_CapturedBlock``, ``run_block``), and a batch the captured batch
-    (``_CapturedBatch``; not under a mesh). With
+    One chain always runs the one-chain step; on the card a chain that
+    runs alone takes the captured block (``_CapturedBlock``,
+    ``run_block``), and a batch the captured batch (``_CapturedBatch``),
+    the blocked sweep's too; not under a mesh. With
     ``mcmc_cfg.coupled_moves`` and more than one chain the chains step in
     lockstep with one shared move selection a step, batched under "vmap"
     (bnpc_tpu's coupled pipe) and one after another within each step under
@@ -1107,21 +1290,27 @@ class MCMCRunner:
         # The step's config, data and axis: this rank's columns of the
         # padded matrix under mutation sharding, else the whole matrix.
         self._step_cfg, self._step_data = cfg, data
-        # One chain's block: on the card the captured block (the exact
-        # Gibbs sweep resolves to "lazy" or "stream" there), else
-        # _chain_block over the eager step.
+        # One chain's block: on the card the captured block (the Gibbs
+        # move is the blocked sweep with gibbs_block > 0, else the exact
+        # one, "lazy" or "stream" there), else _chain_block over the eager
+        # step. A batch: the captured batch; coupled chains run the exact
+        # sweep (make_coupled_step_fn does not route gibbs_block).
         self._captured = self._captured_batch = None
+        self._captured_coupled = None
         if mesh is None:
-            self._step = _make_step_body(cfg, mcmc_cfg, data, self.trace_k)
+            self._step = make_step_fn(cfg, mcmc_cfg, data, self.trace_k)
             self._one_block = functools.partial(_chain_block, self._step)
-            if self.device.type == "cuda" and mcmc_cfg.gibbs_block == 0:
-                impl = resolve_impl("auto", cfg, on_cuda=True)
-                self._captured = _CapturedBlock(
-                    cfg, mcmc_cfg, data, self.trace_k, impl, self.device,
-                    block_size)
-                self._captured_batch = _CapturedBatch(
-                    cfg, mcmc_cfg, data, self.trace_k, impl, self.device,
-                    block_size)
+            if self.device.type == "cuda":
+                impl = _sweep_impl(cfg, mcmc_cfg, "auto", on_cuda=True)
+                exact = resolve_impl("auto", cfg, on_cuda=True)
+                args = (cfg, mcmc_cfg, data, self.trace_k)
+                self._captured = _CapturedBlock(*args, impl, self.device,
+                                                block_size)
+                self._captured_batch = _CapturedBatch(*args, impl,
+                                                      self.device, block_size)
+                self._captured_coupled = (
+                    self._captured_batch if impl == exact else
+                    _CapturedBatch(*args, exact, self.device, block_size))
                 self._one_block = self._captured.run
             self._block = _make_block(
                 self._step, self.chain_exec, self._one_block,
@@ -1136,7 +1325,7 @@ class MCMCRunner:
             self._step, self.ax = self._block.step, self._block.ax
             self._step_cfg = self._block.cfg
             self._step_data = self._block.data
-        self._coupled_step = _make_coupled_step(cfg, mcmc_cfg, data,
+        self._coupled_step = make_coupled_step_fn(cfg, mcmc_cfg, data,
                                                 self.trace_k)
         # The seed of each chain of the last run() (args.txt's chain_seeds).
         self.seeds: np.ndarray | None = None
@@ -1185,9 +1374,9 @@ class MCMCRunner:
                 or self.ax.sharded:
             return self._block(states, draws, n_steps, keep)
         if self.chain_exec == "vmap":
-            if self._captured_batch is not None:
-                return self._captured_batch.run(states, draws, n_steps, keep,
-                                                coupled=True)
+            if self._captured_coupled is not None:
+                return self._captured_coupled.run(states, draws, n_steps,
+                                                  keep, coupled=True)
             return _batch_block(self._coupled_step, states, draws, n_steps,
                                 keep, coupled=True)
         # Chain 0's key stream drives the shared move choice (bnpc_tpu

@@ -36,7 +36,11 @@ The ``lazy`` and ``stream`` loop is written as pieces that make no host
 read (``segment_start``, ``segment_births``, ``segment_finish``, over the
 device buffers of a ``SegmentWork``) between the loop's reads of each
 round's info (``segment_rounds``). ``gibbs_sweep`` runs them in order;
-mcmc.py's captured block runs the same pieces as CUDA graphs.
+mcmc.py's captured block runs the same pieces as CUDA graphs. So is the
+``blocked`` sweep (``blocked_start``, ``blocked_pass``, ``blocked_cell``,
+``blocked_births``, ``blocked_finish`` over a ``BlockedWork``, between
+``blocked_rounds``' reads: one a frozen pass, one a replayed cell), and
+the ``eager`` sweep is one such piece (``_eager_impl``).
 
 A batch of chains (a state with a leading chain axis, StackedDraws, ``ax``
 a ChainAxis; mcmc.py's chain_exec="vmap") runs ``lazy`` and ``stream`` as
@@ -61,7 +65,6 @@ unsharded-only, as in bnpc_tpu (gibbs.py:160-164).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -170,19 +173,18 @@ def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
     if impl in ("lazy", "stream"):
         return _segment_impl(draws, state, data, cfg, ax,
                              stream=impl == "stream")
-    run = {"eager": _eager_impl,
-           "scan": _scan_chains if batched else _scan_impl,
-           "blocked": functools.partial(_blocked_impl,
-                                        block=block or 128)}.get(impl)
-    if run is None:
-        raise ValueError(f"unknown Gibbs impl {impl!r}")
+    if impl == "blocked":
+        return _blocked_impl(draws, state, data, cfg, ax, block=block or 128)
     if impl == "eager":
         _check_eager_fits(cfg, state.assignment.device)
+        return _eager_impl(draws, state, data, cfg)
+    if impl != "scan":
+        raise ValueError(f"unknown Gibbs impl {impl!r}")
     k_perm, k_gumbel, k_beta = _split_sweep_keys(draws, ax)
     perm, gumbel, z, aux, log_denom = _sweep_inputs(k_perm, k_gumbel, state,
                                                     data, cfg, ax)
-    return run(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-               ax=ax)
+    return (_scan_chains if batched else _scan_impl)(
+        state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom, ax=ax)
 
 
 def _sweep_inputs(k_perm: Draws, k_gumbel: Draws, state: CRPState,
@@ -441,12 +443,16 @@ def _scan_chains(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
         for c, st in enumerate(unstack_states(state))])
 
 
-def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-                ax=_NO_AXIS):
-    """The whole-sweep kernel (bnpc_tpu _pallas_impl): every newborn row
-    drawn up front, the [n, n] likelihood of every cell under every newborn
-    row as one product (left to torch.matmul, as bnpc_tpu leaves it to
-    XLA), and one launch that patches births in-kernel."""
+def _eager_impl(draws, state, data, cfg):
+    """The whole-sweep kernel (bnpc_tpu _pallas_impl), one chain, no mesh:
+    the sweep's draws and Z, every newborn row drawn up front, the [n, n]
+    likelihood of every cell under every newborn row as one product (left
+    to torch.matmul, as bnpc_tpu leaves it to XLA), and one launch that
+    patches births in-kernel. No host read: mcmc.py's captured block runs
+    it as one graph (the caller checks ``_check_eager_fits`` beforehand)."""
+    k_perm, k_gumbel, k_beta = _split_sweep_keys(draws)
+    perm, gumbel, z, aux, log_denom = _sweep_inputs(k_perm, k_gumbel, state,
+                                                    data, cfg)
     k_max = cfg.k_max
     k_pad = stream_k_pad(k_max)
     fresh = k_beta.fresh_rows(cfg.p, cfg.q, data.xm, data.xm0)
@@ -464,8 +470,250 @@ def _eager_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
                           cluster_size=sizes[:k_max].to(torch.int32))
 
 
-def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
-                  block, ax=_NO_AXIS):
+class BlockedWork(NamedTuple):
+    """The device buffers of a ``blocked`` sweep of C chains (one chain:
+    C = 1), G blocks of B cells in visit order, written in place by
+    ``blocked_start``, ``blocked_pass``, ``blocked_cell`` and
+    ``blocked_births`` and read by ``blocked_finish``. The captured block
+    and batch (mcmc.py) keep one for the whole run, so their graphs read
+    and write the same memory at every replay."""
+
+    z3: torch.Tensor      # [C, G * B, k_max] f32 Z in visit order, padded
+    aux3: torch.Tensor    # [C, G * B] f32 (padded positions -inf)
+    old3: torch.Tensor    # [C, G * B] i64 pre-sweep assignment
+    tgt3: torch.Tensor    # [C, G * B] i64 target by visit position
+    order: torch.Tensor   # [C, n] i64 visit order
+    gumbel: torch.Tensor  # [C, n, k_max + 1] f32
+    sizes: torch.Tensor   # [C, k_max] cluster sizes (the state's dtype)
+    params: torch.Tensor  # [C, k_max, m] f32, births patched in
+    ld: torch.Tensor      # [C, 1] f32 log_denom
+    first: torch.Tensor   # [C] i64 birth block of the last pass (G: none)
+    free: torch.Tensor    # [C] i64 the replayed cell's free slot
+    cell: torch.Tensor    # [C] i64 the replayed cell
+    read: torch.Tensor    # [C, 2] i64 the host read: (first, -) after a
+    #                       pass, (born, cell) after a replayed cell
+    j: torch.Tensor       # [1] i64 the next replayed position in a block
+    act3: torch.Tensor    # [G, B] bool visit positions below n
+
+
+def blocked_work(state: CRPState, cfg: ModelConfig,
+                 block: int) -> BlockedWork:
+    """Empty buffers for a blocked sweep of `state` (one chain or a batch)
+    in blocks of `block` cells."""
+    c = state.assignment.shape[0] if state.assignment.dim() == 2 else 1
+    n, k_max, m = cfg.n_cells, cfg.k_max, state.params.shape[-1]
+    B = max(1, int(block))
+    G = -(-n // B)
+    dev = state.assignment.device
+
+    def empty(*shape, dtype=torch.long):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    return BlockedWork(
+        z3=empty(c, G * B, k_max, dtype=f32), aux3=empty(c, G * B, dtype=f32),
+        old3=empty(c, G * B), tgt3=empty(c, G * B), order=empty(c, n),
+        gumbel=empty(c, n, k_max + 1, dtype=f32),
+        sizes=empty(c, k_max, dtype=state.cluster_size.dtype),
+        params=empty(c, k_max, m, dtype=state.params.dtype),
+        ld=empty(c, 1, dtype=f32), first=empty(c), free=empty(c),
+        cell=empty(c), read=empty(c, 2), j=empty(1),
+        act3=(torch.arange(G * B, device=dev) < n).view(G, B))
+
+
+def blocked_rows(ws: BlockedWork, k: int) -> BlockedWork:
+    """The first `k` chains' rows of `ws` (contiguous prefixes)."""
+    return BlockedWork(*(f if name in ("j", "act3") else f[:k]
+                         for name, f in zip(BlockedWork._fields, ws)))
+
+
+def blocked_start(ws: BlockedWork, k_perm: Draws, k_gumbel: Draws,
+                  state: CRPState, data: PackedData, cfg: ModelConfig,
+                  ax: MutAxis = _NO_AXIS) -> None:
+    """A blocked sweep's head: its draws and Z (``_sweep_inputs``) and the
+    visit-order staging into `ws`, one gather a sweep; padded positions
+    are inactive (aux -inf, assignment 0, never applied). Every chain then
+    starts its first pass at block 0. No host read."""
+    perm, gumbel, z, aux, log_denom = _sweep_inputs(k_perm, k_gumbel, state,
+                                                    data, cfg, ax)
+    if state.assignment.dim() == 1:
+        state = CRPState(*(f[None] for f in state))
+        perm, gumbel, z, aux, log_denom = (
+            x[None] for x in (perm, gumbel, z, aux, log_denom))
+    pad = ws.z3.shape[1] - cfg.n_cells
+    order = perm.long()
+    ws.z3.copy_(torch.nn.functional.pad(
+        torch.take_along_dim(z, order[..., None], dim=1), (0, 0, 0, pad)))
+    ws.aux3.copy_(torch.nn.functional.pad(torch.gather(aux, 1, order),
+                                          (0, pad), value=NEG_INF))
+    ws.old3.copy_(torch.nn.functional.pad(
+        torch.gather(state.assignment, 1, order).long(), (0, pad)))
+    ws.tgt3.copy_(ws.old3)
+    ws.order.copy_(order)
+    ws.gumbel.copy_(gumbel)
+    ws.sizes.copy_(state.cluster_size)
+    ws.params.copy_(state.params)
+    ws.ld.copy_(log_denom.to(torch.float32)[:, None])
+    ws.first.fill_(-1)
+
+
+def blocked_pass(ws: BlockedWork, g_lo: int = 0) -> None:
+    """One frozen pass: each chain c applies its blocks g0[c], g0[c] + 1,
+    ... up to (not including) its first one whose frozen pass holds a
+    birth, every block as [C, B, k] tensor work, and writes that block
+    (G when none) into ws.first and ws.read. g0[c] is the block after
+    chain c's last birth block (0 at the sweep's start), on the device; a
+    chain whose sweep has ended (g0 = G) stays as it is. The blocks below
+    g_lo (the host's lowest g0) change nothing, so any g_lo up to it gives
+    the same bits. No host read."""
+    c_all = ws.first.shape[0]
+    G, B = ws.act3.shape
+    k_max = ws.sizes.shape[1]
+    dev = ws.first.device
+    g0 = torch.where(ws.first < G, ws.first + 1, G)
+    iota_k = torch.arange(k_max, device=dev)
+    z4, aux4, old4, tgt4 = (x.view((c_all, G, B) + x.shape[2:])
+                            for x in (ws.z3, ws.aux3, ws.old3, ws.tgt3))
+    sizes = ws.sizes
+    stopped = torch.zeros((c_all,), dtype=torch.bool, device=dev)
+    first = torch.full((c_all,), G, dtype=torch.long, device=dev)
+    for g in range(g_lo, G):
+        on = g0 <= g
+        oldb = old4[:, g]
+        actb = ws.act3[g] & on[:, None]
+        oh_old = ((oldb[..., None] == iota_k) & actb[..., None]).to(
+            sizes.dtype)
+        sizes_excl = sizes[:, None] - oh_old
+        live = sizes_excl > 0
+        prior = torch.log(torch.clamp(sizes_excl, min=1).to(
+            torch.float32)) - ws.ld[..., None]
+        post_old = torch.where(live, z4[:, g] + prior, NEG_INF)
+        best, choice = torch.max(post_old, dim=-1)
+        has_free = (~live).any(dim=-1)
+        birth = ((aux4[:, g] > best) & actb & has_free).any(dim=-1)
+        apply = on & ~(stopped | birth)
+        tgt = torch.where(actb, choice, oldb)
+        oh_new = ((tgt[..., None] == iota_k) & actb[..., None]).to(
+            sizes.dtype)
+        # Exact integer counts: batched, in any order.
+        d = oh_new.sum(1, dtype=sizes.dtype) \
+            - oh_old.sum(1, dtype=sizes.dtype)
+        sizes = torch.where(apply[:, None], sizes + d, sizes)
+        tgt4[:, g] = torch.where(apply[:, None], tgt, tgt4[:, g])
+        first = torch.where(birth & ~stopped, g, first)
+        stopped = stopped | birth
+    ws.sizes.copy_(sizes)
+    ws.first.copy_(first)
+    ws.read[:, 0].copy_(first)
+    ws.j.zero_()
+
+
+def blocked_cell(ws: BlockedWork) -> None:
+    """One cell of the exact sequential replay (``_scan_impl``'s body) of
+    block first[c] of each chain c that has one, at position ws.j of the
+    block (a device counter, moved on by one): the cell leaves its
+    cluster, decides, and joins its target (a newborn's free slot). The
+    newborn's row and Z column are ``blocked_births``', which needs only
+    the slot, so it may come after. Writes (born, cell) of every chain
+    into ws.read. No host read."""
+    G, B = ws.act3.shape
+    n = ws.order.shape[1]
+    sizes = ws.sizes
+    rep = ws.first < G
+    pos = (torch.clamp(ws.first, max=G - 1) * B + ws.j)[:, None]
+    on = (rep & (pos[:, 0] < n))[:, None].to(sizes.dtype)
+    sizes.scatter_add_(1, torch.gather(ws.old3, 1, pos), -on)
+    live = sizes > 0
+    prior = torch.log(torch.clamp(sizes, min=1).to(torch.float32)) - ws.ld
+    zrow = torch.take_along_dim(ws.z3, pos[..., None], dim=1)[:, 0]
+    post_old = torch.where(live, zrow + prior, NEG_INF)
+    best, choice = torch.max(post_old, dim=-1)
+    # First max, as jnp.argmax over [post_old, post_new].
+    is_new = (~live).any(dim=-1) \
+        & (torch.gather(ws.aux3, 1, pos)[:, 0] > best)
+    free = torch.argmax((sizes == 0).to(torch.int32), dim=-1)
+    target = torch.where(is_new, free, choice)[:, None]
+    sizes.scatter_add_(1, target, on)
+    ws.tgt3.scatter_(1, pos, torch.where(on > 0, target,
+                                         torch.gather(ws.tgt3, 1, pos)))
+    ws.free.copy_(free)
+    ws.cell.copy_(torch.gather(ws.order, 1, pos.clamp(max=n - 1))[:, 0])
+    ws.read[:, 0].copy_(is_new & (on[:, 0] > 0))
+    ws.read[:, 1].copy_(ws.cell)
+    ws.j.add_(1)
+
+
+def blocked_births(ws: BlockedWork, births, k_betas, fp, fn,
+                   data: PackedData, cfg: ModelConfig,
+                   ax: MutAxis = _NO_AXIS) -> None:
+    """The births of one replayed cell: `births` [(chain, cell)] in chain
+    order (the cell's host read), the j-th newborn row drawn from
+    ``k_betas[j]`` into slot ws.free of its chain, and its Z column
+    patched in, in visit order, for every later cell. The born rows of
+    `ws` are taken on the device, the first len(births) rows whose read
+    holds a birth, and so are each one's slot and cell (the host cell only
+    keys ``fresh_row``'s draw): a captured birth depends on the number of
+    births only. `fp`, `fn` hold each row's error rates; `ax` is the
+    chains' mutation axis."""
+    n = ws.order.shape[1]
+    k_max, m = ws.params.shape[1:]
+    gb = ws.z3.shape[1]
+    rows = torch.argsort((ws.read[:, 0] == 0).to(torch.int8), stable=True)
+    cells = torch.arange(n, device=ws.z3.device)
+    for j, ((_, cell), k_beta) in enumerate(zip(births, k_betas)):
+        r = rows[j:j + 1]
+        slot = ws.free.index_select(0, r)
+        theta = fresh_row(k_beta, cell, data, cfg, ws.cell.index_select(0, r))
+        ws.params.view(-1, m).index_copy_(0, r * k_max + slot, theta[None])
+        f1, f0 = lk.log_prob_tables(theta, fp.index_select(0, r)[0],
+                                    fn.index_select(0, r)[0])
+        noise = torch.take(ws.gumbel, (r * n + cells) * (k_max + 1) + slot)
+        col = lk.ll_col(f1, f0, data.xm, data.xm0, ax) + noise
+        col = col[ws.order.index_select(0, r)[0]]
+        ws.z3.view(-1).index_copy_(0, (r * gb + cells) * k_max + slot, col)
+
+
+def blocked_rounds(ws: BlockedWork, first_h, cell_fn, births_fn,
+                   pass_fn) -> None:
+    """The blocked sweep's host loop after its first pass. `first_h` is
+    each chain's first birth block (that pass's host read); while some
+    chain has one, every such chain replays it in one loop over the
+    block's cells (cell_fn(); one host read of ws.read a cell;
+    births_fn(births) with births [(chain, cell)] in chain order when the
+    cell births in some chain), then pass_fn(g_lo) runs the next pass from
+    block g_lo (the lowest block any chain starts at), and one host read
+    of ws.read gives the next first blocks."""
+    G, B = ws.act3.shape
+    n = ws.order.shape[1]
+    while min(first_h) < G:
+        for j in range(B):
+            if not any(f < G and f * B + j < n for f in first_h):
+                break
+            cell_fn()
+            rows = ws.read.tolist()  # one host read a cell
+            births = [(c, r[1]) for c, r in enumerate(rows) if r[0]]
+            if births:
+                births_fn(births)
+        pass_fn(min(first_h) + 1)
+        first_h = [r[0] for r in ws.read.tolist()]  # one host read a pass
+
+
+def blocked_finish(ws: BlockedWork, state: CRPState) -> CRPState:
+    """The swept state: the targets put back in cell order, the sizes and
+    the patched params."""
+    n = ws.order.shape[1]
+    dtype = state.assignment.dtype
+    assignment = torch.empty(ws.order.shape, dtype=dtype,
+                             device=ws.order.device).scatter_(
+        1, ws.order, ws.tgt3[:, :n].to(dtype))
+    if state.assignment.dim() == 1:
+        return state._replace(assignment=assignment[0], params=ws.params[0],
+                              cluster_size=ws.sizes[0])
+    return state._replace(assignment=assignment, params=ws.params,
+                          cluster_size=ws.sizes)
+
+
+def _blocked_impl(draws, state, data, cfg, ax=_NO_AXIS, *, block: int):
     """Opt-in APPROXIMATE blocked sweep (bnpc_tpu _blocked_impl; no
     reference counterpart), for one chain or a batch of chains. Cells are
     visited in the permuted order in blocks of ``block``: every cell of a
@@ -475,139 +723,32 @@ def _blocked_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
     cell, as ``_scan_impl`` does, with its newborn Z columns patched in for
     every later block. block=1 is the exact sweep.
 
-    A frozen pass runs from a block to the end of the sweep as [C, block, k]
-    tensor work per block with no host read; only each chain's first birth
-    block comes back to the host, one [C] read a pass (bnpc_tpu's scan /
-    while_loop structure). Every chain then replays its birth block in one
-    loop over the block's cells, one host read a cell, each birth drawn
-    from its chain's own draws and patched in chain order; the next pass
-    starts each chain after its own replayed block. A chain whose sweep has
-    ended stays as it is while the others go on, so chain c gets its
-    one-chain sweep (bnpc_tpu's vmapped while_loop runs each chain to its
-    own end). One chain runs as a batch of one. The approximation and its
-    O(block / n) bias are bnpc_tpu's (tests/test_blocked.py); its veto
-    channel is not ported."""
+    A frozen pass (``blocked_pass``) runs from a block to the end of the
+    sweep as [C, block, k] tensor work per block with no host read; only
+    each chain's first birth block comes back to the host, one [C] read a
+    pass (bnpc_tpu's scan / while_loop structure). Every chain then
+    replays its birth block in one loop over the block's cells
+    (``blocked_cell``), one host read a cell, each birth drawn from its
+    chain's own draws and patched in chain order (``blocked_births``); the
+    next pass starts each chain after its own replayed block. A chain
+    whose sweep has ended stays as it is while the others go on, so chain
+    c gets its one-chain sweep (bnpc_tpu's vmapped while_loop runs each
+    chain to its own end). One chain runs as a batch of one. The pieces
+    are what mcmc.py's captured block and batch run as graphs. The
+    approximation and its O(block / n) bias are bnpc_tpu's
+    (tests/test_blocked.py); its veto channel is not ported."""
     one = state.assignment.dim() == 1
-    if one:
-        state = CRPState(*(f[None] for f in state))
-        perm, gumbel, z, aux, log_denom = (
-            x[None] for x in (perm, gumbel, z, aux, log_denom))
-        k_betas, mut = [k_beta], ax
-    else:
-        k_betas, mut = k_beta.chains, ax.mut
-    n, k_max = cfg.n_cells, cfg.k_max
-    c_all, dev = z.shape[0], z.device
-    B = max(1, int(block))
-    G = -(-n // B)
-    pad = G * B - n
-    order = perm.long()
-    # Visit-order staging, one gather a sweep; padded positions are
-    # inactive (aux -inf, assignment 0, never applied).
-    z3 = torch.nn.functional.pad(
-        torch.take_along_dim(z, order[..., None], dim=1), (0, 0, 0, pad))
-    aux3 = torch.nn.functional.pad(torch.gather(aux, 1, order), (0, pad),
-                                   value=NEG_INF)
-    old3 = torch.nn.functional.pad(
-        torch.gather(state.assignment, 1, order).long(), (0, pad))
-    act3 = (torch.arange(G * B, device=dev) < n).view(G, B)
-    iota_k = torch.arange(k_max, device=dev)
-    tgt3 = old3.clone()
-    sizes = state.cluster_size.clone()
-    params = state.params.clone()
-    ld = log_denom.to(torch.float32)[:, None]
-    z4, aux4, old4, tgt4 = (x.view((c_all, G, B) + x.shape[2:])
-                            for x in (z3, aux3, old3, tgt3))
-    perm_h = None
-
-    def frozen_pass(g0, g_lo, sizes):
-        """Apply each chain's blocks g0[c], g0[c] + 1, ... up to (not
-        including) its first one whose frozen pass holds a birth; return
-        the sizes and each chain's such block (G when none). A chain with
-        g0[c] = G stays as it is."""
-        stopped = torch.zeros((c_all,), dtype=torch.bool, device=dev)
-        first = torch.full((c_all,), G, dtype=torch.long, device=dev)
-        for g in range(g_lo, G):
-            on = g0 <= g
-            oldb = old4[:, g]
-            actb = act3[g] & on[:, None]
-            oh_old = ((oldb[..., None] == iota_k) & actb[..., None]).to(
-                sizes.dtype)
-            sizes_excl = sizes[:, None] - oh_old
-            live = sizes_excl > 0
-            prior = torch.log(torch.clamp(sizes_excl, min=1).to(
-                torch.float32)) - ld[..., None]
-            post_old = torch.where(live, z4[:, g] + prior, NEG_INF)
-            best, choice = torch.max(post_old, dim=-1)
-            has_free = (~live).any(dim=-1)
-            birth = ((aux4[:, g] > best) & actb & has_free).any(dim=-1)
-            apply = on & ~(stopped | birth)
-            tgt = torch.where(actb, choice, oldb)
-            oh_new = ((tgt[..., None] == iota_k) & actb[..., None]).to(
-                sizes.dtype)
-            # Exact integer counts: batched, in any order.
-            d = oh_new.sum(1, dtype=sizes.dtype) \
-                - oh_old.sum(1, dtype=sizes.dtype)
-            sizes = torch.where(apply[:, None], sizes + d, sizes)
-            tgt4[:, g] = torch.where(apply[:, None], tgt, tgt4[:, g])
-            first = torch.where(birth & ~stopped, g, first)
-            stopped = stopped | birth
-        return sizes, first
-
-    def exact_blocks(first, first_h, sizes):
-        """The exact sequential replay (``_scan_impl``'s body) of block
-        first[c] of each chain c that has one, every such chain in one loop
-        over the block's cells, one host read a cell."""
-        nonlocal perm_h
-        rep = first < G
-        base = torch.clamp(first, max=G - 1) * B
-        for j in range(B):
-            on_h = [f < G and f * B + j < n for f in first_h]
-            if not any(on_h):
-                break
-            pos = (base + j)[:, None]
-            on = (rep & (pos[:, 0] < n))[:, None].to(sizes.dtype)
-            sizes = sizes.scatter_add(1, torch.gather(old3, 1, pos), -on)
-            live = sizes > 0
-            prior = torch.log(torch.clamp(sizes, min=1).to(torch.float32)) \
-                - ld
-            zrow = torch.take_along_dim(z3, pos[..., None], dim=1)[:, 0]
-            post_old = torch.where(live, zrow + prior, NEG_INF)
-            best, choice = torch.max(post_old, dim=-1)
-            # First max, as jnp.argmax over [post_old, post_new].
-            is_new = (~live).any(dim=-1) \
-                & (torch.gather(aux3, 1, pos)[:, 0] > best)
-            free = torch.argmax((sizes == 0).to(torch.int32), dim=-1)
-            new_h, free_h = torch.stack([is_new.long(), free]).tolist()
-            for c in range(c_all):  # births in chain order
-                if not (on_h[c] and new_h[c]):
-                    continue
-                if perm_h is None:
-                    perm_h = perm.tolist()
-                slot = free_h[c]
-                theta = fresh_row(k_betas[c], perm_h[c][first_h[c] * B + j],
-                                  data, cfg)
-                params[c, slot] = theta
-                col = _birth_column(theta, slot, state.fp[c], state.fn[c],
-                                    data, gumbel[c], mut)
-                z3[c, :n, slot] = col[order[c]]
-            target = torch.where(is_new, free, choice)[:, None]
-            sizes = sizes.scatter_add(1, target, on)
-            tgt3.scatter_(1, pos, torch.where(on > 0, target,
-                                              torch.gather(tgt3, 1, pos)))
-        return sizes
-
-    g0 = torch.zeros((c_all,), dtype=torch.long, device=dev)
-    g_lo = 0
-    while True:
-        sizes, first = frozen_pass(g0, g_lo, sizes)
-        first_h = first.tolist()  # one host read a pass
-        if min(first_h) >= G:
-            break
-        sizes = exact_blocks(first, first_h, sizes)
-        g0 = torch.where(first < G, first + 1, G)
-        g_lo = min(first_h) + 1
-    assignment = torch.empty_like(state.assignment).scatter_(
-        1, order, tgt3[:, :n].to(state.assignment.dtype))
-    state = state._replace(assignment=assignment, params=params,
-                           cluster_size=sizes)
-    return CRPState(*(f[0] for f in state)) if one else state
+    k_perm, k_gumbel, k_beta = _split_sweep_keys(draws, ax)
+    k_betas, mut = ([k_beta], ax) if one else (k_beta.chains, ax.mut)
+    ws = blocked_work(state, cfg, block)
+    blocked_start(ws, k_perm, k_gumbel, state, data, cfg, ax)
+    blocked_pass(ws)
+    fp, fn = state.fp.reshape(-1), state.fn.reshape(-1)
+    blocked_rounds(
+        ws, [r[0] for r in ws.read.tolist()],  # one host read a pass
+        lambda: blocked_cell(ws),
+        lambda births: blocked_births(ws, births, [k_betas[c] for c, _ in
+                                                   births], fp, fn, data,
+                                      cfg, mut),
+        lambda g_lo: blocked_pass(ws, g_lo))
+    return blocked_finish(ws, state)

@@ -26,8 +26,12 @@ import torch
 from bnpc_tpu_torch.ops import _build
 from bnpc_tpu_torch.ops.cuda_gibbs import SMEM_MAX_SLOTS, pick_ref
 
-# Kernel launches since the last reset (the wrapper adds one per launch).
+# Kernel launches since the last reset (the wrapper adds one per launch),
+# and, as the batched kernels' wrappers keep them, batched launches with
+# their count per grid size (none: kernel 4 has no chain grid).
 launches = 0
+chain_launches = 0
+chain_grids: dict[int, int] = {}
 
 
 def eager_sweep_ref(z, gum, lf, fresh, aux, assign, perm, sizes, params,

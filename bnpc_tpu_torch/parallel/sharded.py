@@ -32,7 +32,7 @@ import torch.distributed as dist
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData, local_cols, local_mut_mask
 from bnpc_tpu_torch.mcmc import (_check_chains_step, _make_block,
-                                 _make_step_body, resolve_chain_exec,
+                                 make_step_fn, resolve_chain_exec,
                                  resolve_trace_k)
 from bnpc_tpu_torch.parallel.axis import MutAxis
 
@@ -134,8 +134,8 @@ def make_sharded_block(mesh: Mesh, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
                                     mcmc_cfg.gibbs_block)
     if chain_exec == "vmap":
         _check_chains_step(gibbs_impl)
-    step = _make_step_body(cfg_pad, mcmc_cfg, local,
-                           resolve_trace_k(cfg, mcmc_cfg), gibbs_impl, ax=ax)
+    step = make_step_fn(cfg_pad, mcmc_cfg, local,
+                        resolve_trace_k(cfg, mcmc_cfg), ax, gibbs_impl)
     block = _make_block(step, chain_exec)
     block.step, block.ax, block.data, block.cfg = step, ax, local, cfg_pad
     block.chain_exec = chain_exec

@@ -87,9 +87,11 @@ Phases (any failure exits non-zero, and no result line is printed):
                and rg_scan launched and lazy_segment never; then rg_scan
                timed at 131,072 cells with the mean and the largest s_count
                this path gave it;
-  7. eager   — the step body with gibbs_impl="eager" at the bench
-               configuration, 64 warm-up and 256 timed steps; the same
-               invariants, eager_sweep launched; steps/s beside phase 5's;
+  7. eager   — make_block_fn(gibbs_impl="eager") at the bench
+               configuration (the captured block: kernel 4 in a replayed
+               graph, each replay counting its launch), 64 warm-up and 256
+               timed steps; the same invariants, eager_sweep launched;
+               steps/s beside phase 5's;
   8. probes  — the two probes' entry points (bnpc_tpu_torch/probes/):
                vecflow_probe.main() (vecflow against lazy_segment at 5,000
                x 256) and while_probe.main() (the full no-birth run at 512 x
@@ -131,6 +133,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                (f) gibbs_block 128 at the main cell (8 warm-up and 32
                timed steps) and 512 at the large-n cell (2 and 8): steps/s
                beside the exact path's from the same state in this call,
+               both through the captured block,
                no Gibbs kernel launched by a blocked move,
                ARI against the planted clones; (g) cli.main with -n 2 -s
                256 --checkpoint_dir -e posterior: the files, two
@@ -200,8 +203,10 @@ Phases (any failure exits non-zero, and no result line is printed):
                interleaved as (b)); (f) the
                blocked sweep batched: gibbs_block 128 at the main cell, 4
                chains x 64 steps, and 512 at the large-n cell, 2 x 16, each
-               "vmap" against "sequential" in this call, chain by chain bit
-               for bit (assignments, MH counts, trace floats), chain-steps/s
+               "vmap" (the captured batch) against "sequential" (captured
+               blocks) in this call, runs vmap, sequential, sequential,
+               vmap, a fresh runner a run, chain by chain bit for bit
+               (assignments, MH counts, trace floats), chain-steps/s
                of both, rg_scan the only kernel (batched); at the main cell
                a profiled step of all 4 chains in each form (launches, draw
                calls, busy share, host syncs); (g) cli.main -n 4 -s 128: the
@@ -240,11 +245,24 @@ Phases (any failure exits non-zero, and no result line is printed):
                capture seconds and pool MB. At the main cell with 4 chains
                the captured batch must make fewer than 100 host-side
                launches a step and no more host syncs than the eager one.
-Phases 5-12 run the captured block wherever they take the one-chain lazy
-or stream path (the runner's run_block and run, chains one after another,
-the CLI), and the captured batch wherever they batch chains under "vmap"
-without a mesh or a blocked sweep; a launch counter counts each replay's
-launches there.
+               (e) the blocked sweep's captured block against its eager
+               block as (a)-(c): main gibbs_block 128, 2 x 32 compared
+               steps (at least two replayed birth blocks), 32 a timed
+               block, 8 profiled; large-n 512, 8, 4, 2; (f) its captured
+               batch against the eager batch as (d): main 4 chains x 64,
+               large-n 2 x 16; (g) the eager sweep's captured block
+               (make_block_fn(gibbs_impl="eager")) against _chain_block
+               over make_step_fn's eager step, 64 steps compared and a
+               timed block, 8 profiled, kernel 4's launches (each replay
+               adding its graph's) == the Gibbs sweeps; in each one-chain
+               window both forms' launch counts equal. Gates: the captured
+               form makes fewer host-side launches a step than the eager
+               one (eager: also under 20) and no more host syncs.
+Phases 5-12 run the captured block wherever they take the one-chain path
+of the lazy, stream, eager or blocked sweep (the runner's run_block and
+run, chains one after another, the CLI, make_block_fn), and the captured
+batch wherever they batch chains under "vmap" without a mesh; a launch
+counter counts each replay's launches there.
 
 Before each of phases 5-7, before each probe in phase 8, before each CLI
 run of phase 9 and before each run of phase 10 that is checked for its
@@ -1265,7 +1283,7 @@ def phase_small(dev, gibbs_impl):
 
     from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
     from bnpc_tpu_torch.data import pack_data
-    from bnpc_tpu_torch.mcmc import _make_step_body, resolve_trace_k
+    from bnpc_tpu_torch.mcmc import make_step_fn, resolve_trace_k
     from bnpc_tpu_torch.state import init_state
 
     n, m = 40, 16
@@ -1277,7 +1295,8 @@ def phase_small(dev, gibbs_impl):
     mc = MCMCConfig(**MIX, gibbs_block=8 if gibbs_impl == "blocked" else 0)
     trace_k = resolve_trace_k(cfg, mc)
     packed = {d: pack_data(data, d) for d in ("cpu", dev)}
-    steps = {d: _make_step_body(cfg, mc, packed[d], trace_k, gibbs_impl)
+    steps = {d: make_step_fn(cfg, mc, packed[d], trace_k,
+                             gibbs_impl=gibbs_impl)
              for d in ("cpu", dev)}
     state = init_state(TorchDraws(0, "cpu"), cfg, packed["cpu"], "cpu")
     kinds, _ = gpu_against_cpu(steps, state, dev, f"small {gibbs_impl}", 0.0)
@@ -1478,29 +1497,23 @@ def phase_large(dev):
 
 
 def phase_eager(dev):
+    """The eager path through its entry point, make_block_fn(gibbs_impl=
+    "eager"): on the card the captured block, kernel 4 inside a replayed
+    graph (each replay counts its launch)."""
     from bnpc_tpu_torch.data import pack_data
     from bnpc_tpu_torch.draws import TorchDraws
-    from bnpc_tpu_torch.mcmc import (_make_step_body, _rows_to_host,
-                                     resolve_trace_k)
+    from bnpc_tpu_torch.mcmc import make_block_fn, resolve_trace_k
     from bnpc_tpu_torch.state import init_state
 
     data, truth = make_data(N, M, 10, 0.1, seed=0)
     cfg, mc = bench_configs()
     packed = pack_data(data, dev)
-    step = _make_step_body(cfg, mc, packed, resolve_trace_k(cfg, mc),
-                           gibbs_impl="eager")
-
-    def run_block(state, draws, n_steps):
-        keys = draws.split(n_steps + 1)
-        rows = []
-        for k in keys[1:]:
-            state, row = step(state, k)
-            rows.append(row)
-        return state, _rows_to_host(rows), keys[0]
-
     state = init_state(TorchDraws(0, dev).split(1)[0], cfg, packed, dev)
+    # Active from the block's first step: its graphs note the scans.
     with ScanLengths(dev) as scans:
-        return timed_path("eager", run_block, state, TorchDraws(1, dev), 64,
+        block = make_block_fn(cfg, mc, packed, resolve_trace_k(cfg, mc),
+                              gibbs_impl="eager")
+        return timed_path("eager", block, state, TorchDraws(1, dev), 64,
                           256, N, K_MAX, truth, "eager_sweep", scans)
 
 
@@ -2035,8 +2048,9 @@ def mode_lugsail(dev, data, cfg, mc):
 
 def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
     """(f) steps/s of the blocked sweep (gibbs_block = `block`) beside the
-    exact path's, the same steps from the same state in this call;
-    launches (the blocked Gibbs move launches no Gibbs kernel); ARI."""
+    exact path's, the same steps from the same state in this call, both
+    through the captured block; launches (the blocked Gibbs move launches
+    no Gibbs kernel); ARI."""
     import dataclasses
 
     import torch
@@ -2069,8 +2083,9 @@ def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
         out[name] = {"steps_per_s": timed / secs, "gibbs_sweeps": gibbs,
                      "launches": launches, "ari": ari(a, truth),
                      "clusters": int((sizes > 0).sum())}
-    log(f"  (f) blocked at {n:,} x {M}, k_max {k_max}, gibbs_block {block}: "
-        f"{out['blocked']['steps_per_s']:.3f} steps/s against the exact "
+    log(f"  (f) blocked at {n:,} x {M}, k_max {k_max}, gibbs_block {block}, "
+        f"both captured: {out['blocked']['steps_per_s']:.3f} steps/s "
+        f"against the exact "
         f"path's {out['exact']['steps_per_s']:.3f} ({timed} steps after "
         f"{warm}, {out['blocked']['gibbs_sweeps']} / "
         f"{out['exact']['gibbs_sweeps']} Gibbs sweeps); launches blocked "
@@ -3179,7 +3194,9 @@ def chains_resume(dev, data, cfg, mc, tmp):
 def chains_blocked(dev, smi, data, data_l):
     """(f) the blocked sweep batched: gibbs_block 128 at the main cell (4
     chains x 64 steps) and 512 at the large-n cell (2 x 16), each under
-    "vmap" against "sequential" in this call, chain by chain bit for bit;
+    "vmap" (the captured batch) against "sequential" (each chain's captured
+    block) in this call, a fresh runner a run, runs vmap, sequential,
+    sequential, vmap, chain by chain bit for bit;
     at the main cell also launches, draw calls, busy share and host syncs
     a step of both forms from the same states and generators. `data` and
     `data_l` are the two cells' matrices."""
@@ -3192,7 +3209,7 @@ def chains_blocked(dev, smi, data, data_l):
         f"steps ({smi})")
     out["main_4"] = chains_compare("blocked main 4", dev, data, cfg, mc_b,
                                    4, 64, 45, {"rg_scan"}, N, K_MAX,
-                                   bits=True)
+                                   bits=True, interleave=True)
     out["main_4"]["steps"] = chains_step_costs(dev, data, cfg, mc_b, 4, 4,
                                                warm=8)
     log(f"  (f) blocked sweep, gibbs_block 512, large-n, 2 chains x 16 "
@@ -3201,7 +3218,7 @@ def chains_blocked(dev, smi, data, data_l):
     out["large_2"] = chains_compare(
         "blocked large 2", dev, data_l, cfg_l,
         dataclasses.replace(mc_l, gibbs_block=512), 2, 16, 46, {"rg_scan"},
-        N_LARGE, K_LARGE, bits=True, block_size=16)
+        N_LARGE, K_LARGE, bits=True, interleave=True, block_size=16)
     return out
 
 
@@ -3360,25 +3377,37 @@ def same_block(tag, got, want):
 
 class BirthRounds:
     """While active, counts the birth rounds of the eager sweeps
-    (models/gibbs.py::segment_births calls)."""
+    (models/gibbs.py::segment_births and blocked_births calls) and the
+    blocked sweeps' later frozen passes, one a replayed birth block of one
+    chain (blocked_pass calls from a block above 0)."""
 
     def __enter__(self):
         from bnpc_tpu_torch.models import gibbs
 
-        self.rounds = 0
-        self.saved = fn = gibbs.segment_births
+        self.rounds = self.birth_blocks = 0
+        self.saved = {name: getattr(gibbs, name) for name in (
+            "segment_births", "blocked_births", "blocked_pass")}
 
-        def counted(*args, **kwargs):
-            self.rounds += 1
-            return fn(*args, **kwargs)
+        def counted(fn):
+            def run(*args, **kwargs):
+                self.rounds += 1
+                return fn(*args, **kwargs)
+            return run
 
-        gibbs.segment_births = counted
+        def passes(ws, g_lo=0):
+            self.birth_blocks += g_lo > 0
+            return self.saved["blocked_pass"](ws, g_lo)
+
+        gibbs.segment_births = counted(self.saved["segment_births"])
+        gibbs.blocked_births = counted(self.saved["blocked_births"])
+        gibbs.blocked_pass = passes
         return self
 
     def __exit__(self, *exc):
         from bnpc_tpu_torch.models import gibbs
 
-        gibbs.segment_births = self.saved
+        for name, fn in self.saved.items():
+            setattr(gibbs, name, fn)
 
 
 def launch_profile(fn, steps):
@@ -3420,13 +3449,17 @@ def launch_profile(fn, steps):
 
 
 def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
-                  steps_b, steps_c):
+                  steps_b, steps_c, gibbs_block=0, gibbs_impl=None):
     """Phase 13 at one cell: (a) `windows` blocks of `steps_a` steps from
     the initial state, eager (_chain_block over the runner's step) and
     captured (MCMCRunner.run_block) from the same state and generator
     state, bit for bit; (b) eager, captured, captured, eager blocks of
     `steps_b` steps from one state, steps/s; (c) a step's costs of each
-    form over `steps_c` steps."""
+    form over `steps_c` steps. With `gibbs_block` the runner's step is the
+    blocked sweep's; with `gibbs_impl` the forms are make_block_fn's block
+    (captured) and _chain_block over make_step_fn's step with that impl
+    (eager) instead of the runner's."""
+    import dataclasses
     import functools
 
     import torch
@@ -3436,11 +3469,24 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
 
     data, _ = make_data(n, M, k_clones, 0.1, seed=0)
     cfg, mc = bench_configs(n, k_max)
-    runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+    mc = dataclasses.replace(mc, gibbs_block=gibbs_block)
+    packed = pack_data(data, dev)
+    runner = mcmc.MCMCRunner(cfg, mc, packed, device=dev,
                              block_size=steps_a)
     del data
-    forms = {"eager": functools.partial(mcmc._chain_block, runner._step),
-             "captured": runner.run_block}
+    if gibbs_impl is None:
+        forms = {"eager": functools.partial(mcmc._chain_block,
+                                            runner._step),
+                 "captured": runner.run_block}
+        captured = runner._captured
+    else:
+        step = mcmc.make_step_fn(cfg, mc, packed, runner.trace_k,
+                                 gibbs_impl=gibbs_impl)
+        forms = {"eager": functools.partial(mcmc._chain_block, step),
+                 "captured": mcmc.make_block_fn(
+                     cfg, mc, packed, runner.trace_k,
+                     gibbs_impl=gibbs_impl)}
+        captured = forms["captured"].__self__
 
     def fresh(gen_state):
         d = TorchDraws(1, dev)
@@ -3452,18 +3498,30 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
     draws = TorchDraws(1, dev)
     for w in range(windows):
         gen = draws.gen.get_state()
+        reset_launches()
         with BirthRounds() as births:
             want = forms["eager"](state, fresh(gen), steps_a)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        reset_launches()
         got = forms["captured"](state, fresh(gen), steps_a)
+        torch.cuda.synchronize()
         same_block(f"{cell} window {w}", got, want)
+        # Each replay adds its graph's launches: the counts agree.
+        if read_launches() != launches:
+            raise AssertionError(f"{cell} window {w}: launches captured "
+                                 f"{read_launches()}, eager {launches}")
         counts = want[1]["mh_counts"]
+        sm = counts[:, 1:3].sum(axis=(1, 2)) > 0
         out["windows"].append({
-            "steps": steps_a, "birth_rounds": births.rounds,
+            "steps": steps_a, "sweeps": int((~sm).sum()),
+            "launches": launches, "birth_rounds": births.rounds,
+            "birth_blocks": births.birth_blocks,
             "splits": int((counts[:, 1].sum(-1) > 0).sum()),
             "merges": int((counts[:, 2].sum(-1) > 0).sum())})
         state, draws = got[0], got[2]
     totals = {k: sum(w[k] for w in out["windows"])
-              for k in ("birth_rounds", "splits", "merges")}
+              for k in ("birth_rounds", "birth_blocks", "splits", "merges")}
     log(f"  (a) {cell}: {windows} x {steps_a} steps, captured == eager bit "
         f"for bit (every trace field, the state, the generator's state); "
         f"windows {out['windows']}")
@@ -3500,7 +3558,7 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
             f"{costs['host_syncs_per_step']:.3f} host syncs, busy "
             f"{costs['busy_share']:.4f} of {costs['wall_ms_per_step']:.3f} "
             f"ms, peak {costs['peak_mb']:.1f} MB")
-    pieces = runner._captured.pieces
+    pieces = captured.pieces
     out["graphs"] = sorted(str(k) for k in pieces.graphs)
     out["capture_seconds"] = pieces.capture_seconds
     out["pool_mb"] = (pieces.pool_bytes() or 0) / 1e6
@@ -3530,22 +3588,26 @@ def same_batch(tag, got, want):
                                  "differs")
 
 
-# Phase 13 (d): (case, cell, chains, steps, coupled, profiled steps).
-BATCH_CASES = (("main 4", "main", 4, 128, False, 8),
-               ("main 16", "main", 16, 64, False, 4),
-               ("coupled 4", "main", 4, 64, True, 8),
-               ("large 2", "large", 2, 16, False, 4))
+# Phase 13 (d) and (f): (case, cell, chains, steps, coupled, profiled
+# steps, gibbs_block).
+BATCH_CASES = (("main 4", "main", 4, 128, False, 8, 0),
+               ("main 16", "main", 16, 64, False, 4, 0),
+               ("coupled 4", "main", 4, 64, True, 8, 0),
+               ("large 2", "large", 2, 16, False, 4, 0))
+BLOCKED_BATCH_CASES = (("blocked main 4", "main", 4, 64, False, 4, 128),
+                       ("blocked large 2", "large", 2, 16, False, 2, 512))
 
 
 def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
-                        steps_c):
+                        steps_c, gibbs_block=0, part="d"):
     """Phase 13 (d) at one case: the captured batch (MCMCRunner.run_chains
     under chain_exec="vmap") against the eager batch (mcmc._batch_block over
     the runner's own step) in blocks of `steps` steps from the same initial
     states and generator states, eager, captured, captured, eager, each
     bit for bit against the first: chain-steps/s of each block, the
     replay share of each captured block's piece runs; then a step's costs
-    of each form over `steps_c` steps from the end states."""
+    of each form over `steps_c` steps from the end states. With
+    `gibbs_block` (13 (f)) the step's Gibbs move is the blocked sweep."""
     import dataclasses
     import functools
 
@@ -3558,11 +3620,13 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
                           else (N_LARGE, K_LARGE, 20))
     data, _ = make_data(n, M, k_clones, 0.1, seed=0)
     cfg, mc = bench_configs(n, k_max)
-    mc = dataclasses.replace(mc, coupled_moves=coupled)
+    mc = dataclasses.replace(mc, coupled_moves=coupled,
+                             gibbs_block=gibbs_block)
     runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                              block_size=steps, chain_exec="vmap")
     del data
     step = runner._coupled_step if coupled else runner._step
+    batch = runner._captured_coupled if coupled else runner._captured_batch
     forms = {"eager": functools.partial(mcmc._batch_block, step,
                                         coupled=coupled),
              "captured": runner.run_chains}
@@ -3583,7 +3647,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
            "captured": {"chain_steps_per_s": [], "replay_share": []}}
     want = None
     for form in ("eager", "captured", "captured", "eager"):
-        pieces = runner._captured_batch.pieces
+        pieces = batch.pieces
         before = (pieces.replays, pieces.eager_runs) if pieces else (0, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3596,7 +3660,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
         else:
             same_batch(f"{case} {form}", got, want)
         if form == "captured":
-            pieces = runner._captured_batch.pieces
+            pieces = batch.pieces
             runs = (pieces.replays - before[0], pieces.eager_runs - before[1])
             out["captured"]["replay_share"].append(runs[0] / sum(runs))
     counts = want[1]["mh_counts"]  # [chains, steps, 5, 2]
@@ -3606,9 +3670,9 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
         r = out[form]["chain_steps_per_s"]
         out[form].update(min=min(r), median=float(np.median(r)), max=max(r))
     out["ratio"] = out["captured"]["median"] / out["eager"]["median"]
-    log(f"  (d) {case}: {n_chains} chains x {steps} steps, captured batch "
-        f"== eager batch bit for bit (every trace field, each chain's state "
-        f"and generator state) in all 4 blocks; {out['moves']}; eager / "
+    log(f"  ({part}) {case}: {n_chains} chains x {steps} steps, captured "
+        f"batch == eager batch bit for bit (every trace field, each "
+        f"chain's state and generator state) in all 4 blocks; {out['moves']}; eager / "
         f"captured / captured / eager ({smi}): eager "
         f"{out['eager']['chain_steps_per_s']}, captured "
         f"{out['captured']['chain_steps_per_s']} chain-steps/s; median "
@@ -3625,7 +3689,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
         costs["host_syncs_per_step"] = syncs_per_step(
             lambda k: fn(end, d, k), steps_c)
         out[form].update(costs)
-        log(f"  (d) {case} {form}, a step of all {n_chains} chains: "
+        log(f"  ({part}) {case} {form}, a step of all {n_chains} chains: "
             f"{costs['host_launches_per_step']:.2f} host-side launches "
             f"{costs['host_launch_calls_per_step']} "
             f"({costs['host_launch_source']}), "
@@ -3633,12 +3697,12 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
             f"{costs['host_syncs_per_step']:.3f} host syncs, busy "
             f"{costs['busy_share']:.4f} of {costs['wall_ms_per_step']:.3f} "
             f"ms, peak {costs['peak_mb']:.1f} MB")
-    pieces = runner._captured_batch.pieces
+    pieces = batch.pieces
     out["graphs"] = len(pieces.graphs)
     out["keys"] = sorted(str(k) for k in pieces.graphs)
     out["capture_seconds"] = pieces.capture_seconds
     out["pool_mb"] = (pieces.pool_bytes() or 0) / 1e6
-    log(f"  (d) {case}: {out['graphs']} graphs captured "
+    log(f"  ({part}) {case}: {out['graphs']} graphs captured "
         f"({', '.join(out['keys'])}) in {out['capture_seconds']:.3f} s; "
         f"pool {out['pool_mb']:.1f} MB")
     return out
@@ -3650,7 +3714,7 @@ def phase_captured_batch(dev, smi):
     cell (2 chains)."""
     t0 = time.perf_counter()
     out = {}
-    for case, cell, chains, steps, coupled, steps_c in BATCH_CASES:
+    for case, cell, chains, steps, coupled, steps_c, _ in BATCH_CASES:
         out[case] = captured_batch_case(dev, smi, case, cell, chains, steps,
                                         coupled, steps_c)
     # At the main cell, 4 chains: fewer than 100 host-side launches a step
@@ -3677,7 +3741,7 @@ def phase_captured(dev, smi):
     out = {}
     out["main"], totals = captured_cell(dev, smi, "main", N, K_MAX, 10, 2,
                                         256, 128, 16)
-    if not all(totals.values()):
+    if not all(totals[k] for k in ("birth_rounds", "splits", "merges")):
         raise AssertionError(f"main: the compared blocks need a birth "
                              f"round, a split and a merge: {totals}")
     out["large"], _ = captured_cell(dev, smi, "large", N_LARGE, K_LARGE, 20,
@@ -3694,8 +3758,72 @@ def phase_captured(dev, smi):
             f"> 100), host syncs {c['host_syncs_per_step']} / "
             f"{e['host_syncs_per_step']}")
     out["batch"] = phase_captured_batch(dev, smi)
+    out.update(phase_captured_blocked(dev, smi))
+    eager_c, lazy_c = (out[c]["captured"]["median"]
+                       for c in ("eager main", "main"))
+    log(f"  (g) captured eager sweep {eager_c:.3f} steps/s against captured "
+        f"lazy {lazy_c:.3f} (main cell, medians of this call)")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+def fewer_launches(tag, form_out, limit=None):
+    """The captured form's host-side launches a step below the eager
+    form's (and below `limit`), its host syncs no more than eager's."""
+    e, c = form_out["eager"], form_out["captured"]
+    if not (c["host_launches_per_step"] < e["host_launches_per_step"]
+            and (limit is None or c["host_launches_per_step"] < limit)
+            and c["host_syncs_per_step"] <= e["host_syncs_per_step"]):
+        raise AssertionError(
+            f"{tag}: host-side launches a step {c['host_launches_per_step']}"
+            f" captured / {e['host_launches_per_step']} eager (want fewer"
+            f"{'' if limit is None else f', under {limit}'}), host syncs "
+            f"{c['host_syncs_per_step']} / {e['host_syncs_per_step']}")
+
+
+def phase_captured_blocked(dev, smi):
+    """Phase 13 (e)-(g): the blocked sweep's captured block (one chain,
+    main gibbs_block 128 and large-n 512) and captured batch (main 4 x 64,
+    large-n 2 x 16), and the eager sweep's captured block (main, through
+    make_block_fn), each against its eager form in this call, bit for bit,
+    with a step's costs of both forms."""
+    t0 = time.perf_counter()
+    out = {}
+    log("  (e) the blocked sweep, one chain, captured against eager")
+    out["blocked main"], totals = captured_cell(
+        dev, smi, "blocked main", N, K_MAX, 10, 2, 32, 32, 8,
+        gibbs_block=128)
+    if totals["birth_blocks"] < 2:
+        raise AssertionError(f"blocked main: the compared blocks need two "
+                             f"replayed birth blocks: {totals}")
+    fewer_launches("blocked main", out["blocked main"])
+    out["blocked large"], totals_l = captured_cell(
+        dev, smi, "blocked large", N_LARGE, K_LARGE, 20, 1, 8, 4, 2,
+        gibbs_block=512)
+    log(f"  (e) birth blocks replayed in the compared blocks: main "
+        f"{totals['birth_blocks']}, large-n {totals_l['birth_blocks']}")
+    log("  (f) the blocked sweep batched, captured against eager")
+    for case, cell, chains, steps, coupled, steps_c, gb in \
+            BLOCKED_BATCH_CASES:
+        out[case] = captured_batch_case(dev, smi, case, cell, chains, steps,
+                                        coupled, steps_c, gb, part="f")
+    fewer_launches("blocked main 4", out["blocked main 4"])
+    log("  (g) the eager sweep (kernel 4), captured against eager")
+    out["eager main"], _ = captured_cell(
+        dev, smi, "eager main", N, K_MAX, 10, 1, 64, 64, 8,
+        gibbs_impl="eager")
+    window = out["eager main"]["windows"][0]
+    if window["launches"]["eager_sweep"] != window["sweeps"]:
+        raise AssertionError(f"eager main: {window['launches']} launches, "
+                             f"{window['sweeps']} Gibbs sweeps")
+    fewer_launches("eager main", out["eager main"], 20)
+    log(f"  (g) kernel 4: {window['launches']['eager_sweep']} launches in "
+        f"{window['sweeps']} captured Gibbs sweeps (replays counted); eager "
+        f"{out['eager main']['eager']['median']:.3f} against captured "
+        f"{out['eager main']['captured']['median']:.3f} steps/s (medians)")
+    out["seconds_e_to_g"] = time.perf_counter() - t0
+    log(f"  (e)-(g): {out['seconds_e_to_g']:.1f} s")
     return out
 
 
@@ -3754,7 +3882,7 @@ def main():
     log(f"[12/13] batched chains: chain_exec='vmap' ({smi})")
     chains_out = phase_chains(dev, smi, k)
     log(f"[13/13] the one-chain block and the batch captured against "
-        f"eager ({smi})")
+        f"eager: exact, blocked and eager sweeps ({smi})")
     captured_out = phase_captured(dev, smi)
 
     chain = probes.pop("chain")

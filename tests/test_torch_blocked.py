@@ -6,6 +6,12 @@
   and sizes exactly, live parameter rows to rtol 1e-6.
 * block=1 gives the exact scan's partition (both on the port's own draws).
 * MCMCConfig.gibbs_block routes the step's Gibbs move to the blocked sweep.
+* make_block_fn (the CPU block) against bnpc_tpu.mcmc.make_block_fn
+  under jax.jit, a block of steps on the same keys, with gibbs_block 4 and
+  with the eager sweep (bnpc_tpu's scan_cond, which tests/test_torch_eager
+  .py holds equal to its pallas_eager): assignments, sizes and MH counts
+  exactly, live parameter rows to rtol 1e-6, ML and the log prior to the
+  step tests' rtol 1e-5.
 * (slow) the stationary partition distribution of the port's blocked
   sampler on the enumerable 5-cell problem against its exact sampler, at
   tests/test_blocked.py's tolerances.
@@ -18,8 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from bnpc_tpu import mcmc as jmcmc
+from bnpc_tpu.config import MCMCConfig as JMCMCConfig
 from bnpc_tpu.data import pack_data
 from bnpc_tpu.models import gibbs as jgibbs
+from bnpc_tpu.parallel.axis import MutAxis
 from bnpc_tpu.state import init_state
 from bnpc_tpu_torch import mcmc as port_mcmc
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
@@ -114,7 +123,7 @@ def test_gibbs_block_routes_through_step(monkeypatch):
     jc, tc, packed, state = _problem(3)
     tdata, tstate = data_to_torch(packed), state_to_torch(state)
     mc = MCMCConfig(sm_prob=0.0, dpa_prob=0.0, error_prob=0.0, gibbs_block=4)
-    step = port_mcmc._make_step_body(tc, mc, tdata, 8)
+    step = port_mcmc.make_step_fn(tc, mc, tdata, 8)
     key = jax.random.key(7)
     got, _ = step(tstate, JaxDraws(key))
     assert calls == [("blocked", 4)]
@@ -123,6 +132,64 @@ def test_gibbs_block_routes_through_step(monkeypatch):
     for f in ("assignment", "cluster_size"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f),
                                    rtol=0, atol=0)
+
+
+BLOCK_MODEL = dict(p=0.25, q=0.25, fp=0.01, fn=0.2, learn_errors=True,
+                   fp_sd=0.01, fn_sd=0.1)
+BLOCK_MIX = dict(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25, sm_steps=3)
+BLOCK_STEPS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_block(gibbs_block, gibbs_impl):
+    jc, _ = configs(N, M, N, **BLOCK_MODEL)
+    jm = JMCMCConfig(**BLOCK_MIX, gibbs_block=gibbs_block)
+    trace_k = jmcmc.resolve_trace_k(jc, jm)
+    return jax.jit(lambda s, k, d: jmcmc.make_block_fn(
+        jc, jm, d, trace_k, MutAxis(), gibbs_impl)(s, k)), trace_k
+
+
+@pytest.mark.parametrize("case", ["blocked", "eager"])
+def test_make_block_fn_matches_jax(case):
+    """A block of BLOCK_STEPS steps of the port's make_block_fn (on the CPU,
+    _chain_block over make_step_fn's step) on JaxDraws(key) against
+    bnpc_tpu's make_block_fn on the same key's steps."""
+    gibbs_block, jimpl, timpl = {"blocked": (4, "auto", "auto"),
+                                 "eager": (0, "scan_cond", "eager")}[case]
+    jc, tc = configs(N, M, N, **BLOCK_MODEL)
+    jblock, trace_k = _jax_block(gibbs_block, jimpl)
+    data, _ = make_problem(n=N, m=M, k_clones=3, seed=2)
+    packed = pack_data(data)
+    state = init_state(jax.random.key(2), jc, packed, mode="random")
+    tblock = port_mcmc.make_block_fn(
+        tc, MCMCConfig(**BLOCK_MIX, gibbs_block=gibbs_block),
+        data_to_torch(packed), trace_k, gibbs_impl=timpl)
+    key = jax.random.key(31)
+    want, jrows = jblock(state, jax.random.split(key, BLOCK_STEPS + 1)[1:],
+                         packed)
+    got, trows, _ = tblock(state_to_torch(state), JaxDraws(key),
+                           BLOCK_STEPS)
+    np.testing.assert_array_equal(np.asarray(want.assignment),
+                                  got.assignment.numpy())
+    np.testing.assert_array_equal(np.asarray(want.cluster_size),
+                                  got.cluster_size.numpy())
+    live = np.asarray(want.cluster_size) > 0
+    np.testing.assert_allclose(np.asarray(want.params)[live],
+                               got.params.numpy()[live], rtol=1e-6)
+    for f in ("assignment", "mh_counts"):
+        np.testing.assert_array_equal(np.asarray(getattr(jrows, f)),
+                                      trows[f], err_msg=f)
+    jml, tml = np.asarray(jrows.ml), trows["ml"]
+    np.testing.assert_allclose(jml, tml, rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(jrows.map_) - jml,
+                               trows["map_"] - tml, rtol=1e-5)
+    for f in ("dp_alpha", "fp", "fn"):
+        np.testing.assert_allclose(np.asarray(getattr(jrows, f)), trows[f],
+                                   rtol=1e-5, err_msg=f)
+    # The block held Gibbs sweeps with births, splits and merges.
+    counts = trows["mh_counts"]
+    assert (counts[:, 1:3].sum(axis=(1, 2)) == 0).any()
+    assert counts[:, 1].sum() > 0 and counts[:, 2].sum() > 0
 
 
 @pytest.mark.slow

@@ -342,13 +342,13 @@ def test_mode_flag_runs(mode, planted_file, tmp_path, monkeypatch):
 
         monkeypatch.setattr(port_mcmc, "datetime", Clock)
     if mode == "coupled":
-        make = port_mcmc._make_coupled_step
+        make = port_mcmc.make_coupled_step_fn
 
         def counted(*args, **kwargs):
             step = make(*args, **kwargs)
             return lambda *a: seen.append(1) or step(*a)
 
-        monkeypatch.setattr(port_mcmc, "_make_coupled_step", counted)
+        monkeypatch.setattr(port_mcmc, "make_coupled_step_fn", counted)
     if mode == "blocked":
         sweep = port_mcmc.gibbs_sweep
         monkeypatch.setattr(port_mcmc, "gibbs_sweep", lambda *a, **k: (

@@ -84,9 +84,9 @@ def _captured(impl, rows_cap=12):
 
 
 def _eager_step(impl):
-    return port_mcmc._make_step_body(CFG, MIX, DATA,
-                                     port_mcmc.resolve_trace_k(CFG, MIX),
-                                     impl)
+    return port_mcmc.make_step_fn(CFG, MIX, DATA,
+                                  port_mcmc.resolve_trace_k(CFG, MIX),
+                                  gibbs_impl=impl)
 
 
 def _start():

@@ -100,9 +100,10 @@ def _captured(impl, rows_cap=10, mix=MIX):
 
 def _eager(impl, coupled=False, mix=MIX):
     """_batch_block's signature over the eager batched step."""
-    step = (port_mcmc._make_coupled_step(CFG, mix, DATA, TRACE_K, impl)
+    step = (port_mcmc.make_coupled_step_fn(CFG, mix, DATA, TRACE_K, impl)
             if coupled else
-            port_mcmc._make_step_body(CFG, mix, DATA, TRACE_K, impl))
+            port_mcmc.make_step_fn(CFG, mix, DATA, TRACE_K,
+                                   gibbs_impl=impl))
 
     def block(states, draws, n_steps, keep=None):
         return port_mcmc._batch_block(step, states, draws, n_steps, keep,

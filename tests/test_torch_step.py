@@ -50,8 +50,8 @@ def test_step_matches_jax(seed):
     jstep, trace_k = _jax_step()
     data, _ = make_problem(n=N, m=M, k_clones=3, seed=seed)
     packed = pack_data(data)
-    tstep = tmcmc._make_step_body(tc, TMCMCConfig(**MIX),
-                                  data_to_torch(packed), trace_k)
+    tstep = tmcmc.make_step_fn(tc, TMCMCConfig(**MIX),
+                               data_to_torch(packed), trace_k)
     state = init_state(jax.random.key(seed), jc, packed, mode="random")
     gibbs = 0
     totals = np.zeros((5, 2), np.int64)

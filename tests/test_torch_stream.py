@@ -180,9 +180,9 @@ def test_stream_step_matches_jax():
         jc, jm, d, trace_k, MutAxis(), "pallas_stream", False)(s, k))
     data, _ = make_problem(n=SN, m=SM, k_clones=3, seed=0)
     packed = pack_data(data)
-    tstep = tmcmc._make_step_body(tc, TMCMCConfig(**MIX),
-                                  data_to_torch(packed), trace_k,
-                                  gibbs_impl="stream")
+    tstep = tmcmc.make_step_fn(tc, TMCMCConfig(**MIX),
+                               data_to_torch(packed), trace_k,
+                               gibbs_impl="stream")
     state = init_state(jax.random.key(0), jc, packed, mode="random")
     gibbs = 0
     for key in jax.random.split(jax.random.key(1000), 8):
