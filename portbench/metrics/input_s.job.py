@@ -1,0 +1,10 @@
+"""input_s.job: seconds a job spends in io.load_data and pack_data
+(lib/spans.py: each call ends in a device synchronization), the mean over
+the traced run's jobs."""
+
+
+def read(obs):
+    stages = obs.get("stage_s")
+    if stages is None:
+        return None
+    return stages["input"]
