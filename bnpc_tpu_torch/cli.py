@@ -6,7 +6,8 @@ defaults, and the same output files.
 
 The JAX package's ``tpu`` group becomes the ``device`` group: ``--device``
 (cuda unless the caller asks for the CPU), ``--profile`` (a torch.profiler
-trace), and the capacity knobs with their meaning.
+trace of the sampling, with the job's spans from bnpc_tpu_torch/trace.py
+merged in), and the capacity knobs with their meaning.
 
 ``--mesh CHAINS,MUTS`` (or ``auto``: every visible GPU on the chain axis)
 runs the job on CHAINS x MUTS ranks, one process each
@@ -29,7 +30,7 @@ from datetime import datetime
 import torch
 import torch.distributed as dist
 
-from bnpc_tpu_torch import io
+from bnpc_tpu_torch import io, trace
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import pack_data
 from bnpc_tpu_torch.mcmc import MCMCRunner
@@ -178,7 +179,8 @@ def parse_args(argv=None):
                         help="MCMC steps between host copies of the trace.")
     device.add_argument("--profile", type=str, default="",
                         help="Write a torch.profiler trace of the sampling "
-                             "run to this directory (chrome trace JSON).")
+                             "run, with the job's program spans, to this "
+                             "directory (chrome trace JSON).")
     device.add_argument("--checkpoint_dir", type=str, default="",
                         help="Directory for sampler checkpoints; a run "
                              "resumes from the checkpoint found there.")
@@ -387,8 +389,9 @@ def describe(cfg: ModelConfig, mcmc_cfg: MCMCConfig) -> str:
 def generate_output(args, results, data_raw, names) -> None:
     """Inference + all result artifacts (run_BnpC.py:203-239)."""
     out_dir = io.get_out_dir(args)
-    inferred, psrf, steps = io.infer_results(args, results, data_raw,
-                                             device=args.device)
+    with trace.span("cli.estimate"):
+        inferred, psrf, steps = io.infer_results(args, results, data_raw,
+                                                 device=args.device)
     # Recorded on args so show_mcmc_summary and args.txt see them (the
     # reference persists both, libs/dpmmIO.py:199-202).
     args.PSRF = psrf
@@ -400,7 +403,8 @@ def generate_output(args, results, data_raw, names) -> None:
         io.show_latents(inferred)
         print(f"\nWriting output to: {out_dir}\n")
 
-    io.save_run(inferred, args, out_dir, names)
+    with trace.span("cli.write"):
+        io.save_run(inferred, args, out_dir, names)
 
     if args.true_clusters:
         true_assign = io.load_assignment_txt(args.true_clusters)
@@ -430,7 +434,8 @@ def generate_output(args, results, data_raw, names) -> None:
 
 def profile_context(args, device: torch.device):
     """--profile DIR: a torch.profiler trace of the sampling run, written
-    to DIR/trace.json (chrome trace format)."""
+    to DIR/trace.json (chrome trace format); ``main`` merges the job's
+    spans into it."""
     if not args.profile:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
@@ -445,6 +450,29 @@ def profile_context(args, device: torch.device):
 
 
 def main(args) -> None:
+    """One job (``cli.main``, its stages spans of the tracer when it is
+    on). ``--profile DIR`` turns the tracer on for the job, unless the
+    caller has, and merges its spans into DIR/trace.json."""
+    traced = bool(args.profile) and not trace.on
+    if traced:
+        trace.enable()
+    try:
+        if trace.on:
+            trace.new_run()
+        with trace.span("cli.main"):
+            root = _job(args)
+    finally:
+        if traced:
+            spans = trace.take()["spans"]
+            trace.disable()
+    if traced and root:
+        trace.merge_chrome_trace(os.path.join(args.profile, "trace.json"),
+                                 spans)
+
+
+def _job(args) -> bool:
+    """main's job; whether this process is the job's root (False where it
+    only started the ranks)."""
     shape = mesh_shape(args)
     device = resolve_device(args.device)
     if not args.no_plots:
@@ -456,16 +484,17 @@ def main(args) -> None:
         # Under torchrun the group is in the environment; else start it.
         if not multihost.initialize(device=args.device):
             launch(args, shape[0] * shape[1])
-            return
+            return False
     mesh = build_mesh(shape)
     root = mesh is None or mesh.is_root
     if not root:
         args.verbosity = 0
     io.process_sim_folder(args, suffix="")
     try:
-        data, names = io.load_data(
-            args.input, transpose=args.transpose, get_names=True
-        )
+        with trace.span("cli.load"):
+            data, names = io.load_data(
+                args.input, transpose=args.transpose, get_names=True
+            )
     except FileNotFoundError:
         raise SystemExit(f"error: input file not found: {args.input}")
     if data.size == 0:
@@ -493,29 +522,33 @@ def main(args) -> None:
         args.chains = 1
         args.block_size = 1
 
-    packed = pack_data(data, device)
-    runner = MCMCRunner(cfg, mcmc_cfg, packed, device=device,
-                        block_size=args.block_size,
-                        checkpoint_dir=args.checkpoint_dir or None,
-                        mesh=mesh)
+    with trace.span("cli.pack"):
+        packed = pack_data(data, device)
+    with trace.span("cli.runner"):
+        runner = MCMCRunner(cfg, mcmc_cfg, packed, device=device,
+                            block_size=args.block_size,
+                            checkpoint_dir=args.checkpoint_dir or None,
+                            mesh=mesh)
     if args.verbosity > 0 and root and args.chains > 1:
         print(f"\tchain_exec: {runner.chain_exec}")
     assign = (
         io.load_assignment_txt(args.fixed_assignment)
         if args.fixed_assignment else None
     )
-    with profile_context(args, device) if root else contextlib.nullcontext():
+    with profile_context(args, device) if root else \
+            contextlib.nullcontext(), trace.span("cli.sample"):
         chain_results = runner.run(
             run_var, args.seed, n_chains=args.chains, assign=assign,
             verbosity=args.verbosity,
         )
     if not root:
-        return
+        return False
     args.chain_seeds = list(map(int, runner.seeds))
     results = [r.as_dict() for r in chain_results]
     args.time.append(datetime.now())
 
     generate_output(args, results, data, names)
+    return True
 
 
 def entry(argv=None) -> None:

@@ -23,6 +23,11 @@ What a replay must carry over from an eager run:
     runs in Python, so only at capture. A capture notes how far each
     counter moved, sets it back, and each replay adds that.
 
+With the tracer on (trace.py) every run is a span: ``graphs.eager``,
+``graphs.capture`` or ``graphs.replay`` with its key and the key's family
+(what the owner's ``family(key)`` names), the eager runs and replays timed
+on the device too when the tracer's device spans are on.
+
 A capture runs with Python's cyclic garbage collector off (collecting a
 dead runner there would free its graphs' memory inside the capture and
 invalidate it). A capture that fails raises; nothing falls back to eager
@@ -39,11 +44,11 @@ import time
 
 import torch
 
+from bnpc_tpu_torch import trace
 from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream, cuda_sweep
 
 # The kernel wrappers a captured piece launches.
 COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep)
-
 
 def read_counts() -> list:
     """The launch counters of COUNTED: (launches, chain_launches,
@@ -105,14 +110,16 @@ class CudaGraph:
 class Pieces:
     """Runs pieces by key (module docstring). `graph_cls(generators, pool)`
     makes a graph that draws from `generators` (`generator`, or what
-    ``run`` names); on the card CudaGraph. Keeps, for the record: the
-    graphs by key with the launches each holds (``graphs``), how many
-    replays (``replays``) and eager runs (``eager_runs``) it made, and the
-    seconds its captures took (``capture_seconds``)."""
+    ``run`` names); on the card CudaGraph. `family(key)` names a key's
+    family for the tracer's spans. Keeps, for the record: the graphs by
+    key with the launches each holds (``graphs``), how many replays
+    (``replays``) and eager runs (``eager_runs``) it made, and the seconds
+    its captures took (``capture_seconds``)."""
 
-    def __init__(self, generator: torch.Generator | None,
+    def __init__(self, generator: torch.Generator | None, family,
                  graph_cls=CudaGraph):
         self.generator = generator
+        self.family = family
         self.graph_cls = graph_cls
         self.pool = (torch.cuda.graph_pool_handle()
                      if graph_cls is CudaGraph else None)
@@ -131,17 +138,24 @@ class Pieces:
             if key not in self.seen:
                 self.seen.add(key)
                 self.eager_runs += 1
-                fn()
+                if trace.on:
+                    trace.piece("graphs.eager", key, self.family(key), fn)
+                else:
+                    fn()
                 return
             entry = self.graphs[key] = self._capture(
-                fn, self.generator if generators is None else generators)
+                key, fn, self.generator if generators is None else generators)
         graph, delta = entry
-        graph.replay()
+        if trace.on:
+            trace.piece("graphs.replay", key, self.family(key),
+                        graph.replay)
+        else:
+            graph.replay()
         add_counts(delta)
         self.replays += 1
 
-    def _capture(self, fn, generators):
-        t0 = time.perf_counter()
+    def _capture(self, key, fn, generators):
+        t0 = time.perf_counter_ns()
         before = read_counts()
         graph = self.graph_cls(generators, self.pool)
         try:
@@ -149,7 +163,11 @@ class Pieces:
         finally:
             delta = _delta(read_counts(), before)
             set_counts(before)
-        self.capture_seconds += time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        self.capture_seconds += (t1 - t0) * 1e-9
+        if trace.on:
+            trace.record("graphs.capture", t0, t1, key=key,
+                         family=self.family(key))
         return graph, delta
 
     def pool_bytes(self) -> int | None:

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bnpc_tpu_torch import diagnostics, graphs
+from bnpc_tpu_torch import diagnostics, graphs, trace
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws, StackedDraws, TorchDraws
@@ -250,9 +250,12 @@ def _make_select(mcmc_cfg: MCMCConfig):
 
     def select(k_sel: Draws, lead=()):
         u = k_sel.uniform(tuple(lead) + (3,))
-        rows = u.reshape(-1, 3).tolist()  # the step's one planned host read
-        return ([[x < t for x, t in zip(row, thresholds)] for row in rows],
-                lambda j: u[..., j] < thresholds[j])
+        # The step's one planned host read.
+        rows = trace.read(u.reshape(-1, 3), "select")
+        flags = [[x < t for x, t in zip(row, thresholds)] for row in rows]
+        if trace.on:
+            trace.note_flags(flags)
+        return flags, lambda j: u[..., j] < thresholds[j]
 
     return select
 
@@ -374,8 +377,24 @@ class ChainResult:
 
 def _rows_to_host(rows: list[TraceRow]) -> dict:
     """Stack a block's device rows and copy them to the host."""
-    return {f: torch.stack([getattr(r, f) for r in rows]).cpu().numpy()
-            for f in TraceRow._fields}
+    sp = trace.on and trace.begin("runner.flush", rows=len(rows))
+    out = {f: torch.stack([getattr(r, f) for r in rows]).cpu().numpy()
+           for f in TraceRow._fields}
+    if sp:
+        trace.end(sp)
+    return out
+
+
+def _flush_rows(bufs: TraceRow, k: int) -> dict:
+    """The first `k` rows of a captured block's or batch's row buffers on
+    the host (a copy on every device: .cpu() of a CPU tensor is the
+    tensor)."""
+    sp = trace.on and trace.begin("runner.flush", rows=k)
+    out = {f: buf[:k].to("cpu", copy=True).numpy()
+           for f, buf in zip(TraceRow._fields, bufs)}
+    if sp:
+        trace.end(sp)
+    return out
 
 
 def _chain_block(step, state: CRPState, draws: Draws, n_steps: int,
@@ -384,12 +403,20 @@ def _chain_block(step, state: CRPState, draws: Draws, n_steps: int,
     steps (a partial final block takes the keys of a whole block, as
     bnpc_tpu does). Returns (state, rows, next_draws): rows is a dict of
     host arrays with a leading step axis, one entry per TraceRow field."""
+    block = trace.on and trace.begin("runner.block", steps=n_steps,
+                                     chains=1)
     keys = draws.split(n_steps + 1)
     rows = []
-    for k in keys[1:1 + (n_steps if keep is None else keep)]:
+    for t, k in enumerate(keys[1:1 + (n_steps if keep is None else keep)]):
+        sp = trace.on and trace.begin("runner.step", step=t)
         state, row = step(state, k)
+        if sp:
+            trace.end(sp)
         rows.append(row)
-    return state, _rows_to_host(rows), keys[0]
+    out = state, _rows_to_host(rows), keys[0]
+    if block:
+        trace.end(block)
+    return out
 
 
 def _write(dst: CRPState, src: CRPState) -> None:
@@ -432,6 +459,33 @@ def _sweep_work(impl: str, state: CRPState, cfg: ModelConfig,
     if impl == "eager":
         return ()
     return segment_work(state, cfg, impl == "stream")
+
+
+# The pieces of the captured block and batch by what their device time is
+# spent on, by a key's first item: the Gibbs sweep (the batch's head, which
+# starts the sweep and draws the split-merge choice, among them), the
+# split-merge move, and the rest of the step. The tracer's piece spans carry
+# the family (graphs.Pieces).
+PIECE_FAMILIES = {
+    "sweep": ("sweep_head", "birth", "sweep_tail", "blocked_head",
+              "blocked_cell", "blocked_birth", "blocked_pass",
+              "blocked_tail", "eager_sweep", "head", "launch", "tail",
+              "bcell", "bbirth", "bpass", "btail"),
+    "split_merge": ("sm_head", "sm_move", "split", "merge"),
+    "rest": ("rest", "alpha", "params", "errors"),
+}
+_PIECE_FAMILY = {k: fam for fam, keys in PIECE_FAMILIES.items()
+                 for k in keys}
+
+
+def piece_family(key: tuple) -> str:
+    """The family of piece `key` in PIECE_FAMILIES; a key left out of the
+    table raises."""
+    try:
+        return _PIECE_FAMILY[key[0]]
+    except KeyError:
+        raise KeyError(f"piece {key!r} has no family in "
+                       f"PIECE_FAMILIES") from None
 
 
 class _CapturedBlock:
@@ -513,7 +567,8 @@ class _CapturedBlock:
         if self.impl == "eager":
             _check_eager_fits(self.cfg, dev)
         self.draws = TorchDraws(0, dev)
-        self.pieces = graphs.Pieces(self.draws.gen, self.graph_cls)
+        self.pieces = graphs.Pieces(self.draws.gen, piece_family,
+                                    self.graph_cls)
         self.state = CRPState(*(torch.empty_like(f, device=dev)
                                 for f in state))
         self.work = _sweep_work(self.impl, self.state, self.cfg,
@@ -541,6 +596,8 @@ class _CapturedBlock:
                 draws.gen.device, self.device):
             raise ValueError(f"the captured block draws from a TorchDraws "
                              f"on {self.device}, not {draws!r}")
+        block = trace.on and trace.begin("runner.block", steps=n_steps,
+                                         chains=1)
         if self.pieces is None:
             self._setup(state)
         _write(self.state, state)
@@ -549,24 +606,29 @@ class _CapturedBlock:
         keys = gd.split(n_steps + 1)
         host, filled = [], 0
         self.t.zero_()
-        for k in keys[1:1 + (n_steps if keep is None else keep)]:
+        for t, k in enumerate(keys[1:1 + (n_steps if keep is None
+                                         else keep)]):
             if filled == self.rows_cap:
                 host.append(self._flush(filled))
                 self.t.zero_()
                 filled = 0
+            sp = trace.on and trace.begin("runner.step", step=t)
             self._step(k)
+            if sp:
+                trace.end(sp)
             filled += 1
         host.append(self._flush(filled))
         draws.gen.set_state(gd.gen.get_state())
         rows = host[0] if len(host) == 1 else {
             f: np.concatenate([h[f] for h in host]) for f in TraceRow._fields}
-        return CRPState(*(f.clone() for f in self.state)), rows, draws
+        out = CRPState(*(f.clone() for f in self.state)), rows, draws
+        if block:
+            trace.end(block)
+        return out
 
     def _flush(self, k: int) -> dict:
-        """The first `k` rows on the host (a copy on every device: .cpu()
-        of a CPU tensor is the tensor)."""
-        return {f: buf[:k].to("cpu", copy=True).numpy()
-                for f, buf in zip(TraceRow._fields, self.rows)}
+        """The first `k` rows on the host."""
+        return _flush_rows(self.rows, k)
 
     def _step(self, key: Draws) -> None:
         mc = self.mcmc_cfg
@@ -608,7 +670,7 @@ class _CapturedBlock:
         self.pieces.run(("blocked_head",), head)
         fp, fn = st.fp.reshape(-1), st.fn.reshape(-1)
         blocked_rounds(
-            ws, [r[0] for r in ws.read.tolist()],  # one host read a pass
+            ws, [r[0] for r in trace.read(ws.read, "blocked_pass")],
             lambda: self.pieces.run(("blocked_cell",),
                                     functools.partial(blocked_cell, ws)),
             lambda born: self.pieces.run(
@@ -636,7 +698,10 @@ class _CapturedBlock:
         k_move, *keys = k_assign.split(6)
         self.pieces.run(("sm_head",), lambda: self.split.copy_(sm_choice(
             k_move, self.state, self.cfg, mc.sm_split_ratio)))
-        is_split = bool(self.split.tolist())  # the host read: one a move
+        # The host read: one a move.
+        is_split = bool(trace.read(self.split, "split"))
+        if trace.on:
+            trace.note_split([is_split])
 
         def move():
             state, counts = _move(is_split, keys, self.state, self.data,
@@ -690,19 +755,27 @@ def _batch_block(step, states: list[CRPState], draws: list[Draws],
     on a StackedDraws of the chains' step draws (coupled: the coupled step,
     chain 0's step draws driving the shared move choice), unstacked at the
     block's end. Returns what _make_block's block returns."""
+    block = trace.on and trace.begin("runner.block", steps=n_steps,
+                                     chains=len(states))
     keys = [d.split(n_steps + 1) for d in draws]
     batch = stack_states(states)
     rows = []
     for t in range(1, 1 + (n_steps if keep is None else keep)):
+        sp = trace.on and trace.begin("runner.step", step=t - 1)
         if coupled:
             batch, row = step(batch, keys[0][t], _own_streams(keys, t))
         else:
             batch, row = step(batch, StackedDraws([k[t] for k in keys]))
+        if sp:
+            trace.end(sp)
         rows.append(row)
     host = _rows_to_host(rows)  # [steps, chains, ...]
-    return unstack_states(batch), {
+    out = unstack_states(batch), {
         f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
         for f, v in host.items()}, [k[0] for k in keys]
+    if block:
+        trace.end(block)
+    return out
 
 
 class _CapturedBatch:
@@ -783,7 +856,7 @@ class _CapturedBatch:
         dev, c = self.device, batch.assignment.shape[0]
         self.n_chains = c
         self.slots = [TorchDraws(0, dev) for _ in range(c)]
-        self.pieces = graphs.Pieces(None, self.graph_cls)
+        self.pieces = graphs.Pieces(None, piece_family, self.graph_cls)
         self.state = CRPState(*(torch.empty_like(f) for f in batch))
         self.work = _sweep_work(self.impl, self.state, self.cfg,
                                 self.mcmc_cfg)
@@ -835,18 +908,23 @@ class _CapturedBatch:
         if coupled and self.impl == "blocked":
             raise ValueError("the coupled step runs the exact sweep, not "
                              "the blocked one")
+        block = trace.on and trace.begin("runner.block", steps=n_steps,
+                                         chains=len(states))
         batch = stack_states(states)
         if self.pieces is None or self.n_chains != len(states):
             self._setup(batch)
         _write(self.state, batch)
         host, filled = [], 0
         self.t.zero_()
-        for _ in range(n_steps if keep is None else keep):
+        for t in range(n_steps if keep is None else keep):
             if filled == self.rows_cap:
                 host.append(self._flush(filled))
                 self.t.zero_()
                 filled = 0
+            sp = trace.on and trace.begin("runner.step", step=t)
             self._step(draws, coupled)
+            if sp:
+                trace.end(sp)
             filled += 1
         host.append(self._flush(filled))
         rows = {f: np.ascontiguousarray(np.swapaxes(
@@ -854,12 +932,14 @@ class _CapturedBatch:
             for f in TraceRow._fields}
         # A TorchDraws splits into itself: each chain's next draws are its
         # own, moved on.
-        return unstack_states(self.state), rows, list(draws)
+        out = unstack_states(self.state), rows, list(draws)
+        if block:
+            trace.end(block)
+        return out
 
     def _flush(self, k: int) -> dict:
         """The first `k` rows, [k, C, ...], on the host."""
-        return {f: buf[:k].to("cpu", copy=True).numpy()
-                for f, buf in zip(TraceRow._fields, self.rows)}
+        return _flush_rows(self.rows, k)
 
     def _run(self, key, draws, chains, fn) -> None:
         """Piece `fn` under `key`, slot j drawing for chain chains[j]."""
@@ -885,12 +965,15 @@ class _CapturedBatch:
             # Chain 0's step draws drive the shared move choice.
             u0 = draws[0].uniform((3,))
             self.u.copy_(u0.expand(c, 3))
-            rows = u0[None].tolist() * c  # the step's first host read
+            # The step's first host read.
+            rows = trace.read(u0[None], "select") * c
         else:
             torch.stack([d.uniform((3,)) for d in draws], out=self.u)
-            rows = self.u.tolist()  # the step's first host read
+            rows = trace.read(self.u, "select")  # the step's first host read
         flags = [[x < t for x, t in zip(row, self.thresholds)]
                  for row in rows]
+        if trace.on:
+            trace.note_flags(flags)
         if not mc.fix_assign:
             sm = [i for i in range(c) if mc.sm_prob > 0.0 and flags[i][0]]
             self._assign(draws, sm, [i for i in range(c) if i not in sm])
@@ -919,8 +1002,14 @@ class _CapturedBatch:
         self._run(("head", ks), draws, sm + gibbs,
                   functools.partial(self._head, ks))
         # Split flags, then the sweep's first round or pass.
-        read = self.hread[:ks + (2 if blocked else 5) * kg].tolist()
+        read = trace.read(self.hread[:ks + (2 if blocked else 5) * kg],
+                          ("blocked_pass" if blocked else "round") if kg
+                          else "split")
+        if trace.on and kg and not blocked:
+            trace.count("sweeps", kg)
         if ks:
+            if trace.on:
+                trace.note_split(read[:ks])
             split = [i for i, f in zip(sm, read[:ks]) if f]
             merge = [i for i, f in zip(sm, read[:ks]) if not f]
             if split:
@@ -951,7 +1040,7 @@ class _CapturedBatch:
                         _launch, self._ws(kg), self.stream))
             if done:
                 break
-            rows = self.work.read[:kg].tolist()  # one host read a round
+            rows = trace.read(self.work.read[:kg], "round")  # one a round
         self._run(("tail", kg), draws, [],
                   functools.partial(self._tail, segment_finish, kg))
 
@@ -1370,6 +1459,8 @@ class MCMCRunner:
         in lockstep (unless the mutation axis is sharded). Returns (states,
         rows, next_draws); rows hold [n_chains, steps, ...] host arrays (an
         empty dict on a rank without chains)."""
+        if trace.on:
+            trace.new_run()
         if len(states) < 2 or not self.mcmc_cfg.coupled_moves \
                 or self.ax.sharded:
             return self._block(states, draws, n_steps, keep)
@@ -1381,14 +1472,21 @@ class MCMCRunner:
                                 keep, coupled=True)
         # Chain 0's key stream drives the shared move choice (bnpc_tpu
         # _pipe_coupled); every chain's key advances.
+        block = trace.on and trace.begin("runner.block", steps=n_steps,
+                                         chains=len(states))
         keys = [d.split(n_steps + 1) for d in draws]
         rows = [[] for _ in states]
         for t in range(1, 1 + (n_steps if keep is None else keep)):
+            sp = trace.on and trace.begin("runner.step", step=t - 1)
             states, step_rows = self._coupled_step(
                 states, keys[0][t], _own_streams(keys, t))
+            if sp:
+                trace.end(sp)
             for chain_rows, row in zip(rows, step_rows):
                 chain_rows.append(row)
         blocks = [_rows_to_host(r) for r in rows]
+        if block:
+            trace.end(block)
         return states, {f: np.stack([b[f] for b in blocks])
                         for f in TraceRow._fields}, [k[0] for k in keys]
 

@@ -69,6 +69,7 @@ from typing import NamedTuple
 
 import torch
 
+from bnpc_tpu_torch import trace
 from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
@@ -226,7 +227,7 @@ def _scan_impl(state, data, cfg, perm, gumbel, k_beta, z, aux, log_denom,
     params = state.params.clone()
     size = state.cluster_size.clone()
     z = z.clone()
-    for cell in perm.tolist():
+    for cell in trace.read(perm, "scan"):
         # Remove the cell from its cluster (libs/CRP.py:262-266).
         size[assignment[cell]] -= 1
         live = size > 0
@@ -346,8 +347,10 @@ def segment_rounds(ws: SegmentWork, n: int, births_fn) -> None:
     """The sweep's host loop: one read of ws.read a round; each round with
     a birth calls births_fn(births, relaunch) with births [(chain, cell)]
     in chain order and relaunch False once every chain has reached n."""
+    if trace.on:
+        trace.count("sweeps", ws.read.shape[0])
     while True:
-        rows = ws.read.tolist()  # one host read a round
+        rows = trace.read(ws.read, "round")  # one host read a round
         births = [(c, r[4]) for c, r in enumerate(rows) if r[1] >= 0]
         done = all(r[0] >= n for r in rows)
         if births:
@@ -690,12 +693,13 @@ def blocked_rounds(ws: BlockedWork, first_h, cell_fn, births_fn,
             if not any(f < G and f * B + j < n for f in first_h):
                 break
             cell_fn()
-            rows = ws.read.tolist()  # one host read a cell
+            rows = trace.read(ws.read, "blocked_cell")  # one host read a cell
             births = [(c, r[1]) for c, r in enumerate(rows) if r[0]]
             if births:
                 births_fn(births)
         pass_fn(min(first_h) + 1)
-        first_h = [r[0] for r in ws.read.tolist()]  # one host read a pass
+        # One host read a pass.
+        first_h = [r[0] for r in trace.read(ws.read, "blocked_pass")]
 
 
 def blocked_finish(ws: BlockedWork, state: CRPState) -> CRPState:
@@ -745,7 +749,7 @@ def _blocked_impl(draws, state, data, cfg, ax=_NO_AXIS, *, block: int):
     blocked_pass(ws)
     fp, fn = state.fp.reshape(-1), state.fn.reshape(-1)
     blocked_rounds(
-        ws, [r[0] for r in ws.read.tolist()],  # one host read a pass
+        ws, [r[0] for r in trace.read(ws.read, "blocked_pass")],
         lambda: blocked_cell(ws),
         lambda births: blocked_births(ws, births, [k_betas[c] for c, _ in
                                                    births], fp, fn, data,

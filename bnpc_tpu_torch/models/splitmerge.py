@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from bnpc_tpu_torch import trace
 from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
@@ -593,7 +594,10 @@ def split_merge(draws: Draws, state: CRPState, data: PackedData,
     same host read."""
     k_move, *keys = draws.split(6)
     split = sm_choice(k_move, state, cfg, sm_split_ratio)
-    flags = split.reshape(-1).tolist()  # the host sync: one read a move
+    # The host sync: one read a move.
+    flags = trace.read(split.reshape(-1), "split")
+    if trace.on:
+        trace.note_split(flags)
 
     def move(is_split, sub, sub_ax, take, idx):
         return _move(is_split, [take(k) for k in keys], sub, data, cfg,

@@ -5,7 +5,8 @@ started together) and the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The build happens at first use,
 into ``bnpc_tpu_torch/_build/`` (git-ignored); the library's file name
 carries a hash of the sources, headers and flags, so an edited source
-rebuilds.
+rebuilds. ``build_seconds`` holds the seconds of the last build and load
+(the tracer's ``build`` span, bnpc_tpu_torch/trace.py, when it is on).
 
 Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
 needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from bnpc_tpu_torch import trace
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -91,11 +94,10 @@ def _digest(sources) -> str:
 
 def _build(sources, so: Path) -> None:
     """One nvcc per source, all at once, then one link into `so`."""
-    global build_seconds, build_log
+    global build_log
     nvcc = _nvcc()
     work = BUILD_DIR / f"obj.{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     objs = [work / f"{s.stem}.o" for s in sources]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
                               stdout=subprocess.PIPE,
@@ -111,7 +113,6 @@ def _build(sources, so: Path) -> None:
                            *map(str, objs)], capture_output=True, text=True)
     build_log += proc.stdout + proc.stderr
     shutil.rmtree(work, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{build_log}")
@@ -120,15 +121,21 @@ def _build(sources, so: Path) -> None:
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _lib
+    global _lib, build_seconds
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter_ns()
     sources = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libbnpc_kernels_{_digest(sources)}.so"
-    if not so.exists():
+    built = not so.exists()
+    if built:
         _build(sources, so)
     lib = ctypes.CDLL(str(so))
+    t1 = time.perf_counter_ns()
+    build_seconds = (t1 - t0) * 1e-9
+    if trace.on:
+        trace.record("build", t0, t1, built=built)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -3843,7 +3843,8 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[2/13] build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc, one process per source, {_build.build_seconds:.1f} s)")
+        f"(nvcc build, one process per source, or cached load: "
+        f"{_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
