@@ -45,10 +45,11 @@ import time
 import torch
 
 from bnpc_tpu_torch import trace
-from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream, cuda_sweep
+from bnpc_tpu_torch.ops import (cuda_gibbs, cuda_mh, cuda_rg, cuda_stream,
+                                cuda_sweep)
 
 # The kernel wrappers a captured piece launches.
-COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep)
+COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep, cuda_mh)
 
 def read_counts() -> list:
     """The launch counters of COUNTED: (launches, chain_launches,

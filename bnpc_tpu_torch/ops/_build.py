@@ -10,7 +10,11 @@ rebuilds. ``build_seconds`` holds the seconds of the last build and load
 
 Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
 needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
-add is contracted into an FMA the plain torch version does not make.
+add is contracted into an FMA the plain torch version does not make. The
+MH sweep (``csrc/mh_sweep.cu``) instead reproduces ATen's own CUDA kernels,
+which nvcc and the jiterator build with FMA contraction on, so it takes
+``--fmad=true`` (its torch-level arithmetic goes through intrinsics that are
+never contracted; the file says how).
 """
 
 from __future__ import annotations
@@ -34,9 +38,12 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 ]
+# Sources built with FMA contraction on (module docstring).
+FMAD_SOURCES = ("mh_sweep.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C signatures: (argtypes) of every exported function; restype is int (the
 # cudaGetLastError() code after the launch).
@@ -64,6 +71,13 @@ _SIGNATURES = {
     "bnpc_while_exit": [_P] * 5 + [_I, _I, _I, _P],
     # seed, out, iters, stream
     "bnpc_chain_probe": [_P, _P, _I, _P],
+    # params, n1, n0, fp, fn, std_idx, u_prop, u, mask, out, declined,
+    # trans, rows, rows_per_chain, m, pm1, qm1, beta_prior, trans_prob,
+    # stream
+    "bnpc_mh_sweep": [_P] * 12 + [_I, _I, _I, _F, _F, _I, _I, _P],
+    # target, source, n1, n0, a, b, sd, fp, fn, mask, out, rows,
+    # rows_per_chain, m, pm1, qm1, beta_prior, stream
+    "bnpc_mh_realized": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _P],
 }
 
 _lib = None
@@ -84,8 +98,16 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _flags(source: Path) -> list[str]:
+    """NVCC_FLAGS for `source`, with contraction on for FMAD_SOURCES."""
+    if source.name not in FMAD_SOURCES:
+        return NVCC_FLAGS
+    return ["--fmad=true" if f == "--fmad=false" else f for f in NVCC_FLAGS]
+
+
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(FMAD_SOURCES).encode())
     for s in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -99,7 +121,7 @@ def _build(sources, so: Path) -> None:
     work = BUILD_DIR / f"obj.{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     objs = [work / f"{s.stem}.o" for s in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+    procs = [subprocess.Popen([nvcc, *_flags(s), "-c", "-o", str(o), str(s)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(sources, objs)]

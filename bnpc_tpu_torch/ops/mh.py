@@ -7,6 +7,12 @@ one shot; the math per coordinate is the reference's MH_cluster_params
 (libs/CRP.py:302-383). Under a chain axis (``ax`` a ChainAxis) the leading
 axis is the chains', FP / FN are [C], and the float sums over mutations run
 chain by chain.
+
+This torch composition runs on the CPU. On the card both entry points,
+``mh_cluster_params`` and ``realized_trans_logprob``, go to one fused kernel
+(ops/cuda_mh.py, csrc/mh_sweep.cu), whose plain twins are this composition
+on the kernel's inputs: :func:`sweep_on` on the primitives that
+``cuda_mh.primitives`` draws, and :func:`realized_sum`.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
+from bnpc_tpu_torch.ops import cuda_mh
 from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import truncnorm
@@ -80,16 +87,51 @@ def mh_cluster_params(draws, params, n1, n0, fp, fn, cfg: ModelConfig,
     summed log transition probability of the realized move: accepted
     coordinates contribute min(A, 0), declined ones log(1 - e^A). Under
     mutation sharding every draw is the shard's own, and the counts and
-    sums are over the real columns of every shard."""
-    k_std, k_prop, k_u = ax.fold_key(draws).split(3)
-    std = draw_proposal_std(k_std, tuple(params.shape))
+    sums are over the real columns of every shard.
+
+    On the CPU the torch composition below runs; a tensor on another
+    device goes to the fused kernel (ops/cuda_mh.py) on the same primitives,
+    drawn in the same order, or raises where it cannot."""
+    draws = ax.fold_key(draws)
+    shape = tuple(params.shape)
+    if params.device.type != "cpu":
+        prims = cuda_mh.primitives(draws, shape, len(PARAM_PROPOSAL_SD))
+        new_params, trans, declined = cuda_mh.mh_sweep(
+            params.contiguous(), n1.contiguous(), n0.contiguous(), fp, fn,
+            *prims, cfg, trans_prob, ax.mask)
+        return MHParamsResult(new_params,
+                              ax.psum(trans) if trans_prob else trans,
+                              ax.psum(declined))
+    k_std, k_prop, k_u = draws.split(3)
+    std = draw_proposal_std(k_std, shape)
     a = (TMIN - params) / std
     b = (TMAX - params) / std
     proposal = k_prop.truncnorm(a, b, params, std).to(torch.float32)
+    return mh_accept(params, proposal, a, b, std, k_u.uniform(shape), n1, n0,
+                     fp, fn, cfg, trans_prob, ax)
 
+
+def sweep_on(params, n1, n0, fp, fn, std_idx, u_prop, u, cfg: ModelConfig,
+             trans_prob: bool, ax: MutAxis = _NO_AXIS) -> MHParamsResult:
+    """:func:`mh_cluster_params`' composition on drawn primitives (the std
+    index, the proposal's uniform, the acceptance uniform; what
+    ``cuda_mh.primitives`` draws): the fused kernel's plain twin."""
+    std = choose(std_idx, PARAM_PROPOSAL_SD)
+    a = (TMIN - params) / std
+    b = (TMAX - params) / std
+    proposal = truncnorm.from_uniform(u_prop, a, b, params, std)
+    return mh_accept(params, proposal, a, b, std, u, n1, n0, fp, fn, cfg,
+                     trans_prob, ax)
+
+
+def mh_accept(params, proposal, a, b, std, u, n1, n0, fp, fn,
+              cfg: ModelConfig, trans_prob: bool,
+              ax: MutAxis = _NO_AXIS) -> MHParamsResult:
+    """The accept step of :func:`mh_cluster_params` for a drawn `proposal`
+    (bounds `a`, `b`, `std`) and acceptance uniforms `u`."""
     A = log_A(proposal, params, n1, n0, a, b, std, fp, fn, cfg,
               clip=trans_prob)
-    log_u = torch.log(k_u.uniform(tuple(params.shape)))
+    log_u = torch.log(u)
     decline = log_u >= A
 
     new_params = torch.where(decline, params, proposal)
@@ -112,6 +154,17 @@ def realized_trans_logprob(target, source, n1, n0, a, b, std, fp, fn,
                            cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
     """Summed log transition probability of an MH sweep moving `source` ->
     `target`, every coordinate treated as accepted (the split-merge reverse
-    paths, libs/CRP.py:668-682, 777-797)."""
+    paths, libs/CRP.py:668-682, 777-797). Off the CPU, the fused kernel's
+    realized mode (ops/cuda_mh.py)."""
+    if target.device.type != "cpu":
+        return ax.psum(cuda_mh.realized(
+            *(t.contiguous() for t in (target, source, n1, n0, a, b, std)),
+            fp, fn, cfg, ax.mask))
+    return realized_sum(target, source, n1, n0, a, b, std, fp, fn, cfg, ax)
+
+
+def realized_sum(target, source, n1, n0, a, b, std, fp, fn,
+                 cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
+    """The torch composition of :func:`realized_trans_logprob`."""
     A = log_A(target, source, n1, n0, a, b, std, fp, fn, cfg, clip=True)
     return ax.psum(ax.sum(ax.apply_mask(A), dim=-1))

@@ -36,11 +36,17 @@ def logpdf(x, a, b, loc, scale):
 
 
 def rvs(draws, a, b, loc, scale):
-    """Truncated-normal variates by inverse CDF (tensor arguments);
-    probabilities are clamped away from {0, 1} so ndtri never returns
-    inf."""
+    """Truncated-normal variates by inverse CDF (tensor arguments): one
+    uniform an element from `draws`, then :func:`from_uniform`."""
     a, b, loc, scale = torch.broadcast_tensors(a, b, loc, scale)
-    u = draws.uniform(a.shape)
+    return from_uniform(draws.uniform(a.shape), a, b, loc, scale)
+
+
+def from_uniform(u, a, b, loc, scale):
+    """The inverse-CDF variates of uniforms `u` (every argument of one
+    shape). Probabilities are clamped to [1e-12, 1 - 1e-12], whose upper
+    end is 1.0 in float32: an ndtri of inf there ends at the interval's
+    upper bound."""
     pa, pb = ndtr(a), ndtr(b)
     p = torch.clamp(pa + u * (pb - pa), 1e-12, 1.0 - 1e-12)
     x = loc + scale * ndtri(p)

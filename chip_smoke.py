@@ -66,6 +66,21 @@ Phases (any failure exits non-zero, and no result line is printed):
                                n - 1) at 128 cells and k_pad 32 ... 1,024,
                                sizes bit for bit; timed beside lazy_segment
                                on the same z and perm, in turns;
+                 mh_sweep      the fused MH sweep against the torch
+                               composition it replaces (ops/mh.py::sweep_on,
+                               run on the card) on one generator state, at
+                               256 x 200, 2 x 200, 200 and 3 x 256 x 200:
+                               new params and declined counts bit for bit,
+                               row sums within 2 m 2^-24 (same-signed terms
+                               added in another order); the realized mode;
+                               a batch == its one-chain launches; the
+                               runner's captured block == its eager block
+                               with the kernel's launches counted alike
+                               under replay; its time a call inside a CUDA
+                               graph beside the composition's and its bytes
+                               bound (run it alone with `python3 -c "import
+                               chip_smoke as cs; cs.phase_mh_sweep('cuda',
+                               cs.nvidia_smi())"`);
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
@@ -359,12 +374,14 @@ def max_err(pairs) -> float:
 
 
 def kernel_modules():
-    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream, cuda_sweep
+    from bnpc_tpu_torch.ops import (cuda_gibbs, cuda_mh, cuda_rg, cuda_stream,
+                                    cuda_sweep)
     from bnpc_tpu_torch.probes import vecflow_probe, while_probe
 
     return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
             "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep,
-            "vecflow": vecflow_probe, "while_exit": while_probe}
+            "vecflow": vecflow_probe, "while_exit": while_probe,
+            "mh_sweep": cuda_mh}
 
 
 def reset_launches():
@@ -1241,6 +1258,302 @@ def phase_while_exit(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, kernel 7: the fused MH sweep against the torch composition
+# ---------------------------------------------------------------------------
+
+# The MH sweep's callers' row shapes: update_parameters (k_max rows), a
+# split launch pair, a merge row, and a batch of 3 chains of k_max rows.
+MH_SHAPES = (("update_parameters", (K_MAX, M), 0), ("split", (2, M), 0),
+             ("merge", (M,), 0), ("batch3", (3, K_MAX, M), 3))
+MH_SEEDS = (2147483901, 3100000007, 17)
+
+
+def mh_rows(shape, chains, seed, dev):
+    """Parameter rows as the bench's Beta(0.25, 0.25) prior leaves them
+    (many near TMIN / TMAX), member counts up to 5,000 cells, and one
+    chain's (0-d) or `chains` chains' ([C]) error rates."""
+    import torch
+
+    from bnpc_tpu_torch.config import TMAX, TMIN
+
+    rng = np.random.default_rng(seed % 2**32)
+    params = np.clip(rng.beta(0.25, 0.25, shape), TMIN, TMAX)
+    n1 = rng.integers(0, 300, shape)
+    n0 = rng.integers(0, 5000, shape)
+    rates = (chains,) if chains else ()
+    fp = rng.uniform(0.001, 0.02, rates)
+    fn = rng.uniform(0.1, 0.3, rates)
+    return [torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+            for x in (params, n1, n0, fp, fn)]
+
+
+def mh_primitives(seed, shape, dev):
+    """The sweep's three primitives in the composition's order."""
+    d = TorchDraws(seed, dev)
+    return (d.randint(shape, 0, 3), d.uniform(shape), d.uniform(shape))
+
+
+def mh_sums_close(tag, got, want, m):
+    """Per-row sums of same-signed terms (each <= 0) added in two orders:
+    each within (m - 1) float32 roundings of the exact sum, so within
+    2 m 2^-24 of each other relative to it. Returns the largest relative
+    gap."""
+    import torch
+
+    rtol = 2 * m * 2.0**-24
+    gap = ((got.double() - want.double()).abs()
+           / want.double().abs().clamp(min=1e-30))
+    worst = float(gap.max()) if gap.numel() else 0.0
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)) \
+            or worst > rtol:
+        raise AssertionError(f"{tag}: row sums {worst:.3g} apart "
+                             f"(limit {rtol:.3g})")
+    return worst
+
+
+def mh_case(dev, shape, chains, seed, cfg, trans, mask):
+    """ops/mh.py on TorchDraws(seed) (the kernel, on the card) against the
+    composition on the same generator state's primitives (mh.sweep_on):
+    new params and declined counts bit for bit, the generator left in the
+    same state, row sums as above. Returns (largest row-sum gap, largest
+    |got - want| of the new params)."""
+    import torch
+
+    from bnpc_tpu_torch.ops import mh
+    from bnpc_tpu_torch.parallel.axis import MutAxis
+
+    params, n1, n0, fp, fn = mh_rows(shape, chains, seed, dev)
+    ax = MutAxis(mask=mask)
+    d = TorchDraws(seed, dev)
+    got = mh.mh_cluster_params(d, params, n1, n0, fp, fn, cfg, trans, ax)
+    ref = TorchDraws(seed, dev)
+    idx, u_prop, u = (ref.randint(shape, 0, 3), ref.uniform(shape),
+                      ref.uniform(shape))
+    want = mh.sweep_on(params, n1, n0, fp, fn, idx, u_prop, u, cfg, trans,
+                       ax)
+    err = float((got.params - want.params).abs().max())
+    tag = f"mh_sweep {tuple(shape)} trans {trans} seed {seed}"
+    if not torch.equal(d.gen.get_state(), ref.gen.get_state()):
+        raise AssertionError(f"{tag}: the generator moved otherwise")
+    diff = got.params != want.params
+    if diff.any():
+        ulps = (got.params.view(torch.int32)
+                - want.params.view(torch.int32)).abs()[diff]
+        flags = (got.params == params) != (want.params == params)
+        raise AssertionError(f"{tag}: {int(diff.sum())} new params differ "
+                             f"(up to {int(ulps.max())} ulps); declined "
+                             f"flags differ at {int(flags.sum())}")
+    if not torch.equal(got.declined, want.declined):
+        raise AssertionError(f"{tag}: declined counts differ")
+    gap = mh_sums_close(tag, got.trans_logprob, want.trans_logprob,
+                        shape[-1]) if trans else 0.0
+    if not trans and bool(got.trans_logprob.any()):
+        raise AssertionError(f"{tag}: a transition sum without trans_prob")
+    return gap, err
+
+
+def mh_realized_case(dev, shape, chains, seed, cfg, mask):
+    """The realized mode against the composition (row sums), and a sweep
+    that accepts every coordinate against the realized mode on its move,
+    bit for bit (the two modes share the log-acceptance and the sums)."""
+    import torch
+
+    from bnpc_tpu_torch.config import TMAX, TMIN
+    from bnpc_tpu_torch.ops import cuda_mh, mh
+    from bnpc_tpu_torch.parallel.axis import MutAxis
+
+    params, n1, n0, fp, fn = mh_rows(shape, chains, seed, dev)
+    idx, u_prop, _ = mh_primitives(seed, shape, dev)
+    std = mh.choose(idx, mh.PARAM_PROPOSAL_SD)
+    a, b = (0.0 - params) / std, (1.0 - params) / std
+    target = mh_rows(shape, chains, seed + 1, dev)[0]
+    got = cuda_mh.realized(target, params, n1, n0, a, b, std, fp, fn, cfg,
+                           mask)
+    want = mh.realized_sum(target, params, n1, n0, a, b, std, fp, fn, cfg,
+                           MutAxis(mask=mask))
+    gap = mh_sums_close(f"mh_realized {tuple(shape)} seed {seed}", got, want,
+                        shape[-1])
+    new, trans, declined = cuda_mh.mh_sweep(
+        params, n1, n0, fp, fn, idx, u_prop, torch.zeros_like(params), cfg,
+        True, mask)
+    a, b = (TMIN - params) / std, (TMAX - params) / std
+    again = cuda_mh.realized(new, params, n1, n0, a, b, std, fp, fn, cfg,
+                             mask)
+    if int(declined.sum()) or not torch.equal(again, trans):
+        raise AssertionError(f"mh_realized {tuple(shape)} seed {seed}: the "
+                             "accepted sweep's sums differ from the "
+                             "realized mode's")
+    return gap
+
+
+def mh_batch_case(dev, seed, cfg):
+    """A batch of 3 chains in one launch == 3 one-chain launches on each
+    chain's slice, bit for bit (the row sums' order depends on m alone)."""
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_mh
+
+    shape = (3, K_MAX, M)
+    params, n1, n0, fp, fn = mh_rows(shape, 3, seed, dev)
+    prims = mh_primitives(seed, shape, dev)
+    batch = cuda_mh.mh_sweep(params, n1, n0, fp, fn, *prims, cfg, True)
+    for c in range(3):
+        one = cuda_mh.mh_sweep(params[c], n1[c], n0[c], fp[c], fn[c],
+                               *(p[c] for p in prims), cfg, True)
+        for f, g, w in zip(("params", "trans", "declined"), batch, one):
+            if not torch.equal(g[c], w):
+                raise AssertionError(f"mh_sweep batch seed {seed}: chain "
+                                     f"{c}'s {f} differs from its "
+                                     "one-chain launch")
+
+
+def mh_graph_ms(fn, calls, reps=20):
+    """Milliseconds a call of fn() inside a CUDA graph that holds `calls`
+    calls back to back (median over `reps` replays)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps) / calls
+
+
+def mh_kernels_per_call(fn):
+    """Device kernels of one eager fn() call (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def mh_captured(dev):
+    """The runner's captured block against its eager block at a small
+    cell, two 32-step windows from one state: bit for bit, and the MH
+    kernel's launches counted alike (replays add what the capture took,
+    graphs.COUNTED), and not zero. Returns launches a step."""
+    import functools
+
+    import torch
+
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.ops import cuda_mh
+
+    n, steps = 1000, 32
+    data, _ = make_data(n, M, 5, 0.1, seed=1)
+    cfg, mc = bench_configs(n, 64)
+    runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                             block_size=steps)
+    forms = {"eager": functools.partial(mcmc._chain_block, runner._step),
+             "captured": runner.run_block}
+    state = runner.init_chains(TorchDraws(0, dev))[0]
+    draws = TorchDraws(1, dev)
+    per_step = []
+    for w in range(2):
+        gen, out, count = draws.gen.get_state(), {}, {}
+        for form, fn in forms.items():
+            d = TorchDraws(1, dev)
+            d.gen.set_state(gen)
+            before = cuda_mh.launches
+            out[form] = fn(state, d, steps)
+            torch.cuda.synchronize()
+            count[form] = cuda_mh.launches - before
+        same_block(f"mh captured window {w}", out["captured"], out["eager"])
+        if count["captured"] != count["eager"] or not count["eager"]:
+            raise AssertionError(f"mh captured window {w}: launches "
+                                 f"{count}")
+        per_step.append(count["eager"] / steps)
+        state, draws = out["captured"][0], out["captured"][2]
+    return per_step
+
+
+def phase_mh_sweep(dev, smi):
+    """Kernel 7 (csrc/mh_sweep.cu) against the torch composition it
+    replaces, on the card: new params and declined counts bit for bit at
+    the four caller shapes, trans_prob off and on, the bench's Beta(0.25,
+    0.25) prior, a uniform prior and a padded column mask; row sums within
+    their summation-order limit; the realized mode; a batch against its
+    one-chain launches; the runner's captured block against its eager one;
+    then the kernel's time a call inside a CUDA graph against its bytes
+    bound and against the composition's."""
+    import dataclasses
+
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_mh, mh
+
+    cfg, _ = bench_configs()
+    uniform = dataclasses.replace(cfg, p=1.0, q=1.0)
+    mask = torch.ones(M, device=dev)
+    mask[-3:] = 0.0
+    cases = [(shape, chains, seed, cfg, trans, None)
+             for _, shape, chains in MH_SHAPES for seed in MH_SEEDS
+             for trans in (False, True)]
+    cases += [(shape, chains, 5, uniform, True, None)
+              for _, shape, chains in MH_SHAPES]
+    cases += [(shape, 0, 9, cfg, trans, mask)
+              for shape in ((K_MAX, M), (2, M)) for trans in (False, True)]
+    gaps, errs = zip(*(mh_case(dev, *case) for case in cases))
+    worst, max_abs_err = max(gaps), max(errs)
+    for shape, chains in (((M,), 0), ((2, M), 0), ((3, M), 3)):
+        for seed in MH_SEEDS:
+            worst = max(worst, mh_realized_case(dev, shape, chains, seed,
+                                                cfg, None))
+        worst = max(worst, mh_realized_case(dev, shape, chains, 13, cfg,
+                                            mask))
+    for seed in MH_SEEDS:
+        mh_batch_case(dev, seed, cfg)
+    log(f"  mh_sweep == the torch composition: new params and declined "
+        f"counts bit for bit at {[s for _, s, _ in MH_SHAPES]}, "
+        f"{len(MH_SEEDS)} seeds, trans_prob off / on, Beta(0.25, 0.25) and "
+        f"uniform priors, a padded mask; realized mode; row sums within "
+        f"2 m 2^-24 (largest gap {worst:.3g}); a batch of 3 == its "
+        "one-chain launches bit for bit")
+    launches_per_step = mh_captured(dev)
+    log(f"  mh_sweep in the captured block: == eager bit for bit, "
+        f"{launches_per_step} launches a step counted under replay")
+
+    timing = {}
+    for name, shape, chains in MH_SHAPES:
+        params, n1, n0, fp, fn = mh_rows(shape, chains, 1, dev)
+        prims = mh_primitives(1, shape, dev)
+
+        def kernel():
+            cuda_mh.mh_sweep(params, n1, n0, fp, fn, *prims, cfg, True)
+
+        def composed():
+            mh.sweep_on(params, n1, n0, fp, fn, *prims, cfg, True)
+
+        rows = params.numel() // M
+        moved = params.numel() * 7 * 4 + rows * 8
+        timing[name] = {
+            "kernel_graph_ms": mh_graph_ms(kernel, 50),
+            "kernel_eager_ms": cuda_ms(kernel, 200),
+            "composition_graph_ms": mh_graph_ms(composed, 1),
+            "composition_eager_ms": cuda_ms(composed, 50),
+            "composition_kernels": mh_kernels_per_call(composed),
+            "bytes_bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        log(f"  mh_sweep {name} {tuple(shape)} ({smi}): "
+            + ", ".join(f"{k} {v:.5g}" for k, v in timing[name].items()))
+    main = timing["update_parameters"]
+    return {"max_abs_err": max_abs_err, "row_sum_rel_gap": worst,
+            "launches_per_step": launches_per_step, "timing": timing,
+            "ms": main["kernel_graph_ms"],
+            "plain_ms": main["composition_graph_ms"],
+            "bound_ms": main["bytes_bound_ms"], "bound_by": "bytes"}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: small input, GPU against CPU on identical draws
 # ---------------------------------------------------------------------------
 
@@ -1409,7 +1722,7 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
     if s_counts.size != launches["rg_scan"]:
         raise AssertionError(f"{name}: {s_counts.size} scan lengths noted, "
                              f"{launches['rg_scan']} rg_scan launches")
-    check_launches(name, launches, {sweep_kernel, "rg_scan"})
+    check_launches(name, launches, {sweep_kernel, "rg_scan", "mh_sweep"})
     a, sizes = check_state(state, [warm_rows, rows], n, k_max)
 
     sm_steps = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) > 0).sum())
@@ -1744,7 +2057,7 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_launches()
-    check_launches(f"cli {cell}", launches, {sweep, "rg_scan"})
+    check_launches(f"cli {cell}", launches, {sweep, "rg_scan", "mh_sweep"})
     assigns = check_outputs(out_dir, estimators_, n, M)
     score = ari(assigns["posterior"], truth)
     line = stages.line()
@@ -1919,7 +2232,8 @@ def mode_chains(dev, data, cfg, mc):
     res = runner.run((256, 85), seed=7, n_chains=4)
     chains_s = time.perf_counter() - t0
     launches = read_launches()
-    check_launches("chains", launches, {"lazy_segment", "rg_scan"})
+    check_launches("chains", launches,
+                   {"lazy_segment", "rg_scan", "mh_sweep"})
     check_results("chains", res, kept.states, N, K_MAX, 257)
     seeds = runner.seeds.tolist()
     one = modes_runner(data, cfg, mc, dev)
@@ -1953,7 +2267,8 @@ def mode_coupled(dev, data, cfg, mc):
     res = runner.run((64, 21), seed=8, n_chains=2)
     secs = time.perf_counter() - t0
     launches = read_launches()
-    check_launches("coupled", launches, {"lazy_segment", "rg_scan"})
+    check_launches("coupled", launches,
+                   {"lazy_segment", "rg_scan", "mh_sweep"})
     check_results("coupled", res, kept.states, N, K_MAX, 65)
     out = {"chain_steps_per_s": 2 * 64 / secs, "launches": launches}
     log(f"  (b) coupled: 2 x 64 steps, {out['chain_steps_per_s']:.3f} "
@@ -2076,7 +2391,7 @@ def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
         launches = read_launches()
         gibbs = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) == 0).sum())
         a, sizes = check_state(state, [rows], n, k_max)
-        used = {"rg_scan"} if gibbs < timed else set()
+        used = {"rg_scan", "mh_sweep"} if gibbs < timed else {"mh_sweep"}
         if name == "exact" and gibbs:
             used.add(sweep)
         check_launches(f"blocked {n} {name}", launches, used)
@@ -2357,7 +2672,7 @@ def mesh_batched_check(ranks, smi):
                     raise AssertionError(f"{tag} vmap rank {r}: {name} "
                                          f"grids {g}")
             check_launches(f"{tag} vmap rank {r}", run["launches"],
-                           {"lazy_segment", "rg_scan"})
+                           {"lazy_segment", "rg_scan", "mh_sweep"})
             if any(v for k, v in read_one_chain_launches_of(run).items()):
                 raise AssertionError(f"{tag} vmap rank {r}: one-chain "
                                      "launches")
@@ -2532,7 +2847,7 @@ def phase_mesh(dev, smi):
                      want)
         for r, a in enumerate((a0, a1)):
             check_launches(f"mesh 2x1 rank {r}", a["launches"],
-                           {"lazy_segment", "rg_scan"})
+                           {"lazy_segment", "rg_scan", "mh_sweep"})
         log(f"  (a) 2 x 1 at {N:,} x {M}: 2 chains x {MESH_STEPS} steps, "
             f"{2 * MESH_STEPS / max(a0['seconds'], a1['seconds']):.3f} "
             f"chain-steps/s (ranks {a0['seconds']:.3f} / "
@@ -2548,7 +2863,7 @@ def phase_mesh(dev, smi):
                                  f"{b1['hashes']}")
         for r, b in enumerate((b0, b1)):
             check_launches(f"mesh 1x2 rank {r}", b["launches"],
-                           {"lazy_segment", "rg_scan"})
+                           {"lazy_segment", "rg_scan", "mh_sweep"})
         res = b0["results"][0]
         if res.ML.shape != (MESH_STEPS + 1,) or not (
                 np.isfinite(res.ML).all() and np.isfinite(res.MAP).all()):
@@ -3856,7 +4171,8 @@ def main():
          "lazy_stream": phase_lazy_stream(dev),
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev, smi),
-         "while_exit": phase_while_exit(dev, smi)}
+         "while_exit": phase_while_exit(dev, smi),
+         "mh_sweep": phase_mh_sweep(dev, smi)}
     log("[4/13] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
@@ -3914,6 +4230,15 @@ def main():
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in meta.items()]
+    # Kernel 7 replaces no TPU kernel; its launches are the main path's.
+    mh_out = k["mh_sweep"]
+    kernels.append({
+        "name": "mh_sweep", "route": "cuda",
+        "source": "bnpc_tpu_torch/csrc/mh_sweep.cu", "replaces": None,
+        "launches": main_out["launches_path"]["mh_sweep"],
+        "max_abs_err": mh_out["max_abs_err"], "ms": mh_out["ms"],
+        "plain_ms": mh_out["plain_ms"], "bound_ms": mh_out["bound_ms"],
+        "bound_by": mh_out["bound_by"], "library_ms": None})
     # Kernels 1-3 on a chain grid: one launch of 16 chains, and the batched
     # launches of phase 12's paths (main cell, 4 chains; large-n, 2).
     batched_path = {"lazy_segment": chains_out["main_4"]["launches"],
