@@ -45,11 +45,11 @@ import time
 import torch
 
 from bnpc_tpu_torch import trace
-from bnpc_tpu_torch.ops import (cuda_gibbs, cuda_mh, cuda_rg, cuda_stream,
-                                cuda_sweep)
+from bnpc_tpu_torch.ops import (cuda_beta, cuda_gibbs, cuda_mh, cuda_rg,
+                                cuda_stream, cuda_sweep)
 
 # The kernel wrappers a captured piece launches.
-COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep, cuda_mh)
+COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep, cuda_mh, cuda_beta)
 
 def read_counts() -> list:
     """The launch counters of COUNTED: (launches, chain_launches,

@@ -46,7 +46,7 @@ from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import mh
 from bnpc_tpu_torch.ops.cuda_rg import rg_scan, rg_scan_chains
 from bnpc_tpu_torch.parallel.axis import MutAxis
-from bnpc_tpu_torch.state import (CRPState, beta_posterior_params,
+from bnpc_tpu_torch.state import (CRPState, beta_posterior_rows,
                                   by_chain_flag, first_free_slot)
 
 NEG_INF = float("-inf")
@@ -205,16 +205,14 @@ def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
     rg = (ax.psum(ax.rmul(data.xm, c1j - c1i)
                   + ax.rmul(data.xm0, c0j - c0i)) > 0).to(torch.int32)
 
+    # The split pair's rows and the merge row from their Beta posteriors:
+    # the three rows' counts in one product, then their draws in the order
+    # k_i, k_j, k_m (one launch of kernel 8 on the card).
     side0, side1 = _side_masks(ctx, rg)
-    n1_0, n0_0 = _masked_counts(side0, data)
-    n1_1, n0_1 = _masked_counts(side1, data)
-    params_split = torch.stack([
-        beta_posterior_params(k_i, cfg, n1_0, n0_0),
-        beta_posterior_params(k_j, cfg, n1_1, n0_1),
-    ], dim=-2)
-    n1_m, n0_m = _masked_counts(ctx.cells.to(torch.float32), data)
-    params_merge = beta_posterior_params(k_m, cfg, n1_m, n0_m)
-    return _RGState(rg, params_split, params_merge)
+    n1, n0 = _masked_counts(torch.stack(
+        [side0, side1, ctx.cells.to(torch.float32)], dim=-2), data)
+    rows = beta_posterior_rows((k_i, k_j, k_m), cfg, n1, n0)
+    return _RGState(rg, rows[..., :2, :], rows[..., 2, :])
 
 
 def _visit_order(k_perm: Draws, s_mask, rg_launch, ll2, dz):

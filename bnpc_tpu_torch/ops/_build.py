@@ -11,10 +11,11 @@ rebuilds. ``build_seconds`` holds the seconds of the last build and load
 Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
 needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
 add is contracted into an FMA the plain torch version does not make. The
-MH sweep (``csrc/mh_sweep.cu``) instead reproduces ATen's own CUDA kernels,
-which nvcc and the jiterator build with FMA contraction on, so it takes
-``--fmad=true`` (its torch-level arithmetic goes through intrinsics that are
-never contracted; the file says how).
+MH sweep (``csrc/mh_sweep.cu``) and the Beta posterior rows
+(``csrc/beta_post.cu``) instead reproduce ATen's own CUDA kernels, which
+nvcc and the jiterator build with FMA contraction on, so they take
+``--fmad=true`` (their torch-level arithmetic goes through intrinsics that
+are never contracted; each file says how).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-Xptxas", "-v",
 ]
 # Sources built with FMA contraction on (module docstring).
-FMAD_SOURCES = ("mh_sweep.cu",)
+FMAD_SOURCES = ("beta_post.cu", "mh_sweep.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +79,8 @@ _SIGNATURES = {
     # target, source, n1, n0, a, b, sd, fp, fn, mask, out, rows,
     # rows_per_chain, m, pm1, qm1, beta_prior, stream
     "bnpc_mh_realized": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _P],
+    # n1, n0, prims, out, rows, m, p, q, stream
+    "bnpc_beta_post": [_P] * 4 + [_I, _I, _F, _F, _P],
 }
 
 _lib = None

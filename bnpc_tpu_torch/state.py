@@ -25,6 +25,7 @@ import torch
 from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
+from bnpc_tpu_torch.ops import cuda_beta, randomx
 
 
 class CRPState(NamedTuple):
@@ -131,7 +132,29 @@ def sizes_of(assignment: torch.Tensor, k_max: int) -> torch.Tensor:
 def beta_posterior_params(draws: Draws, cfg: ModelConfig, n1, n0):
     """Rows from Beta(p + N1, q + N0), clipped to [TMIN, TMAX]
     (libs/CRP.py:155-188)."""
-    draw = draws.beta_general(cfg.p + n1, cfg.q + n0)
+    return beta_posterior_rows((draws,), cfg, n1[..., None, :],
+                               n0[..., None, :])[..., 0, :]
+
+
+def beta_posterior_rows(keys, cfg: ModelConfig, n1, n0):
+    """``beta_posterior_params(keys[g], cfg, n1[..., g, :], n0[..., g,
+    :])`` for each group g of the [..., G, m] counts, drawn in that order,
+    as one [..., G, m] tensor. On the CPU the torch composition below runs;
+    a tensor on another device goes to kernel 8 (ops/cuda_beta.py), one
+    launch for every row, on the same draws, or raises for a provider the
+    kernel cannot replay."""
+    if n1.device.type != "cpu":
+        return cuda_beta.posterior(keys, n1, n0, cfg)
+    return torch.stack([torch.clamp(k.beta_general(cfg.p + n1[..., g, :],
+                                                   cfg.q + n0[..., g, :]),
+                                    TMIN, TMAX).to(torch.float32)
+                        for g, k in enumerate(keys)], dim=-2)
+
+
+def beta_posterior_on(prims, cfg: ModelConfig, n1, n0):
+    """beta_posterior_params' arithmetic on its drawn primitives (what
+    ops/cuda_beta.py::primitives draws): kernel 8's plain twin for a row."""
+    draw = randomx.beta_general_on(prims, cfg.p + n1, cfg.q + n0)
     return torch.clamp(draw, TMIN, TMAX).to(torch.float32)
 
 

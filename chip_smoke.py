@@ -81,6 +81,21 @@ Phases (any failure exits non-zero, and no result line is printed):
                                bound (run it alone with `python3 -c "import
                                chip_smoke as cs; cs.phase_mh_sweep('cuda',
                                cs.nvidia_smi())"`);
+                 beta_post     the fused Beta posterior rows against the
+                               torch composition they replace (randomx.
+                               beta_general and the clamp, run on the card)
+                               on one generator state, at 3 x 200 (a split-
+                               merge launch), 1 x 200 and 256 x 200, and
+                               against the twin on the wrapper's draws, bit
+                               for bit with the generator's state; a batch
+                               of 4 chains == its one-chain launches; the
+                               crafted rows of BETA_CRAFTED == the twin; the
+                               runner's captured block == its eager block
+                               with the kernel's launches counted alike;
+                               its time a call inside a CUDA graph beside
+                               the composition's arithmetic (run it alone
+                               with `python3 -c "import chip_smoke as cs;
+                               cs.phase_beta_post('cuda', cs.nvidia_smi())"`);
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
@@ -374,14 +389,14 @@ def max_err(pairs) -> float:
 
 
 def kernel_modules():
-    from bnpc_tpu_torch.ops import (cuda_gibbs, cuda_mh, cuda_rg, cuda_stream,
-                                    cuda_sweep)
+    from bnpc_tpu_torch.ops import (cuda_beta, cuda_gibbs, cuda_mh, cuda_rg,
+                                    cuda_stream, cuda_sweep)
     from bnpc_tpu_torch.probes import vecflow_probe, while_probe
 
     return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
             "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep,
             "vecflow": vecflow_probe, "while_exit": while_probe,
-            "mh_sweep": cuda_mh}
+            "mh_sweep": cuda_mh, "beta_post": cuda_beta}
 
 
 def reset_launches():
@@ -1436,11 +1451,12 @@ def mh_kernels_per_call(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def mh_captured(dev):
+def mh_captured(dev, mod=None):
     """The runner's captured block against its eager block at a small
-    cell, two 32-step windows from one state: bit for bit, and the MH
-    kernel's launches counted alike (replays add what the capture took,
-    graphs.COUNTED), and not zero. Returns launches a step."""
+    cell, two 32-step windows from one state: bit for bit, and the launches
+    of kernel wrapper `mod` (default the MH sweep's) counted alike (replays
+    add what the capture took, graphs.COUNTED), and not zero. Returns
+    launches a step."""
     import functools
 
     import torch
@@ -1449,6 +1465,7 @@ def mh_captured(dev):
     from bnpc_tpu_torch.data import pack_data
     from bnpc_tpu_torch.ops import cuda_mh
 
+    mod = mod or cuda_mh
     n, steps = 1000, 32
     data, _ = make_data(n, M, 5, 0.1, seed=1)
     cfg, mc = bench_configs(n, 64)
@@ -1464,14 +1481,14 @@ def mh_captured(dev):
         for form, fn in forms.items():
             d = TorchDraws(1, dev)
             d.gen.set_state(gen)
-            before = cuda_mh.launches
+            before = mod.launches
             out[form] = fn(state, d, steps)
             torch.cuda.synchronize()
-            count[form] = cuda_mh.launches - before
-        same_block(f"mh captured window {w}", out["captured"], out["eager"])
+            count[form] = mod.launches - before
+        tag = f"{mod.__name__} captured window {w}"
+        same_block(tag, out["captured"], out["eager"])
         if count["captured"] != count["eager"] or not count["eager"]:
-            raise AssertionError(f"mh captured window {w}: launches "
-                                 f"{count}")
+            raise AssertionError(f"{tag}: launches {count}")
         per_step.append(count["eager"] / steps)
         state, draws = out["captured"][0], out["captured"][2]
     return per_step
@@ -1551,6 +1568,244 @@ def phase_mh_sweep(dev, smi):
             "ms": main["kernel_graph_ms"],
             "plain_ms": main["composition_graph_ms"],
             "bound_ms": main["bytes_bound_ms"], "bound_by": "bytes"}
+
+
+# Kernel 8's crafted rows (row names; beta_crafted builds them).
+BETA_CRAFTED = ("v_nonpositive", "all_reject", "first_round", "third_round",
+                "u_zero", "no_counts", "clamp_low", "clamp_high",
+                "zero_denominator", "large_counts")
+BETA_SEEDS = (2147483659, 3000000019, 23)
+
+
+def beta_crafted(dev, m=8, seed=0):
+    """Rows of counts and primitives that reach each branch of the Beta
+    sampler, one row a name of BETA_CRAFTED: every round rejecting through
+    v <= 0 (normals of -10) or through a high uniform with v > 0 (normals
+    of 3, uniforms 0.99), gamma a's first or third round accepting and
+    later ones accepting too (first accept wins), uniforms of 0 (log -inf),
+    no counts, a zero boost uniform in gamma a (clamped to TMIN), in gamma
+    b (to TMAX) and in both (0 / 0: 0.5), and large counts. Returns (n1,
+    n0 [R, m], the 26 primitives [R, m] each, the names)."""
+    import torch
+
+    from bnpc_tpu_torch.ops.randomx import BETA_PRIMITIVES, GAMMA_PRIMITIVES
+
+    g = torch.Generator().manual_seed(seed)
+    rows = len(BETA_CRAFTED)
+    n1 = torch.randint(0, 40, (rows, m), generator=g).to(torch.float32)
+    n0 = torch.randint(0, 400, (rows, m), generator=g).to(torch.float32)
+    boost = GAMMA_PRIMITIVES - 1
+    prims = []
+    for t in range(BETA_PRIMITIVES):
+        # A gamma's even draws before its boost are normals, the rest
+        # uniforms.
+        i = t % GAMMA_PRIMITIVES
+        draw = torch.randn if i < boost and i % 2 == 0 else torch.rand
+        prims.append(draw((rows, m), generator=g))
+    row = {name: r for r, name in enumerate(BETA_CRAFTED)}
+
+    def rounds(r, xs, us, gamma=0):
+        for i, (x, u) in enumerate(zip(xs, us)):
+            prims[gamma * GAMMA_PRIMITIVES + 2 * i][r] = x
+            prims[gamma * GAMMA_PRIMITIVES + 2 * i + 1][r] = u
+
+    for name in ("v_nonpositive", "all_reject", "first_round",
+                 "third_round"):
+        n1[row[name]], n0[row[name]] = 3.0, 1.0
+    for gamma in (0, 1):
+        rounds(row["v_nonpositive"], [-10.0] * 6, [0.5] * 6, gamma)
+        rounds(row["all_reject"], [3.0] * 6, [0.99] * 6, gamma)
+        rounds(row["u_zero"], [0.1] * 6, [0.0] * 6, gamma)
+    rounds(row["first_round"], [0.5] + [1.0] * 5, [0.01] * 6)
+    rounds(row["third_round"], [-10.0, -10.0, 0.5, 1.0, 1.0, 1.0],
+           [0.01] * 6)
+    n1[row["no_counts"]], n0[row["no_counts"]] = 0.0, 0.0
+    n1[row["large_counts"]], n0[row["large_counts"]] = 4000.0, 1000.0
+    prims[boost][row["clamp_low"]] = 0.0
+    prims[GAMMA_PRIMITIVES + boost][row["clamp_high"]] = 0.0
+    prims[boost][row["zero_denominator"]] = 0.0
+    prims[GAMMA_PRIMITIVES + boost][row["zero_denominator"]] = 0.0
+    return (n1.to(dev), n0.to(dev), [p.to(dev) for p in prims],
+            list(BETA_CRAFTED))
+
+
+def beta_composed(seed, cfg, n1, n0, dev):
+    """state.py::beta_posterior_params' torch composition (randomx.
+    beta_general, then the clamp) on TorchDraws(seed) for each group g of
+    the [..., G, m] counts in turn, on the card: (rows [..., G, m], the
+    generator's state)."""
+    import torch
+
+    from bnpc_tpu_torch.config import TMAX, TMIN
+    from bnpc_tpu_torch.ops import randomx
+
+    d = TorchDraws(seed, dev)
+    rows = [torch.clamp(randomx.beta_general(d, cfg.p + n1[..., g, :],
+                                             cfg.q + n0[..., g, :]),
+                        TMIN, TMAX) for g in range(n1.shape[-2])]
+    return torch.stack(rows, dim=-2), d.gen.get_state()
+
+
+def beta_case(dev, shape, seed, cfg):
+    """Kernel 8 through state.beta_posterior_rows on TorchDraws(seed) (a
+    group a row of the [G, m] counts, `shape` = (G, m), or a [K_MAX, 1, m]
+    block of one group as init_state draws it) against the composition on
+    the same seed, run on the card, and against the twin on the wrapper's
+    own primitives: bit for bit, the generator left in the same state.
+    Returns the largest |kernel - composition|."""
+    import torch
+
+    from bnpc_tpu_torch import state as st
+    from bnpc_tpu_torch.ops import cuda_beta
+
+    n1, n0 = mh_rows(shape, 0, seed, dev)[1:3]
+    groups = shape[-2]
+    want, gen = beta_composed(seed, cfg, n1, n0, dev)
+    d = TorchDraws(seed, dev)
+    before = cuda_beta.launches
+    got = st.beta_posterior_rows((d,) * groups, cfg, n1, n0)
+    tag = f"beta_post {tuple(shape)} seed {seed}"
+    if cuda_beta.launches != before + 1:
+        raise AssertionError(f"{tag}: {cuda_beta.launches - before} "
+                             "launches, not one")
+    if not torch.equal(d.gen.get_state(), gen):
+        raise AssertionError(f"{tag}: the generator moved otherwise")
+    twin_d = TorchDraws(seed, dev)
+    row_shape = tuple(shape[:-2]) + (shape[-1],)
+    twin = torch.stack([st.beta_posterior_on(
+        cuda_beta.primitives(twin_d, row_shape), cfg, n1[..., g, :],
+        n0[..., g, :]) for g in range(groups)], dim=-2)
+    for name, ref in (("composition", want), ("twin", twin)):
+        diff = got != ref
+        if diff.any():
+            ulps = (got.view(torch.int32) - ref.view(torch.int32)).abs()
+            raise AssertionError(f"{tag}: {int(diff.sum())} rows' values "
+                                 f"differ from the {name} (up to "
+                                 f"{int(ulps[diff].max())} ulps)")
+    return float((got - want).abs().max())
+
+
+def beta_batch_case(dev, seed, cfg, chains=4):
+    """A StackedDraws batch of `chains` chains' [3, m] rows in one batched
+    launch == each chain's one-chain launch and its composition, bit for
+    bit, each generator where its composition leaves it."""
+    import torch
+
+    from bnpc_tpu_torch import state as st
+    from bnpc_tpu_torch.draws import StackedDraws
+    from bnpc_tpu_torch.ops import cuda_beta
+
+    shape = (chains, 3, M)
+    n1, n0 = mh_rows(shape, 0, seed, dev)[1:3]
+    stack = StackedDraws([TorchDraws(seed + c, dev) for c in range(chains)])
+    before = dict(cuda_beta.chain_grids)
+    got = st.beta_posterior_rows((stack,) * 3, cfg, n1, n0)
+    if cuda_beta.chain_grids.get(chains, 0) != before.get(chains, 0) + 1:
+        raise AssertionError(f"beta_post batch seed {seed}: not one launch "
+                             f"on a grid of {chains} chains")
+    for c in range(chains):
+        one = st.beta_posterior_rows((TorchDraws(seed + c, dev),) * 3, cfg,
+                                     n1[c], n0[c])
+        want, gen = beta_composed(seed + c, cfg, n1[c], n0[c], dev)
+        for w in (one, want):
+            if not torch.equal(got[c], w):
+                raise AssertionError(f"beta_post batch seed {seed}: chain "
+                                     f"{c} differs from its one-chain run")
+        if not torch.equal(stack.chains[c].gen.get_state(), gen):
+            raise AssertionError(f"beta_post batch seed {seed}: chain {c}'s "
+                                 "generator moved otherwise")
+
+
+def beta_refuses(dev, cfg):
+    """On the card, a provider whose Beta the kernel cannot replay (a
+    TorchDraws with a beta_general of its own) raises in
+    state.beta_posterior_rows before any draw: no other path."""
+    import torch
+
+    from bnpc_tpu_torch import state as st
+
+    class OwnBeta(TorchDraws):
+        def beta_general(self, a, b):
+            raise AssertionError("beta_post: the card's path called a "
+                                 "provider's own beta_general")
+
+    d = OwnBeta(1, dev)
+    before = d.gen.get_state()
+    n1 = torch.zeros((3, M), device=dev)
+    try:
+        st.beta_posterior_rows((d,) * 3, cfg, n1, n1)
+    except ValueError as e:
+        if "cannot replay" not in str(e):
+            raise
+    else:
+        raise AssertionError("beta_post: an OwnBeta provider on the card "
+                             "did not raise")
+    if not torch.equal(d.gen.get_state(), before):
+        raise AssertionError("beta_post: a refused provider drew")
+
+
+def phase_beta_post(dev, smi):
+    """Kernel 8 (csrc/beta_post.cu) against the torch composition it
+    replaces, on the card: a split-merge launch's 3 x 200 rows, one row,
+    a k_max block as init_state draws it, bit for bit with the generator's
+    state, and against the twin on the wrapper's primitives; a batch of 4
+    chains against its one-chain launches; the crafted rows against the
+    twin; a provider it cannot replay refused; the runner's captured block against its eager one;
+    then the kernel's time a call inside a CUDA graph against its bytes
+    bound and against the composition's."""
+    import torch
+
+    from bnpc_tpu_torch import state as st
+    from bnpc_tpu_torch.ops import cuda_beta
+
+    cfg, _ = bench_configs()
+    errs = [beta_case(dev, shape, seed, cfg)
+            for shape in ((3, M), (1, M), (K_MAX, 1, M))
+            for seed in BETA_SEEDS]
+    for seed in BETA_SEEDS:
+        beta_batch_case(dev, seed, cfg)
+    n1, n0, prims, names = beta_crafted(dev)
+    got = cuda_beta.beta_post(n1, n0, torch.stack(prims, dim=-2), cfg)
+    twin = st.beta_posterior_on(prims, cfg, n1, n0)
+    if not torch.equal(got, twin):
+        bad = [names[r] for r in range(len(names))
+               if not torch.equal(got[r], twin[r])]
+        raise AssertionError(f"beta_post crafted rows differ: {bad}")
+    beta_refuses(dev, cfg)
+    log(f"  beta_post == the torch composition and the twin bit for bit at "
+        f"3 x {M}, 1 x {M} and {K_MAX} x {M}, {len(BETA_SEEDS)} seeds, the "
+        f"generator's state alike; a batch of 4 == its one-chain launches; "
+        f"crafted rows {names} == the twin")
+    launches_per_step = mh_captured(dev, cuda_beta)
+    log(f"  beta_post in the captured block: == eager bit for bit, "
+        f"{launches_per_step} launches a step counted under replay")
+
+    n1, n0 = mh_rows((3, M), 0, 1, dev)[1:3]
+    keys = (TorchDraws(1, dev),) * 3
+    row_shape = (M,)
+    prims = torch.stack([torch.stack(cuda_beta.primitives(k, row_shape))
+                         for k in keys])
+
+    def kernel():
+        cuda_beta.beta_post(n1, n0, prims, cfg)
+
+    def composed():
+        for g in range(3):
+            st.beta_posterior_on(prims[g], cfg, n1[g], n0[g])
+
+    moved = n1.numel() * (2 + 26 + 1) * 4
+    timing = {"kernel_graph_ms": mh_graph_ms(kernel, 50),
+              "kernel_eager_ms": cuda_ms(kernel, 200),
+              "composition_graph_ms": mh_graph_ms(composed, 1),
+              "composition_eager_ms": cuda_ms(composed, 50),
+              "composition_kernels": mh_kernels_per_call(composed),
+              "bytes_bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+    log(f"  beta_post (3, {M}) ({smi}): "
+        + ", ".join(f"{k} {v:.5g}" for k, v in timing.items()))
+    return {"max_abs_err": max(errs), "launches_per_step": launches_per_step,
+            "timing": timing, "ms": timing["kernel_graph_ms"],
+            "plain_ms": timing["composition_graph_ms"],
+            "bound_ms": timing["bytes_bound_ms"], "bound_by": "bytes"}
 
 
 # ---------------------------------------------------------------------------
@@ -1722,7 +1977,8 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
     if s_counts.size != launches["rg_scan"]:
         raise AssertionError(f"{name}: {s_counts.size} scan lengths noted, "
                              f"{launches['rg_scan']} rg_scan launches")
-    check_launches(name, launches, {sweep_kernel, "rg_scan", "mh_sweep"})
+    check_launches(name, launches, {sweep_kernel, "rg_scan", "mh_sweep",
+                                    "beta_post"})
     a, sizes = check_state(state, [warm_rows, rows], n, k_max)
 
     sm_steps = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) > 0).sum())
@@ -2057,7 +2313,8 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_launches()
-    check_launches(f"cli {cell}", launches, {sweep, "rg_scan", "mh_sweep"})
+    check_launches(f"cli {cell}", launches,
+                   {sweep, "rg_scan", "mh_sweep", "beta_post"})
     assigns = check_outputs(out_dir, estimators_, n, M)
     score = ari(assigns["posterior"], truth)
     line = stages.line()
@@ -2233,7 +2490,7 @@ def mode_chains(dev, data, cfg, mc):
     chains_s = time.perf_counter() - t0
     launches = read_launches()
     check_launches("chains", launches,
-                   {"lazy_segment", "rg_scan", "mh_sweep"})
+                   {"lazy_segment", "rg_scan", "mh_sweep", "beta_post"})
     check_results("chains", res, kept.states, N, K_MAX, 257)
     seeds = runner.seeds.tolist()
     one = modes_runner(data, cfg, mc, dev)
@@ -2268,7 +2525,7 @@ def mode_coupled(dev, data, cfg, mc):
     secs = time.perf_counter() - t0
     launches = read_launches()
     check_launches("coupled", launches,
-                   {"lazy_segment", "rg_scan", "mh_sweep"})
+                   {"lazy_segment", "rg_scan", "mh_sweep", "beta_post"})
     check_results("coupled", res, kept.states, N, K_MAX, 65)
     out = {"chain_steps_per_s": 2 * 64 / secs, "launches": launches}
     log(f"  (b) coupled: 2 x 64 steps, {out['chain_steps_per_s']:.3f} "
@@ -2391,7 +2648,8 @@ def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
         launches = read_launches()
         gibbs = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) == 0).sum())
         a, sizes = check_state(state, [rows], n, k_max)
-        used = {"rg_scan", "mh_sweep"} if gibbs < timed else {"mh_sweep"}
+        used = ({"rg_scan", "mh_sweep", "beta_post"} if gibbs < timed
+                else {"mh_sweep"})
         if name == "exact" and gibbs:
             used.add(sweep)
         check_launches(f"blocked {n} {name}", launches, used)
@@ -2672,7 +2930,8 @@ def mesh_batched_check(ranks, smi):
                     raise AssertionError(f"{tag} vmap rank {r}: {name} "
                                          f"grids {g}")
             check_launches(f"{tag} vmap rank {r}", run["launches"],
-                           {"lazy_segment", "rg_scan", "mh_sweep"})
+                           {"lazy_segment", "rg_scan", "mh_sweep",
+                            "beta_post"})
             if any(v for k, v in read_one_chain_launches_of(run).items()):
                 raise AssertionError(f"{tag} vmap rank {r}: one-chain "
                                      "launches")
@@ -2847,7 +3106,8 @@ def phase_mesh(dev, smi):
                      want)
         for r, a in enumerate((a0, a1)):
             check_launches(f"mesh 2x1 rank {r}", a["launches"],
-                           {"lazy_segment", "rg_scan", "mh_sweep"})
+                           {"lazy_segment", "rg_scan", "mh_sweep",
+                            "beta_post"})
         log(f"  (a) 2 x 1 at {N:,} x {M}: 2 chains x {MESH_STEPS} steps, "
             f"{2 * MESH_STEPS / max(a0['seconds'], a1['seconds']):.3f} "
             f"chain-steps/s (ranks {a0['seconds']:.3f} / "
@@ -2863,7 +3123,8 @@ def phase_mesh(dev, smi):
                                  f"{b1['hashes']}")
         for r, b in enumerate((b0, b1)):
             check_launches(f"mesh 1x2 rank {r}", b["launches"],
-                           {"lazy_segment", "rg_scan", "mh_sweep"})
+                           {"lazy_segment", "rg_scan", "mh_sweep",
+                            "beta_post"})
         res = b0["results"][0]
         if res.ML.shape != (MESH_STEPS + 1,) or not (
                 np.isfinite(res.ML).all() and np.isfinite(res.MAP).all()):
@@ -4172,7 +4433,8 @@ def main():
          "eager_sweep": phase_eager_sweep(dev),
          "vecflow": phase_vecflow(dev, smi),
          "while_exit": phase_while_exit(dev, smi),
-         "mh_sweep": phase_mh_sweep(dev, smi)}
+         "mh_sweep": phase_mh_sweep(dev, smi),
+         "beta_post": phase_beta_post(dev, smi)}
     log("[4/13] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
@@ -4230,15 +4492,18 @@ def main():
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in meta.items()]
-    # Kernel 7 replaces no TPU kernel; its launches are the main path's.
-    mh_out = k["mh_sweep"]
-    kernels.append({
-        "name": "mh_sweep", "route": "cuda",
-        "source": "bnpc_tpu_torch/csrc/mh_sweep.cu", "replaces": None,
-        "launches": main_out["launches_path"]["mh_sweep"],
-        "max_abs_err": mh_out["max_abs_err"], "ms": mh_out["ms"],
-        "plain_ms": mh_out["plain_ms"], "bound_ms": mh_out["bound_ms"],
-        "bound_by": mh_out["bound_by"], "library_ms": None})
+    # Kernels 7 and 8 replace no TPU kernel; their launches are the main
+    # path's.
+    for name, src in (("mh_sweep", "mh_sweep.cu"),
+                      ("beta_post", "beta_post.cu")):
+        out = k[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"bnpc_tpu_torch/csrc/{src}", "replaces": None,
+            "launches": main_out["launches_path"][name],
+            "max_abs_err": out["max_abs_err"], "ms": out["ms"],
+            "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
+            "bound_by": out["bound_by"], "library_ms": None})
     # Kernels 1-3 on a chain grid: one launch of 16 chains, and the batched
     # launches of phase 12's paths (main cell, 4 chains; large-n, 2).
     batched_path = {"lazy_segment": chains_out["main_4"]["launches"],

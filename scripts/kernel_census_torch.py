@@ -11,7 +11,9 @@ FUNCTIONS, and prints one JSON line: each function's calls and the device
 kernels its ATen ops launched (the functions it calls included), a call
 and a step; the step's device operations in all (kernels, copies and
 sets; the hand-written kernels of csrc/, which no ATen op launches,
-included); the card. The captured block replays these same kernels as
+included); the card. The hand-written kernels' wrappers (the ctypes
+launches of KERNELS) are ranges of their own, so each shows beside the
+function that calls it. The captured block replays these same kernels as
 CUDA graphs, one graph node each.
 """
 
@@ -31,11 +33,16 @@ FUNCTIONS = [
         "gibbs_sweep", "split_merge", "update_parameters", "update_dp_alpha",
         "update_error_rates", "summarize")] + [
     ("bnpc_tpu_torch.models.splitmerge", f) for f in (
-        "_setup", "_rg_init", "beta_posterior_params", "_rg_scan_split",
+        "_setup", "_rg_init", "beta_posterior_rows", "_rg_scan_split",
         "_rg_scan_merge", "_rg_scan_assign", "_split_branch",
         "_merge_branch", "_reverse_split_prob")] + [
     ("bnpc_tpu_torch.ops.mh", f) for f in (
-        "mh_cluster_params", "realized_trans_logprob")]
+        "mh_cluster_params", "realized_trans_logprob")] + [
+    ("bnpc_tpu_torch.ops.cuda_beta", "primitives")]
+# The hand-written kernels' ctypes launches: (module, wrapper) pairs.
+KERNELS = [("bnpc_tpu_torch.ops.cuda_mh", f)
+           for f in ("mh_sweep", "realized")] + [
+    ("bnpc_tpu_torch.ops.cuda_beta", "beta_post")]
 
 
 def wrap_all():
@@ -43,7 +50,7 @@ def wrap_all():
 
     import torch
 
-    for mod_name, name in FUNCTIONS:
+    for mod_name, name in FUNCTIONS + KERNELS:
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, name)
 
@@ -89,7 +96,7 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         mcmc._chain_block(step, state, draws, args.steps)
         torch.cuda.synchronize()
-    names = {f for _, f in FUNCTIONS}
+    names = {f for _, f in FUNCTIONS + KERNELS}
     calls, kernels = {}, {}
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     for e in prof.events():
