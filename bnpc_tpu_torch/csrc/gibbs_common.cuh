@@ -1,6 +1,8 @@
-// Per-cell step of the sequential Gibbs sweep, shared by the segment
-// kernels (lazy_segment.cu, lazy_stream.cu), the eager whole-sweep kernel
-// (sweep.cu) and the vecflow probe (vecflow_probe.cu). One warp runs the
+// Per-cell step of the sequential Gibbs sweep, shared by the streaming
+// segment kernel (lazy_stream.cu), the eager whole-sweep kernel (sweep.cu)
+// and the vecflow probe (vecflow_probe.cu); the resident segment kernel
+// (lazy_segment.cu) bounds and verifies instead and takes only the row
+// search, the key map and the perm chunks from here. One warp runs the
 // sweep; this header holds its pieces.
 //
 // Per visited cell (reference: update_assignments_Gibbs, libs/CRP.py:254-299):
@@ -219,9 +221,22 @@ __device__ __forceinline__ float tree_fmax(const float* x) {
   }
 }
 
-// Best logit of the row v + w and the first slot holding it. Within a lane
-// the max and the compare are float ones; only each lane's max crosses the
-// warp, as a key.
+// Best of a row of logits in the register layout and the first slot
+// holding it. Within a lane the max and the compare are float ones; only
+// each lane's max crosses the warp, as a key.
+template <int SPL>
+__device__ __forceinline__ void row_best(const float (&logit)[SPL], int lane,
+                                         float& best, int& idx) {
+  best = float_of_key(
+      __reduce_max_sync(kFull, key_of(tree_fmax<SPL>(logit))));
+  int hit[SPL];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s)
+    hit[s] = logit[s] == best ? s * 32 + lane : 32 * SPL;
+  idx = __reduce_min_sync(kFull, tree_min<SPL>(hit));
+}
+
+// Best logit of the row v + w and the first slot holding it.
 template <int SPL>
 __device__ __forceinline__ void best_and_first(const Chain<SPL>& c,
                                                const float (&v)[SPL],
@@ -230,13 +245,7 @@ __device__ __forceinline__ void best_and_first(const Chain<SPL>& c,
   float logit[SPL];
 #pragma unroll
   for (int s = 0; s < SPL; ++s) logit[s] = v[s] + c.w[s];
-  best = float_of_key(
-      __reduce_max_sync(kFull, key_of(tree_fmax<SPL>(logit))));
-  int hit[SPL];
-#pragma unroll
-  for (int s = 0; s < SPL; ++s)
-    hit[s] = logit[s] == best ? s * 32 + lane : 32 * SPL;
-  idx = __reduce_min_sync(kFull, tree_min<SPL>(hit));
+  row_best<SPL>(logit, lane, best, idx);
 }
 
 // Removes the segment's first cell from slot `old`: the one removal that is

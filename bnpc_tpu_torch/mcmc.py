@@ -49,8 +49,9 @@ from bnpc_tpu_torch.models.gibbs import (SegmentWork, _check_eager_fits,
                                           blocked_cell, blocked_finish,
                                           blocked_pass, blocked_rounds,
                                           blocked_rows, blocked_start,
-                                          blocked_work, gibbs_sweep,
-                                          resolve_impl, segment_births,
+                                          blocked_work, count_full_picks,
+                                          gibbs_sweep, resolve_impl,
+                                          segment_births,
                                           segment_finish, segment_rounds,
                                           segment_start, segment_work)
 from bnpc_tpu_torch.models.splitmerge import _move, sm_choice, split_merge
@@ -655,7 +656,7 @@ class _CapturedBlock:
                 ws, born, [k_beta], st.fp.reshape(-1), st.fn.reshape(-1),
                 data, cfg, stream=self.stream, relaunch=relaunch))
 
-        segment_rounds(ws, cfg.n_cells, births)
+        segment_rounds(ws, cfg.n_cells, births, stream=self.stream)
         self.pieces.run(("sweep_tail",), functools.partial(
             self._tail, segment_finish))
 
@@ -873,7 +874,7 @@ class _CapturedBatch:
         self.gfp, self.gfn = zeros(c, dtype=f32), zeros(c, dtype=f32)
         # The head's host read: split flags, then the sweep's read rows
         # (blocked: [first birth block, -] a chain).
-        self.hread = zeros(6 * c, dtype=i32)
+        self.hread = zeros(7 * c, dtype=i32)
         self.sm_counts = zeros(c, 2, 2, dtype=i32)
         self.par_counts = zeros(c, 2, dtype=i32)
         k, m = self.cfg.k_max, batch.params.shape[-1]
@@ -1002,7 +1003,8 @@ class _CapturedBatch:
         self._run(("head", ks), draws, sm + gibbs,
                   functools.partial(self._head, ks))
         # Split flags, then the sweep's first round or pass.
-        read = trace.read(self.hread[:ks + (2 if blocked else 5) * kg],
+        width = 2 if blocked else self.work.read.shape[1]
+        read = trace.read(self.hread[:ks + width * kg],
                           ("blocked_pass" if blocked else "round") if kg
                           else "split")
         if trace.on and kg and not blocked:
@@ -1024,7 +1026,8 @@ class _CapturedBatch:
         if blocked:
             self._blocked(draws, gibbs, read[ks::2])
             return
-        rows = [read[ks + 5 * r:ks + 5 * r + 5] for r in range(kg)]
+        rows = [read[ks + width * r:ks + width * (r + 1)]
+                for r in range(kg)]
         while True:
             births = [(r, row[4]) for r, row in enumerate(rows)
                       if row[1] >= 0]
@@ -1041,6 +1044,8 @@ class _CapturedBatch:
             if done:
                 break
             rows = trace.read(self.work.read[:kg], "round")  # one a round
+        if trace.on and not self.stream:
+            count_full_picks(rows, n)
         self._run(("tail", kg), draws, [],
                   functools.partial(self._tail, segment_finish, kg))
 

@@ -46,14 +46,14 @@ A batch of chains (a state with a leading chain axis, StackedDraws, ``ax``
 a ChainAxis; mcmc.py's chain_exec="vmap") runs ``lazy`` and ``stream`` as
 rounds of one launch of the kernel on a grid of one block a chain, in the
 loop one chain runs on a grid of one: after each round one host read of
-[C, 5] (info and each birth's cell), the rows and Z columns of that
-round's births, and the next round. Chain c draws and patches what its
-one-chain sweep does, in the same order, so it gets its one-chain sweep's
-result; a batch takes max over c of (births_c + 1) rounds. ``blocked``
-runs its frozen passes on every chain at once and replays every chain's
-birth block in one loop over its cells (``_blocked_impl``). ``scan`` loops
-its one-chain sweep over the chains. ``eager`` has no batched form and
-raises.
+[C, 6] (info, each birth's cell and kernel 1's full picks), the rows and
+Z columns of that round's births, and the next round. Chain c draws and
+patches what its one-chain sweep does, in the same order, so it gets its
+one-chain sweep's result; a batch takes max over c of (births_c + 1)
+rounds. ``blocked`` runs its frozen passes on every chain at once and
+replays every chain's birth block in one loop over its cells
+(``_blocked_impl``). ``scan`` loops its one-chain sweep over the chains.
+``eager`` has no batched form and raises.
 
 Under a sharded mutation axis (``ax``, parallel/axis.py) Z and every birth
 column are all-reduced before a kernel or a loop reads them, so each rank of
@@ -269,7 +269,9 @@ class SegmentWork(NamedTuple):
     tgt: torch.Tensor        # [C, n] i32 target by visit position
     info: torch.Tensor       # [C, 4] i32 the kernel's info rows
     i0s: torch.Tensor        # [C] i32 start positions
-    read: torch.Tensor       # [C, 5] i32 info and the birth's cell
+    read: torch.Tensor       # [C, 6] i32 info, the birth's cell, full picks
+    bounds: torch.Tensor     # [C, 3, n] f32 kernel 1's bound scratch
+    full: torch.Tensor       # [C] i32 kernel 1's full picks this sweep
 
 
 def segment_work(state: CRPState, cfg: ModelConfig,
@@ -289,13 +291,15 @@ def segment_work(state: CRPState, cfg: ModelConfig,
         perm=empty(c, n, dtype=i32), gumbel=empty(c, n, k_max + 1),
         sizes=empty(c, k_pad), log_denom=empty(c), params=empty(c, k_max, m),
         tgt=empty(c, n, dtype=i32), info=empty(c, 4, dtype=i32),
-        i0s=empty(c, dtype=i32), read=empty(c, 5, dtype=i32))
+        i0s=empty(c, dtype=i32), read=empty(c, 6, dtype=i32),
+        bounds=empty(c, 3, n), full=empty(c, dtype=i32))
 
 
 def _launch(ws: SegmentWork, stream: bool) -> None:
     """One launch of the segment kernel on its chain grid from the device
-    start positions ws.i0s, then ws.read: the info rows and each birth's
-    cell (stream: perm at the birth's visit position)."""
+    start positions ws.i0s, then ws.read: the info rows, each birth's cell
+    (stream: perm at the birth's visit position) and the sweep's full picks
+    so far (kernel 1's; 0 on stream)."""
     if stream:
         lazy_segment_stream_chains(ws.zin, ws.aux, ws.assign, ws.sizes,
                                    ws.tgt, ws.info, ws.i0s, ws.log_denom)
@@ -303,10 +307,12 @@ def _launch(ws: SegmentWork, stream: bool) -> None:
                             ws.info[:, 1:2].clamp(min=0).long())[:, 0]
     else:
         lazy_segment_chains(ws.zin, ws.aux, ws.assign, ws.perm, ws.sizes,
-                            ws.tgt, ws.info, ws.i0s, ws.log_denom)
+                            ws.tgt, ws.info, ws.i0s, ws.log_denom,
+                            ws.bounds, ws.full)
         cell = ws.info[:, 1]
     ws.read[:, :4].copy_(ws.info)
     ws.read[:, 4].copy_(cell)
+    ws.read[:, 5].copy_(ws.full)
 
 
 def segment_start(ws: SegmentWork, k_perm: Draws, k_gumbel: Draws,
@@ -340,10 +346,19 @@ def segment_start(ws: SegmentWork, k_perm: Draws, k_gumbel: Draws,
     ws.log_denom.copy_(log_denom)
     ws.params.copy_(state.params)
     ws.i0s.zero_()
+    ws.full.zero_()
     _launch(ws, stream)
 
 
-def segment_rounds(ws: SegmentWork, n: int, births_fn) -> None:
+def count_full_picks(rows, n: int) -> None:
+    """The tracer's counts of kernel 1's sweeps that ended with the read
+    rows `rows`: full picks (column 5) and positions visited."""
+    trace.count("lazy_full_picks", sum(r[5] for r in rows))
+    trace.count("lazy_cells", n * len(rows))
+
+
+def segment_rounds(ws: SegmentWork, n: int, births_fn, *,
+                   stream: bool) -> None:
     """The sweep's host loop: one read of ws.read a round; each round with
     a birth calls births_fn(births, relaunch) with births [(chain, cell)]
     in chain order and relaunch False once every chain has reached n."""
@@ -356,6 +371,8 @@ def segment_rounds(ws: SegmentWork, n: int, births_fn) -> None:
         if births:
             births_fn(births, not done)
         if done:
+            if trace.on and not stream:
+                count_full_picks(rows, n)
             return
 
 
@@ -421,7 +438,7 @@ def _segment_impl(draws, state, data, cfg, ax=_NO_AXIS, *, stream: bool):
     Every launch runs the kernel on a grid of one block a chain (one chain:
     a grid of one), each chain's start position on the device (i0s), so a
     relaunch takes no host arguments. Each round is one launch and one host
-    read of ws.read [C, 5]; every birth of the round is then drawn from its
+    read of ws.read [C, 6]; every birth of the round is then drawn from its
     chain's own draws and patched in chain order, as its one-chain sweep
     does. The pieces (``segment_start``, ``segment_births``,
     ``segment_finish``) are what mcmc.py's captured block runs as graphs."""
@@ -433,7 +450,7 @@ def _segment_impl(draws, state, data, cfg, ax=_NO_AXIS, *, stream: bool):
     fp, fn = state.fp.reshape(-1), state.fn.reshape(-1)
     segment_rounds(ws, cfg.n_cells, lambda births, relaunch: segment_births(
         ws, births, [k_betas[c] for c, _ in births], fp, fn, data, cfg, mut,
-        stream=stream, relaunch=relaunch))
+        stream=stream, relaunch=relaunch), stream=stream)
     return segment_finish(ws, state)
 
 

@@ -49,11 +49,12 @@ _F = ctypes.c_float
 # C signatures: (argtypes) of every exported function; restype is int (the
 # cudaGetLastError() code after the launch).
 _SIGNATURES = {
-    # z, aux, assign, perm, sizes, tgt, info, log_denom, n, k_pad, i0, stream
-    "bnpc_lazy_segment": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, chains, n,
-    # k_pad, stream
-    "bnpc_lazy_segment_chains": [_P] * 9 + [_I, _I, _I, _P],
+    # z, aux, assign, perm, sizes, tgt, info, log_denom, bounds, full, n,
+    # k_pad, i0, stream
+    "bnpc_lazy_segment": [_P] * 10 + [_I, _I, _I, _P],
+    # z, aux, assign, perm, sizes, tgt, info, log_denom, i0s, bounds, full,
+    # chains, n, k_pad, stream
+    "bnpc_lazy_segment_chains": [_P] * 11 + [_I, _I, _I, _P],
     # dz, lau, dtab, s_count, count1, out, n, stream
     "bnpc_rg_scan": [_P, _P, _P, _P, _P, _P, _I, _P],
     # dz, lau, dtab, s_count, count1, out, chains, n, stream

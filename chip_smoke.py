@@ -582,6 +582,274 @@ def crafted_check(name, dev, k_pad, k_max, stream_order):
     return pairs
 
 
+def _log_weight(size, log_denom):
+    """The kernels' log weight of one slot size, as the plain twin takes
+    it (float32)."""
+    import torch
+
+    x = torch.tensor([size], dtype=torch.float32)
+    return (torch.log(torch.clamp(x, min=0.0)) - log_denom).numpy()[0]
+
+
+def _z_for(target, w):
+    """A float32 z with fl(z + w) == target (None if no float near
+    target - w gives it)."""
+    z = np.float32(target - w)
+    for _ in range(8):
+        s = np.float32(z + w)
+        if s == target:
+            return z
+        z = np.nextafter(z, np.float32(np.inf if s < target else -np.inf),
+                         dtype=np.float32)
+    return None
+
+
+def near_tie_case(k_pad, seed=0):
+    """A 160-cell sweep from position 5 for kernel 1's bound and verify
+    (csrc/lazy_segment.cu). Every cell's home slot beats the rest by ~100
+    nats, except, in visit order: cells whose top two logits at their visit
+    sit 0, 1 and 2 floats apart, the better one at the lower or the higher
+    slot, across lanes and (k_pad >= 64) within one lane; a cell that
+    moves to slot 0, a singleton, whose log weight so rises by ~log 2; and
+    then a cell whose slot-0 logit at its visit ties its best slot's (slot
+    0 wins the tie), while its launch bound plus D, the bound on that rise,
+    rounds to the float below: a check without its tolerance settles that
+    cell on the wrong slot. Returns crafted_case's dict with `log_denom`."""
+    n, i0, k_max = 160, 5, k_pad - 2
+    rng = np.random.default_rng(seed)
+    log_denom = np.float32(np.log(n - 1.0 + 1.0))
+    live = min(k_max, 24)  # slots 0 .. live - 1 hold cells
+    pairs = [(1, 2), (2, 3)]  # across lanes
+    if k_pad >= 64:
+        pairs += [(1, 33), (2, 34)]  # within lane 1, lane 2
+    specials = []
+    for gap in (0, 1, 2):
+        for lo, hi in pairs:
+            for better in ((lo,) if gap == 0 else (lo, hi)):
+                specials.append(("tie", lo, hi, gap, better))
+    specials += [("gain",), ("round",)]
+    # The special cells at every fifth position from i0 + 3, each leaving
+    # slot live - 1 for its pick; every other cell has a home in 6 ..
+    # live - 1 and returns to it.
+    at = {i0 + 3 + 5 * j: sp for j, sp in enumerate(specials)}
+    perm = rng.permutation(n).astype(np.int32)
+    assign = rng.integers(6, live, n).astype(np.int32)
+    assign[perm[list(at)]] = live - 1
+    z = (rng.standard_normal((n, k_pad)) * 0.5 - 100.0).astype(np.float32)
+    z[np.arange(n), assign] = 0.0
+    sizes = np.zeros(k_pad, np.float32)
+    sizes[1:live] = 20.0  # phantom cells
+    sizes[[33, 34] if k_pad >= 64 else []] = 20.0
+    sizes[0] = 1.0
+    sizes += np.bincount(assign, minlength=k_pad).astype(np.float32)
+    sizes[k_max:] = -1.0
+    launch = sizes.copy()
+    want = {}
+    cur = launch.copy()
+    for i in range(i0, n):
+        c = perm[i]
+        sp = at.get(i)
+        if sp is None:
+            continue  # home again: the sizes stand as they were
+        cur[assign[c]] -= 1.0
+        z[c] = -100.0
+        if sp[0] == "tie":
+            _, lo, hi, gap, better = sp
+            other = hi if better == lo else lo
+            top = np.float32(-2.5 + 0.1 * rng.standard_normal())
+            low = top
+            for _ in range(gap):
+                low = np.nextafter(low, np.float32(-np.inf),
+                                   dtype=np.float32)
+            for slot, target in ((better, top), (other, low)):
+                z[c, slot] = _z_for(target, _log_weight(cur[slot],
+                                                        log_denom))
+                assert not np.isnan(z[c, slot]), "no z for a near tie"
+            t = better
+        elif sp[0] == "gain":
+            z[c, 0] = 0.0
+            t = 0
+        else:
+            # D is the gain's rise, fl(w_0 - w0_0), the largest change yet.
+            w_now = _log_weight(cur[0], log_denom)
+            d = np.float32(w_now - _log_weight(launch[0], log_denom))
+            w0_g = _log_weight(launch[0], log_denom)
+            q, found = 5, None
+            for trial in range(64):
+                top = np.float32(-10.0 - 0.37 * trial)
+                zq = _z_for(top, _log_weight(cur[q], log_denom))
+                for k in range(-64, 65):
+                    zg = np.float32(top - w_now + np.float32(k) * np.float32(
+                        2.0 ** -20))
+                    if (np.float32(zg + w_now) == top
+                            and np.float32(np.float32(zg + w0_g) + d) < top):
+                        found = zq, zg
+                        break
+                if found:
+                    break
+            assert found, "no rounding case"
+            z[c, q], z[c, 0] = found
+            t = 0
+        cur[t] += 1.0
+        want[i] = t
+    aux = np.full(n, -1e30, np.float32)
+    return dict(z=z, aux=aux, assign=assign, perm=perm, sizes=launch, n=n,
+                i0=i0, want=want, log_denom=log_denom)
+
+
+def verified_check(dev, cases, batched):
+    """Kernel 1 on `cases` (near_tie_case dicts of one n), relaunched after
+    each birth as the sweep's host loop does (without its z patch): one
+    chain through the one-chain entry, or all of them on one grid. At every
+    launch its tgt, sizes and info == the twin's, its bounds ==
+    lazy_bounds_ref's; over the sweep each chain's full picks ==
+    lazy_segment_verified_ref's.
+    Returns (compared pairs, full picks a chain)."""
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_gibbs as cg
+
+    k, n = len(cases), cases[0]["n"]
+
+    def t(f):
+        return torch.from_numpy(np.stack([c[f] for c in cases])).to(dev)
+
+    z, aux, assign, perm, sizes0 = (t(f) for f in ("z", "aux", "assign",
+                                                   "perm", "sizes"))
+    ld = torch.tensor([c["log_denom"] for c in cases], device=dev)
+    sizes = [sizes0.clone(), sizes0.clone()]  # kernel, twin
+    tgts = [torch.full((k, n), -7, dtype=torch.int32, device=dev)
+            for _ in sizes]
+    i0s = [torch.tensor([c["i0"] for c in cases], dtype=torch.int32,
+                        device=dev) for _ in sizes]
+    bounds = torch.empty((k, 3, n), device=dev)
+    full = torch.zeros(k, dtype=torch.int32, device=dev)
+    model_full = [0] * k
+    pairs = []
+    while bool((i0s[0] < n).any()):
+        before, starts = sizes[0].clone(), i0s[0].tolist()
+        infos = [torch.zeros((k, 4), dtype=torch.int32, device=dev)
+                 for _ in sizes]
+        if batched:
+            cg.lazy_segment_chains(z, aux, assign, perm, sizes[0], tgts[0],
+                                   infos[0], i0s[0], ld, bounds, full)
+            cg.lazy_segment_chains_ref(z, aux, assign, perm, sizes[1],
+                                       tgts[1], infos[1], i0s[1], ld)
+        else:
+            for j, fn in enumerate((cg.lazy_segment, cg.lazy_segment_ref)):
+                kw = dict(bounds=bounds[0], full=full) if j == 0 else {}
+                fn(z[0], aux[0], assign[0], perm[0], sizes[j][0], tgts[j][0],
+                   infos[j][0], starts[0], ld[0], **kw)
+                i0s[j][0] = infos[j][0, 0]
+        torch.cuda.synchronize()
+        for c, i0 in enumerate(starts):
+            if i0 >= n:
+                continue
+            want = cg.lazy_bounds_ref(z[c], perm[c], before[c], i0, ld[c])
+            if not torch.equal(bounds[c][:, i0:], want[:, i0:]):
+                raise AssertionError(f"lazy_segment bounds from {i0}: "
+                                     "kernel != lazy_bounds_ref")
+            model_full[c] += cg.lazy_segment_verified_ref(
+                z[c].cpu(), aux[c].cpu(), assign[c].cpu(), perm[c].cpu(),
+                before[c].cpu(), torch.empty(n, dtype=torch.int32),
+                torch.empty(4, dtype=torch.int32), i0, ld[c].cpu())
+        if not all(torch.equal(a, b) for a, b in
+                   zip((infos[0], sizes[0], tgts[0], i0s[0]),
+                       (infos[1], sizes[1], tgts[1], i0s[1]))):
+            raise AssertionError(f"lazy_segment near ties k_pad "
+                                 f"{z.shape[-1]} x {k} from {starts}: "
+                                 f"kernel {infos[0].tolist()} != twin "
+                                 f"{infos[1].tolist()} or targets/sizes "
+                                 "differ")
+        pairs += [(infos[0], infos[1]), (sizes[0].clone(), sizes[1].clone())]
+    pairs.append((tgts[0], tgts[1]))
+    for c, case in enumerate(cases):
+        got = tgts[0][c].tolist()
+        if any(got[p] != slot for p, slot in case["want"].items()):
+            raise AssertionError(f"lazy_segment near ties chain {c}: "
+                                 "targets not the crafted ones")
+    if full.tolist() != model_full:
+        raise AssertionError(f"lazy_segment full picks {full.tolist()} != "
+                             f"the model's {model_full}")
+    return pairs, model_full
+
+
+def real_sweep_input(dev, blocks=7):
+    """Kernel 1's input as the main path makes it: the sweep input of a
+    5,000 x 200 chain (chip_smoke's main cell) after `blocks` 256-step
+    blocks, past the benchmark's 1,650-step burn-in. Returns (z, aux,
+    assign, perm, sizes, log_denom) at k_pad 256."""
+    import torch
+
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.mcmc import MCMCRunner
+    from bnpc_tpu_torch.models.gibbs import (_padded_sizes,
+                                             _split_sweep_keys,
+                                             _sweep_inputs)
+    from bnpc_tpu_torch.ops.cuda_gibbs import lazy_k_pad
+
+    data, _ = make_data(N, M, 10, 0.1, seed=0)
+    cfg, mc = bench_configs()
+    packed = pack_data(data, dev)
+    runner = MCMCRunner(cfg, mc, packed, device=dev, block_size=256)
+    state = runner.init_chains(TorchDraws(0, dev))[0]
+    draws = TorchDraws(1, dev)
+    for _ in range(blocks):
+        state, _, draws = runner.run_block(state, draws, 256)
+    k_perm, k_gumbel, _ = _split_sweep_keys(TorchDraws(2, dev))
+    perm, _, z, aux, ld = _sweep_inputs(k_perm, k_gumbel, state, packed, cfg)
+    k_pad = lazy_k_pad(K_MAX)
+    zp = torch.nn.functional.pad(z, (0, k_pad - K_MAX)).contiguous()
+    return (zp, aux.contiguous(), state.assignment.to(torch.int32),
+            perm.to(torch.int32), _padded_sizes(state, k_pad),
+            ld.to(torch.float32))
+
+
+def kernel1_timing(dev, name, args, sizes0, reps=21):
+    """Kernel 1 from position 0 on (z, aux, assign, perm), sizes0 fresh each
+    call: CUDA-event ms a call, the bound pass's share of the kernels'
+    device time (torch.profiler, 5 calls), positions visited and the share
+    of full picks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bnpc_tpu_torch.ops.cuda_gibbs import lazy_segment
+
+    n = args[3].shape[0]
+    tgt = torch.empty((n,), dtype=torch.int32, device=dev)
+    info = torch.empty((4,), dtype=torch.int32, device=dev)
+    full = torch.zeros(1, dtype=torch.int32, device=dev)
+    ld = args[-1]
+    lazy_segment(*args[:4], sizes0.clone(), tgt, info, 0, ld, full=full)
+    torch.cuda.synchronize()
+    visited, picks = int(info[0]), int(full[0])
+    buf = iter([sizes0.clone() for _ in range(reps)])
+    ms = cuda_ms(lambda: lazy_segment(*args[:4], next(buf), tgt, info, 0,
+                                      ld), reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            lazy_segment(*args[:4], sizes0.clone(), tgt, info, 0, ld)
+        torch.cuda.synchronize()
+    role_us = {True: 0.0, False: 0.0}
+    for ev in prof.key_averages():
+        if "lazy_segment_kernel" in ev.key:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            role_us[", true>" in ev.key] += us
+    total = role_us[True] + role_us[False]
+    out = {"ms": ms, "visited": visited, "full_picks": picks,
+           "full_share": picks / max(visited, 1),
+           "bound_pass_us": role_us[True] / 5,
+           "bound_pass_share": role_us[True] / total if total else None}
+    log(f"  lazy_segment on {name} (n={n}): {ms:.4f} ms a call, "
+        f"{visited} positions to its first birth or the end, full picks "
+        f"{picks} ({100.0 * out['full_share']:.2f}%); bound pass "
+        f"{out['bound_pass_us']:.2f} us a call, share "
+        f"{out['bound_pass_share']} of the kernels' device time (profiler)")
+    return out
+
+
 def phase_lazy_segment(dev):
     import torch
 
@@ -624,15 +892,36 @@ def phase_lazy_segment(dev):
     log("  lazy_segment crafted sweeps (ties across and within lanes, "
         "-0.0/+0.0, all -inf, death then birth into the freed slot, from "
         "position 37) at k_pad 32 ... 1,024 — kernel == twin")
+    # Bound and verify: near ties 0, 1 and 2 floats apart and the rounding
+    # case a tolerance of 0 gets wrong, one chain and a grid of 4.
+    for kp in (32, 64, 128, 256, 512, 1024):
+        for chains in (1, 4):
+            got, fulls = verified_check(
+                dev, [near_tie_case(kp, seed) for seed in range(chains)],
+                chains > 1)
+            pairs += got
+        log(f"  lazy_segment near ties k_pad {kp}: kernel == twin, bounds "
+            f"== lazy_bounds_ref, full picks {fulls} == the model's (one "
+            "chain and a grid of 4)")
 
     assign, aux, sizes0, _ = cases["no_birth"][0]
-    buf = iter([sizes0.clone() for _ in range(21)])
     tgt = torch.empty((N,), dtype=torch.int32, device=dev)
     info = torch.empty((4,), dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: lazy_segment(z, aux, assign, perm, next(buf), tgt,
-                                      info, 0, log_denom), 21)
+    rand = kernel1_timing(dev, "random Z", (z, aux, assign, perm, log_denom),
+                          sizes0)
+    ms = rand["ms"]
     plain_ms = cuda_ms(lambda: lazy_segment_ref(
         z, aux, assign, perm, sizes0.clone(), tgt, info, 0, log_denom), 3)
+    # The main path's input: a chain's sweep input past burn-in, kernel ==
+    # twin there too.
+    real = real_sweep_input(dev)
+    outs = [run_segment(fn, real[:4], N, real[4], 0, real[5], dev)
+            for fn in (lazy_segment, lazy_segment_ref)]
+    pairs += compare_segment("lazy_segment real Z", *outs,
+                             int(outs[1][2][0]), int(outs[1][2][1]),
+                             bool(outs[1][2][3]))
+    real_t = kernel1_timing(dev, "a chain's Z past burn-in", real[:4] +
+                            (real[5],), real[4])
     # Every cell: its z row, aux, assign and perm entries in, its target
     # out; the sizes row in and out.
     bound_ms, bound_by = bound(4 * (N * k_pad + 4 * N + 2 * k_pad + 4),
@@ -641,7 +930,8 @@ def phase_lazy_segment(dev):
         f"{ms:.4f} ms, plain twin {plain_ms:.1f} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by})")
     return {"max_abs_err": max_err(pairs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "random_z": rand, "real_z": real_t}
 
 
 def rg_table(n, n_move, dev):

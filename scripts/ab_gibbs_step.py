@@ -25,10 +25,10 @@ by a text patch (the script fails if a patch no longer applies):
                       is a logf after the pick
     no_canon          the key map without x + 0.0f (timing only)
     ring4             4 rows in the cp.async ring instead of 8
-    no_ring           lazy_segment with the next cell's row prefetched one
-                      cell ahead into registers, and no ring
     parent            (--parent DIR: a checkout of the commit before the
-                      redesign, 35957c4) its sources as they are
+                      redesign, 35957c4) its sources as they are:
+                      lazy_stream only (kernel 1's C entry has since gained
+                      its bound scratch and full-pick count)
     parent_redux      the parent's step (SPL logf a lane a cell) with its
                       shuffle trees replaced by redux.sync: lazy_stream only
 
@@ -93,22 +93,6 @@ in L2) and on the 131,072 x 128 Z in cell order (Z misses L2):
     k5_chunks_rolled  the batch's four 32-position chunks in a loop that is
                       not unrolled (`#pragma unroll 1`), each chunk's
                       targets stored as it ends
-    k1_chunk_loop     kernel 1 (lazy_segment.cu) in kernel 5's loop shape:
-                      an inner loop over one chunk's positions, n in its
-                      bound and the birth in its condition, the chunk
-                      refreshed between chunks; must give the tree's
-                      lazy_segment outputs (no birth, a birth from 1,003, a
-                      veto, and the large Z) and is timed beside it
-    k1_exit_per_chunk k1_chunk_loop with the birth tested once a chunk, so
-                      that no branch waits for the chain (timing only:
-                      compared on the cases without a birth)
-    k1_chunk_no_stop  k1_exit_per_chunk with the step's removal of the next
-                      cell not tied to the birth (timing only, likewise)
-    k1_row_after_step kernel 1 with the wait for the next row and its
-                      shared-memory reads after the step in the source
-    k1_undo_at_birth  kernel 1's own loop, the step always removing the
-                      next cell (stop_at_birth false), and a birth adding
-                      it back as the loop ends; exact on every case
     k5_parent         (--parent DIR, a5b388e) its vecflow_probe.cu and header
 
 `--sass DIR` writes `cuobjdump -sass` of every variant's objects there.
@@ -167,84 +151,6 @@ LOGF_ON_CHAIN = [
 NO_CANON = [("__float_as_uint(x + 0.0f)", "__float_as_uint(x)")]
 RING4 = [("constexpr int kRing = 8;", "constexpr int kRing = 4;")]
 
-# lazy_segment's kernel body without the ring: everything between the Chunk
-# struct and the launcher is replaced.
-NO_RING_KERNEL = r'''template <int SPL>
-__global__ void __launch_bounds__(32, 1) lazy_segment_kernel(
-    const float* __restrict__ z, const float* __restrict__ aux,
-    const int* __restrict__ assign, const int* __restrict__ perm,
-    float* __restrict__ sizes, int* __restrict__ tgt_out,
-    int* __restrict__ info, const float* __restrict__ log_denom_p,
-    int* __restrict__ i0s, int n, int i0) {
-  constexpr int K = 32 * SPL;
-  const int lane = threadIdx.x;
-  const size_t ch = blockIdx.x;
-  z += ch * n * K;
-  aux += ch * n;
-  assign += ch * n;
-  perm += ch * n;
-  sizes += ch * K;
-  tgt_out += ch * n;
-  info += ch * 4;
-  log_denom_p += ch;
-  if (i0s != nullptr) i0 = i0s[ch];
-  if (i0 >= n) {
-    if (lane == 0) {
-      info[0] = n;
-      info[1] = info[2] = -1;
-      info[3] = 0;
-    }
-    return;
-  }
-  Chain<SPL> c;
-  chain_init<SPL>(c, sizes, K, *log_denom_p, lane);
-  int veto = 0, birth_pos = -1, birth_cell = -1, birth_slot = -1;
-  int cell = 0;
-  float a = 0.f, v[SPL];
-  if (i0 < n) {
-    cell = perm[i0];
-    chain_remove_first<SPL>(c, assign[cell], lane);
-    a = aux[cell];
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = z[(size_t)cell * K + s * 32 + lane];
-  }
-  for (int i = i0; i < n; ++i) {
-    int cell_n = 0, old_n = 0;
-    float a_n = 0.f, v_n[SPL];
-    if (i + 1 < n) {
-      cell_n = perm[i + 1];
-      old_n = assign[cell_n];
-      a_n = aux[cell_n];
-#pragma unroll
-      for (int s = 0; s < SPL; ++s)
-        v_n[s] = z[(size_t)cell_n * K + s * 32 + lane];
-    }
-    const Pick p = chain_step<SPL>(c, v, a, old_n, i + 1 < n, true, lane);
-    veto |= (p.cand && !p.is_new) ? 1 : 0;
-    if (lane == 0) tgt_out[i] = p.t;
-    if (p.is_new) {
-      birth_pos = i;
-      birth_cell = cell;
-      birth_slot = p.t;
-      break;
-    }
-    cell = cell_n;
-    a = a_n;
-#pragma unroll
-    for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
-  }
-  chain_store<SPL>(c, sizes, K, lane);
-  if (lane == 0) {
-    info[0] = birth_pos >= 0 ? birth_pos + 1 : n;
-    info[1] = birth_cell;
-    info[2] = birth_slot;
-    info[3] = veto;
-    if (i0s != nullptr) i0s[ch] = info[0];
-  }
-}
-
-'''
-
 # The parent's reductions (gibbs_common.cuh::pick_reg at 35957c4) and their
 # redux.sync replacement.
 PARENT_KEYS = '''__device__ __forceinline__ unsigned key_of(float x) {
@@ -299,10 +205,6 @@ PARENT_REDUX = '''  unsigned key[SPL];
 def variants(parent):
     """{name: ({file: text}, has lazy_segment)}."""
     src = {f: (CSRC / f).read_text() for f in (HEADER, SEG, STREAM)}
-    seg = src[SEG]
-    no_ring = (seg[:seg.index("template <int SPL>  // slots per lane")]
-               + NO_RING_KERNEL
-               + seg[seg.index("template <int SPL>\nvoid launch("):])
 
     def with_header(pairs):
         return {**src, HEADER: patch(src[HEADER], pairs)}
@@ -313,12 +215,11 @@ def variants(parent):
         "logf_on_chain": (with_header(LOGF_ON_CHAIN), True),
         "no_canon": (with_header(NO_CANON), True),
         "ring4": (with_header(RING4), True),
-        "no_ring": ({**src, SEG: no_ring}, True),
     }
     if parent:
         pdir = Path(parent) / "bnpc_tpu_torch" / "csrc"
         old = {f: (pdir / f).read_text() for f in (HEADER, SEG, STREAM)}
-        out["parent"] = (old, True)
+        out["parent"] = (old, False)
         out["parent_redux"] = ({
             HEADER: patch(old[HEADER], [("struct Pick {", PARENT_KEYS),
                                         (PARENT_TREES, PARENT_REDUX)]),
@@ -534,110 +435,6 @@ K5_STORE_EACH_CELL = [
 ]
 
 
-# Kernel 1 (lazy_segment.cu) in kernel 5's loop shape: an inner loop over
-# the positions of one 32-position chunk, whose bound holds n and whose
-# condition holds the birth, and the chunk refresh between chunks; the
-# body has no other branch.
-K1_CHUNK_LOOP = r'''    for (int j = i0 - cb;; j = 0) {
-      const int end = min(32, n - cb);
-      bool born = false;
-      int t_born = 0;
-      for (; j < end && !born; ++j) {
-        __syncwarp();
-        const int i = cb + j;
-        const int r = i + kRing - 1;
-        issue_row_full<SPL>(ring_s + (unsigned)r % kRing * kRowBytes,
-                            z_lane + (size_t)pair_at(cur.cell, nxt.cell,
-                                                     j + kRing - 1) * K);
-        cp_async_commit();
-        const float a_n = pair_at(cur.a, nxt.a, j + 1);
-        const int old_n2 = pair_at(cur.o, nxt.o, j + 2);
-        cp_async_wait<kRing - 2>();
-        float v_n[SPL];
-#pragma unroll
-        for (int s = 0; s < SPL; ++s)
-          v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];
-        const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, true,
-                                       lane);
-        veto |= (p.cand && !p.is_new) ? 1 : 0;
-        if (lane == 0) tgt_out[i] = p.t;
-        born = p.is_new;
-        t_born = p.t;
-        a = a_n;
-        old_next = old_n2;
-#pragma unroll
-        for (int s = 0; s < SPL; ++s) v[s] = v_n[s];
-      }
-      if (born) {
-        birth_pos = cb + j - 1;
-        birth_cell = __shfl_sync(kFull, cur.cell, j - 1);
-        birth_slot = t_born;
-        break;
-      }
-      if (cb + 32 >= n) break;
-      cb += 32;
-      cur = nxt;
-      nxt.load(perm, assign, aux, cb + 32, n, lane);
-    }
-    cp_async_wait_all();
-'''
-
-
-# Timing only: the birth tested once a chunk, so that the loop's branch
-# does not wait for the chain's end (positions past a birth in its chunk
-# run on: right on inputs without a birth only).
-K1_EXIT_PER_CHUNK = [("      for (; j < end && !born; ++j) {",
-                      "      for (; j < end; ++j) {"),
-                     ("        born = p.is_new;", "        born |= p.is_new;")]
-
-
-# Kernel 1 with the next cell's removal not tied to the birth: the step
-# always removes it (stop_at_birth false, so the update does not wait for
-# is_new), and a birth adds it back as the loop ends.
-K1_UNDO_AT_BIRTH = [
-    ("      const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n, true,"
-     "\n", "      const Pick p = chain_step<SPL>(c, v, a, old_next, i + 1 < n,"
-     " false,\n"),
-    ("        birth_slot = p.t;\n        break;",
-     "        birth_slot = p.t;\n#pragma unroll\n"
-     "        for (int s = 0; s < SPL; ++s)\n"
-     "          if (i + 1 < n && s * 32 + lane == old_next) c.sz[s] += 1.f;\n"
-     "        break;"),
-]
-# Kernel 1 with the wait for position i + 1's row and its shared-memory
-# reads placed after the step in the source, as kernel 5's compiled loop
-# has them.
-K1_ROW_AFTER_STEP = [
-    ("      cp_async_wait<kRing - 2>();  // position i + 1's row has landed\n"
-     "      float v_n[SPL];\n#pragma unroll\n"
-     "      for (int s = 0; s < SPL; ++s)\n"
-     "        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n", ""),
-    ("      if (lane == 0) tgt_out[i] = p.t;\n",
-     "      if (lane == 0) tgt_out[i] = p.t;\n"
-     "      cp_async_wait<kRing - 2>();  // position i + 1's row has landed\n"
-     "      float v_n[SPL];\n#pragma unroll\n"
-     "      for (int s = 0; s < SPL; ++s)\n"
-     "        v_n[s] = ring[(unsigned)(i + 1) % kRing][s * 32 + lane];\n"),
-]
-# Timing only: k1_exit_per_chunk's loop with the step's removal not tied
-# to the birth either.
-K1_CHUNK_NO_STOP = [*K1_EXIT_PER_CHUNK,
-                    ("i + 1 < n, true,\n", "i + 1 < n, false,\n")]
-
-
-def k1_chunk_loop(pairs=()):
-    """lazy_segment.cu with its loop replaced by K1_CHUNK_LOOP, patched by
-    `pairs`."""
-    seg = (CSRC / SEG).read_text()
-    start = "    for (int i = i0;; ++i) {\n"
-    stop = "    cp_async_wait_all();\n"
-    if seg.count(start) != 1 or stop not in seg[seg.find(start):]:
-        raise SystemExit("patch no longer applies: lazy_segment.cu's loop")
-    a = seg.index(start)
-    b = seg.index(stop, a) + len(stop)
-    return seg[:a] + patch(K1_CHUNK_LOOP, pairs) + seg[b:]
-
-
 # The batch's four chunks in a loop the compiler may not unroll, each
 # chunk's targets stored as it ends (the inert ones at the batch's end).
 K5_CHUNKS_ROLLED = [
@@ -674,20 +471,6 @@ def variants_probe(which, parent):
         out["k5_no_ring"] = (with_src(K5_NO_RING), None)
         out["k5_store_each_cell"] = (with_src(K5_STORE_EACH_CELL), None)
         out["k5_chunks_rolled"] = (with_src(K5_CHUNKS_ROLLED), None)
-        out["k1_chunk_loop"] = ({HEADER: src[HEADER], SEG: k1_chunk_loop()},
-                                None)
-        out["k1_exit_per_chunk"] = ({HEADER: src[HEADER],
-                                     SEG: k1_chunk_loop(K1_EXIT_PER_CHUNK)},
-                                    None)
-        out["k1_chunk_no_stop"] = ({HEADER: src[HEADER],
-                                    SEG: k1_chunk_loop(K1_CHUNK_NO_STOP)},
-                                   None)
-        out["k1_row_after_step"] = ({HEADER: src[HEADER],
-                                     SEG: patch((CSRC / SEG).read_text(),
-                                                K1_ROW_AFTER_STEP)}, None)
-        out["k1_undo_at_birth"] = ({HEADER: src[HEADER],
-                                    SEG: patch((CSRC / SEG).read_text(),
-                                               K1_UNDO_AT_BIRTH)}, None)
     if parent:
         pdir = Path(parent) / "bnpc_tpu_torch" / "csrc"
         out[f"{which}_parent"] = ({f: (pdir / f).read_text()
@@ -750,10 +533,11 @@ def _stream():
 
 
 def seg(lib, z, aux, assign, perm, sizes, tgt, info, i0, ld):
+    bounds = torch.empty((3, perm.shape[0]), device=z.device)
     rc = lib.bnpc_lazy_segment(
         z.data_ptr(), aux.data_ptr(), assign.data_ptr(), perm.data_ptr(),
         sizes.data_ptr(), tgt.data_ptr(), info.data_ptr(), ld.data_ptr(),
-        perm.shape[0], z.shape[1], i0, _stream())
+        bounds.data_ptr(), 0, perm.shape[0], z.shape[1], i0, _stream())
     _build.check_launch(rc, "bnpc_lazy_segment")
 
 
@@ -1138,40 +922,11 @@ def run_k5(args, dev, work):
             got += [tgt, sizes, info]
         return got
 
-    # Kernel 1's cases: no birth, a birth from a position inside a chunk,
-    # a veto, and the large Z.
-    ps = main_in[3].cpu().numpy()
-    seg_cases = [(main_in[0], *case(rng, 5000, 256, live, hot, dev),
-                  main_in[3], i0, main_in[5])
-                 for hot, i0, live in (([], 0, 200), (ps[[2600]], 1003, 200),
-                                       (ps[:5], 0, 256))]
-    seg_cases.append((large_in[0], large_in[2], large_in[1], large_in[4],
-                      large_in[3], 0, large_in[5]))
-
-    def seg_outputs(lib, which):
-        got = []
-        for c in which:
-            zc, ac, auxc, s0, pc, i0, ld = seg_cases[c]
-            got += list(run(seg, lib, (zc, auxc, ac, pc), pc.shape[0], s0,
-                            i0, ld, dev))
-        return got
-
     want = outputs(libs["k5_tree"])
-    every, no_birth = (0, 1, 2, 3), (0, 2, 3)
-    want_seg = {w: seg_outputs(libs["k5_tree"], w) for w in (every, no_birth)}
-    if int(want_seg[every][5][0]) != 2601 or \
-            int(want_seg[every][8][3]) != 1:
-        raise SystemExit("k1 cases: no birth at 2,600 or no veto")
     for name, lib in libs.items():
-        if name.startswith("k1_"):
-            w = no_birth if name in ("k1_exit_per_chunk",
-                                     "k1_chunk_no_stop") else every
-            ok, runs = same(seg_outputs(lib, w), want_seg[w]), len(w)
-        else:
-            ok, runs = same(outputs(lib), want), len(cases)
-        if not ok:
+        if not same(outputs(lib), want):
             raise SystemExit(f"{name} disagrees with the tree")
-        print(f"  {name}: outputs == tree ({runs} runs)")
+        print(f"  {name}: outputs == tree ({len(cases)} runs)")
 
     res = {name: {} for name in ("k1_yardstick", *libs)}
     for _ in range(args.rounds):
@@ -1186,11 +941,9 @@ def run_k5(args, dev, work):
                                      vecflow_probe.BATCH), device=dev)
 
                 def once(name=name, zc=zc, auxc=auxc, ac=ac, pc=pc, ld=ld):
-                    if name.startswith("k1_"):
-                        lib = libs["k5_tree" if name == "k1_yardstick"
-                                   else name]
-                        seg(lib, zc[:pc.shape[0]], auxc, ac, pc, next(buf),
-                            tgt_l, info, 0, ld)
+                    if name == "k1_yardstick":
+                        seg(libs["k5_tree"], zc[:pc.shape[0]], auxc, ac, pc,
+                            next(buf), tgt_l, info, 0, ld)
                     else:
                         vecflow(libs[name], zc, auxc, ac, pc, next(buf),
                                 tgt_v, info, ld)

@@ -165,14 +165,19 @@ def test_reads_equal_their_counters(name):
     """The read spans by reason (the reads' one count) against what the
     run counts otherwise: a select read a step, a round read or more a
     one-chain sweep (the counter ``sweeps``), a split read a one-chain
-    split-merge step."""
+    split-merge step. Kernel 1's counters: every position of every sweep
+    (``lazy_cells``), and no full pick (``lazy_full_picks``), since the
+    CPU runs the plain twin, which counts none."""
     taken = _runs(name)[2]
     by = {}
     for s in taken["spans"]:
         if s.name == "runner.read":
             by[s.attrs["reason"]] = by.get(s.attrs["reason"], 0) + 1
     steps = [s for s in taken["spans"] if s.name == "runner.step"]
-    assert set(taken["counts"]) == {"sweeps"}
+    assert set(taken["counts"]) == {"sweeps", "lazy_cells",
+                                    "lazy_full_picks"}
+    assert taken["counts"]["lazy_cells"] == one.N * taken["counts"]["sweeps"]
+    assert taken["counts"]["lazy_full_picks"] == 0
     assert by["select"] == len(steps)
     assert by["round"] > 0 and taken["counts"]["sweeps"] > 0
     if name != "batch":
