@@ -4,9 +4,11 @@ one-chain pipe, bnpc_tpu/mcmc.py:345-353, 710-722).
 
 A piece is a Python function that only launches device work: it reads and
 writes tensors that outlive it (static buffers) and makes no host read. The
-captured block (mcmc.py::_CapturedBlock) runs each piece through
-:class:`Pieces` under a key that names what the host already knows about it
-(a move flag, whether a birth round relaunches). A key's first run is eager
+captured block and batch (mcmc.py::_CapturedBlock, _CapturedBatch, which
+mcmc.py::_make_block, the one seam that decides how a block of chains
+runs, makes on the card) run each piece through :class:`Pieces` under a
+key that names what the host already knows about it (a move flag, whether
+a birth round relaunches). A key's first run is eager
 (it loads the kernels and makes the lazy initialisations that a capture may
 not make); its second run captures it into a graph and replays that; every
 later run replays it. So every run of a piece computes, with the same

@@ -5,26 +5,27 @@ One MCMC step (do_step, libs/MCMC.py:320-342) is a plain Python function
 over tensors: the move selection reads its three uniforms on the host (one
 synchronization per step), then runs either a Gibbs sweep or a split-merge
 move, the alpha resample, the cluster-parameter MH and the error-rate MH,
-and emits one trace row. The runner loops over steps in Python, copies each
+and emits one trace row. The runner runs blocks of steps, copies each
 block's rows to the host, and assembles the reference's per-chain results
 in the three run modes of the reference (steps, runtime, lugsail PSRF),
-with checkpoint / resume. Chains run one after another on the device
-(bnpc_tpu's chain_exec="sequential"), or all together as one batch with a
-leading chain axis (chain_exec="vmap": the same step on a batched state),
-and in either form in lockstep with one shared move selection a step
-(coupled_moves).
-Given a mesh of ranks (parallel/sharded.py), the runner runs this rank's
-chains on its mutation columns and rank 0 gathers, decides and writes (see
-MCMCRunner).
+with checkpoint / resume. Given a mesh of ranks (parallel/sharded.py), the
+runner runs this rank's chains on its mutation columns and rank 0 gathers,
+decides and writes (see MCMCRunner).
 
-On the card a chain that runs alone (one chain, or chains one after
-another) runs its block captured (_CapturedBlock; make_block_fn, bnpc_tpu's
-name, gives it): the device-only pieces of each step between the step's
-host reads replay as CUDA graphs (graphs.py), bit for bit what the eager
-step gives, for the lazy, stream, eager and blocked sweeps. A batch of
-chains, exact, blocked or coupled, runs captured too (_CapturedBatch), its
-pieces keyed by how many chains take each branch. The scan sweep and the
-mesh run the eager step. Nothing turns the capture off; a capture fault
+One place decides how a block of chains runs: ``_make_block`` (the runner's
+one block, make_block_fn's and parallel/sharded.py's), by the table in
+``_form``. Chains run one after another (bnpc_tpu's
+chain_exec="sequential") or all together as one batch with a leading chain
+axis (chain_exec="vmap": the same step on a batched state), and in either
+form in lockstep with one shared move selection a step (coupled_moves). On
+the card, outside a mesh, a chain's block runs captured (_CapturedBlock)
+and so does a batch, exact, blocked or coupled (_CapturedBatch, its pieces
+keyed by how many chains take each branch): the device-only pieces of each
+step between the step's host reads replay as CUDA graphs (graphs.py), bit
+for bit what the eager step gives, for the lazy, stream, eager and blocked
+sweeps. The scan sweep, the CPU and the mesh run the eager step; coupled
+chains one after another run it too. Every executor steps through one
+loop, ``_block_loop``. Nothing turns the capture off; a capture fault
 raises.
 """
 
@@ -398,26 +399,42 @@ def _flush_rows(bufs: TraceRow, k: int) -> dict:
     return out
 
 
+def _block_loop(n_steps: int, keep: int | None, chains: int, step, end,
+                before=None):
+    """The block loop of every executor: one ``runner.block`` span (steps,
+    chains) around the block's first `keep` steps (all `n_steps` without
+    it), each step(t) in a ``runner.step`` span (step=t) and after
+    before(t) where given, then end(), whose value it returns."""
+    block = trace.on and trace.begin("runner.block", steps=n_steps,
+                                     chains=chains)
+    for t in range(n_steps if keep is None else keep):
+        if before is not None:
+            before(t)
+        sp = trace.on and trace.begin("runner.step", step=t)
+        step(t)
+        if sp:
+            trace.end(sp)
+    out = end()
+    if block:
+        trace.end(block)
+    return out
+
+
 def _chain_block(step, state: CRPState, draws: Draws, n_steps: int,
                  keep: int | None = None):
     """One chain's block of `n_steps` steps of `step`, or its first `keep`
     steps (a partial final block takes the keys of a whole block, as
     bnpc_tpu does). Returns (state, rows, next_draws): rows is a dict of
     host arrays with a leading step axis, one entry per TraceRow field."""
-    block = trace.on and trace.begin("runner.block", steps=n_steps,
-                                     chains=1)
-    keys = draws.split(n_steps + 1)
-    rows = []
-    for t, k in enumerate(keys[1:1 + (n_steps if keep is None else keep)]):
-        sp = trace.on and trace.begin("runner.step", step=t)
-        state, row = step(state, k)
-        if sp:
-            trace.end(sp)
+    keys, rows = draws.split(n_steps + 1), []
+
+    def one(t):
+        nonlocal state
+        state, row = step(state, keys[1 + t])
         rows.append(row)
-    out = state, _rows_to_host(rows), keys[0]
-    if block:
-        trace.end(block)
-    return out
+
+    return _block_loop(n_steps, keep, 1, one,
+                       lambda: (state, _rows_to_host(rows), keys[0]))
 
 
 def _write(dst: CRPState, src: CRPState) -> None:
@@ -439,16 +456,6 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
         return d.index
 
     return a.type == b.type and index(a) == index(b)
-
-
-def _sweep_impl(cfg: ModelConfig, mcmc_cfg: MCMCConfig, gibbs_impl: str,
-                on_cuda: bool) -> str:
-    """The Gibbs move's impl that make_step_fn's step runs: "blocked" when
-    mcmc_cfg.gibbs_block > 0, else `gibbs_impl` as gibbs_sweep resolves
-    it."""
-    if mcmc_cfg.gibbs_block > 0:
-        return "blocked"
-    return resolve_impl(gibbs_impl, cfg, on_cuda)
 
 
 def _sweep_work(impl: str, state: CRPState, cfg: ModelConfig,
@@ -489,7 +496,83 @@ def piece_family(key: tuple) -> str:
                        f"PIECE_FAMILIES") from None
 
 
-class _CapturedBlock:
+class _Captured:
+    """What the captured block and batch share: the arguments, the copy-in
+    (the draws checked; the static buffers made by the subclass's
+    ``_setup`` at the first block and whenever the state's shape changes;
+    the state copied in) and the block loop, whose steps write their rows
+    into [rows_cap, ...] device buffers at the device step index ``t``
+    (``_put_row``), copied to the host whenever the buffers are full and at
+    the block's end, and joined there. `graph_cls` makes the graphs
+    (graphs.Pieces); a capture fault raises."""
+
+    NAME, IMPLS = "", ()
+
+    def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
+                 data: PackedData, trace_k: int, impl: str, device,
+                 rows_cap: int, graph_cls=graphs.CudaGraph):
+        if impl not in self.IMPLS:
+            raise ValueError(f"the captured {self.NAME} runs one of "
+                             f"{self.IMPLS}, not {impl!r}")
+        self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
+        self.trace_k, self.impl = trace_k, impl
+        self.stream = impl == "stream"
+        self.device = torch.device(device)
+        self.rows_cap = max(1, int(rows_cap))
+        self.graph_cls = graph_cls
+        self.pieces: graphs.Pieces | None = None
+
+    def _copy_in(self, draws: list[Draws], state: CRPState) -> None:
+        for d in draws:
+            if type(d) is not TorchDraws or not _same_device(d.gen.device,
+                                                            self.device):
+                raise ValueError(f"the captured {self.NAME} draws from "
+                                 f"TorchDraws on {self.device}, not {d!r}")
+        if self.pieces is None or (self.state.assignment.shape
+                                   != state.assignment.shape):
+            self._setup(state)
+        _write(self.state, state)
+
+    def _setup_rows(self, state: CRPState) -> None:
+        """The end of a subclass's ``_setup``: `state` copied in, the device
+        step index and the row buffers, shaped after its row."""
+        _write(self.state, state)
+        lead = state.assignment.shape[:-1]
+        self.t = torch.zeros((1,), dtype=torch.long, device=self.device)
+        row = summarize(self.state, self.data, self.cfg, self.trace_k,
+                        ax=ChainAxis(chains=lead[0]) if lead else _NO_AXIS)
+        self.rows = TraceRow(*(
+            torch.zeros((self.rows_cap,) + tuple(f.shape), dtype=f.dtype,
+                        device=self.device) for f in row))
+
+    def _put_row(self, row: TraceRow) -> None:
+        for buf, x in zip(self.rows, row):
+            buf.index_copy_(0, self.t, x[None])
+        self.t.add_(1)
+
+    def _loop(self, n_steps: int, keep: int | None, chains: int, step,
+              out):
+        """_block_loop over step(t); out(rows) gives the block's result
+        from the host rows, [steps, ...]."""
+        n, host = n_steps if keep is None else keep, []
+        self.t.zero_()
+
+        def flush(t):
+            if t and t % self.rows_cap == 0:
+                host.append(_flush_rows(self.rows, self.rows_cap))
+                self.t.zero_()
+
+        def end():
+            host.append(_flush_rows(self.rows,
+                                    n - len(host) * self.rows_cap))
+            return out(host[0] if len(host) == 1 else {
+                f: np.concatenate([h[f] for h in host])
+                for f in TraceRow._fields})
+
+        return _block_loop(n_steps, keep, chains, step, end, flush)
+
+
+class _CapturedBlock(_Captured):
     """One chain's block on the card, each step's device-only pieces
     replayed as CUDA graphs between the step's host reads (graphs.py; the
     counterpart of bnpc_tpu's compiled block, whose step is a ``lax.scan``
@@ -537,36 +620,24 @@ class _CapturedBlock:
     static tensors made at the first run and read and written in place by
     every graph. A block copies the state in and its generator state into
     the block's own generator (the one every graph registers), runs its
-    steps, copies the rows to the host (once a block, or each time rows_cap
-    rows are full), and hands back a copy of the state and the generator
-    state. Each step gives bit for bit what ``_chain_block`` over the eager
-    step gives on the same draws. `graph_cls` makes the graphs
-    (graphs.Pieces); a capture fault raises."""
+    steps and hands back a copy of the state and the generator state. Each
+    step gives bit for bit what ``_chain_block`` over the eager step gives
+    on the same draws."""
 
-    def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                 data: PackedData, trace_k: int, impl: str, device,
-                 rows_cap: int, graph_cls=graphs.CudaGraph):
-        if impl not in CAPTURED_IMPLS:
-            raise ValueError(f"the captured block runs one of "
-                             f"{CAPTURED_IMPLS}, not {impl!r}")
-        self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
-        self.trace_k, self.impl = trace_k, impl
-        self.stream = impl == "stream"
-        self.device = torch.device(device)
-        self.rows_cap = max(1, int(rows_cap))
-        self.graph_cls = graph_cls
-        self._select = _make_select(mcmc_cfg)
-        self._finish = _make_finish(cfg, mcmc_cfg, data, trace_k)
-        self._gibbs = {"lazy": self._sweep, "stream": self._sweep,
-                       "blocked": self._blocked, "eager": self._eager}[impl]
-        self.pieces: graphs.Pieces | None = None
+    NAME, IMPLS = "block", CAPTURED_IMPLS
 
     def _setup(self, state: CRPState) -> None:
-        """The block's generator, its graphs and the static buffers, shaped
-        after `state`."""
+        """The block's generator, its graphs, its step's functions and the
+        static buffers, shaped after `state`."""
         dev = self.device
         if self.impl == "eager":
             _check_eager_fits(self.cfg, dev)
+        self._select = _make_select(self.mcmc_cfg)
+        self._finish = _make_finish(self.cfg, self.mcmc_cfg, self.data,
+                                    self.trace_k)
+        self._gibbs = {"lazy": self._sweep, "stream": self._sweep,
+                       "blocked": self._blocked,
+                       "eager": self._eager}[self.impl]
         self.draws = TorchDraws(0, dev)
         self.pieces = graphs.Pieces(self.draws.gen, piece_family,
                                     self.graph_cls)
@@ -576,12 +647,7 @@ class _CapturedBlock:
                                 self.mcmc_cfg)
         self.split = torch.zeros((), dtype=torch.bool, device=dev)
         self.sm_counts = torch.zeros((2, 2), dtype=torch.int32, device=dev)
-        self.t = torch.zeros((1,), dtype=torch.long, device=dev)
-        _write(self.state, state)
-        row = summarize(self.state, self.data, self.cfg, self.trace_k)
-        self.rows = TraceRow(*(
-            torch.zeros((self.rows_cap,) + tuple(f.shape), dtype=f.dtype,
-                        device=dev) for f in row))
+        self._setup_rows(state)
 
     def statics(self) -> list[torch.Tensor]:
         """Every static tensor the pieces read and write."""
@@ -593,43 +659,17 @@ class _CapturedBlock:
         """What ``_chain_block`` returns for the eager step: (state, rows,
         next_draws), `draws` a TorchDraws on the block's device (its
         generator's state moves on as the steps draw)."""
-        if type(draws) is not TorchDraws or not _same_device(
-                draws.gen.device, self.device):
-            raise ValueError(f"the captured block draws from a TorchDraws "
-                             f"on {self.device}, not {draws!r}")
-        block = trace.on and trace.begin("runner.block", steps=n_steps,
-                                         chains=1)
-        if self.pieces is None:
-            self._setup(state)
-        _write(self.state, state)
+        self._copy_in([draws], state)
         gd = self.draws
         gd.gen.set_state(draws.gen.get_state())
         keys = gd.split(n_steps + 1)
-        host, filled = [], 0
-        self.t.zero_()
-        for t, k in enumerate(keys[1:1 + (n_steps if keep is None
-                                         else keep)]):
-            if filled == self.rows_cap:
-                host.append(self._flush(filled))
-                self.t.zero_()
-                filled = 0
-            sp = trace.on and trace.begin("runner.step", step=t)
-            self._step(k)
-            if sp:
-                trace.end(sp)
-            filled += 1
-        host.append(self._flush(filled))
-        draws.gen.set_state(gd.gen.get_state())
-        rows = host[0] if len(host) == 1 else {
-            f: np.concatenate([h[f] for h in host]) for f in TraceRow._fields}
-        out = CRPState(*(f.clone() for f in self.state)), rows, draws
-        if block:
-            trace.end(block)
-        return out
 
-    def _flush(self, k: int) -> dict:
-        """The first `k` rows on the host."""
-        return _flush_rows(self.rows, k)
+        def out(rows):
+            draws.gen.set_state(gd.gen.get_state())
+            return CRPState(*(f.clone() for f in self.state)), rows, draws
+
+        return self._loop(n_steps, keep, 1,
+                          lambda t: self._step(keys[1 + t]), out)
 
     def _step(self, key: Draws) -> None:
         mc = self.mcmc_cfg
@@ -717,35 +757,7 @@ class _CapturedBlock:
         state, row = self._finish(self.state, flags, None, sm_counts, k_dpa,
                                   k_par, k_err)
         _write(self.state, state)
-        for buf, x in zip(self.rows, row):
-            buf.index_copy_(0, self.t, x[None])
-        self.t.add_(1)
-
-
-def make_block_fn(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
-                  trace_k: int, ax: MutAxis = _NO_AXIS,
-                  gibbs_impl: str = "auto"):
-    """A block of make_step_fn's steps (bnpc_tpu make_block_fn, a
-    ``lax.scan`` of the step): block(state, draws, n_steps, keep=None) ->
-    (state, rows, next_draws), ``_chain_block``'s signature (rows: host
-    arrays with a leading step axis, one a TraceRow field).
-
-    With `data` on a CUDA device and an unsharded `ax` it is the captured
-    block (``_CapturedBlock.run``: each step's device-only pieces replayed
-    as CUDA graphs between the step's host reads, `draws` a TorchDraws on
-    that device, rows reaching the host every 256 steps) for the
-    sweeps ``lazy``, ``stream``, ``eager`` and the blocked one
-    (``mcmc_cfg.gibbs_block`` > 0). ``scan`` (a host read a cell) and a
-    sharded `ax` (its all-reduces go through gloo on the host, which no
-    graph holds) run ``_chain_block`` over the eager step on every device,
-    by design, until their captured forms come; so does the CPU."""
-    step = make_step_fn(cfg, mcmc_cfg, data, trace_k, ax, gibbs_impl)
-    device = data.xm.device
-    impl = _sweep_impl(cfg, mcmc_cfg, gibbs_impl, device.type == "cuda")
-    if device.type != "cuda" or ax.sharded or impl not in CAPTURED_IMPLS:
-        return functools.partial(_chain_block, step)
-    return _CapturedBlock(cfg, mcmc_cfg, data, trace_k, impl, device,
-                          256).run
+        self._put_row(row)
 
 
 def _batch_block(step, states: list[CRPState], draws: list[Draws],
@@ -756,30 +768,52 @@ def _batch_block(step, states: list[CRPState], draws: list[Draws],
     on a StackedDraws of the chains' step draws (coupled: the coupled step,
     chain 0's step draws driving the shared move choice), unstacked at the
     block's end. Returns what _make_block's block returns."""
-    block = trace.on and trace.begin("runner.block", steps=n_steps,
-                                     chains=len(states))
     keys = [d.split(n_steps + 1) for d in draws]
-    batch = stack_states(states)
-    rows = []
-    for t in range(1, 1 + (n_steps if keep is None else keep)):
-        sp = trace.on and trace.begin("runner.step", step=t - 1)
+    batch, rows = stack_states(states), []
+
+    def one(t):
+        nonlocal batch
         if coupled:
-            batch, row = step(batch, keys[0][t], _own_streams(keys, t))
+            batch, row = step(batch, keys[0][1 + t], _own_streams(keys, 1 + t))
         else:
-            batch, row = step(batch, StackedDraws([k[t] for k in keys]))
-        if sp:
-            trace.end(sp)
+            batch, row = step(batch, StackedDraws([k[1 + t] for k in keys]))
         rows.append(row)
-    host = _rows_to_host(rows)  # [steps, chains, ...]
-    out = unstack_states(batch), {
-        f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
-        for f, v in host.items()}, [k[0] for k in keys]
-    if block:
-        trace.end(block)
-    return out
+
+    def end():
+        host = _rows_to_host(rows)  # [steps, chains, ...]
+        return unstack_states(batch), {
+            f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
+            for f, v in host.items()}, [k[0] for k in keys]
+
+    return _block_loop(n_steps, keep, len(states), one, end)
 
 
-class _CapturedBatch:
+def _coupled_chains(step, states: list[CRPState], draws: list[Draws],
+                    n_steps: int, keep: int | None = None):
+    """A block of coupled chains one after another within each step
+    (chain_exec="sequential"): make_coupled_step_fn's step on the list of
+    states, chain 0's key stream driving the shared move choice (bnpc_tpu
+    _pipe_coupled); every chain's key advances. Returns what _make_block's
+    block returns."""
+    keys = [d.split(n_steps + 1) for d in draws]
+    rows = [[] for _ in states]
+
+    def one(t):
+        nonlocal states
+        states, step_rows = step(states, keys[0][1 + t],
+                                 _own_streams(keys, 1 + t))
+        for chain_rows, row in zip(rows, step_rows):
+            chain_rows.append(row)
+
+    def end():
+        blocks = [_rows_to_host(r) for r in rows]
+        return states, {f: np.stack([b[f] for b in blocks])
+                        for f in TraceRow._fields}, [k[0] for k in keys]
+
+    return _block_loop(n_steps, keep, len(states), one, end)
+
+
+class _CapturedBatch(_Captured):
     """A block of C > 1 chains as one batch on the card (chain_exec="vmap",
     exact or coupled), each step's device-only pieces replayed as CUDA
     graphs between the step's host reads (graphs.py; the counterpart of
@@ -832,30 +866,15 @@ class _CapturedBatch:
     first k rows, contiguous prefixes), the move uniforms, the index
     buffers, the statistics, counts and row buffers. Each step gives bit
     for bit what ``_batch_block`` over the eager batched step gives on the
-    same draws. `graph_cls` makes the graphs (graphs.Pieces); a capture
-    fault raises."""
+    same draws."""
 
-    def __init__(self, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                 data: PackedData, trace_k: int, impl: str, device,
-                 rows_cap: int, graph_cls=graphs.CudaGraph):
-        if impl not in ("lazy", "stream", "blocked"):
-            raise ValueError(f"the captured batch runs 'lazy', 'stream' or "
-                             f"'blocked', not {impl!r}")
-        self.cfg, self.mcmc_cfg, self.data = cfg, mcmc_cfg, data
-        self.trace_k, self.impl = trace_k, impl
-        self.stream = impl == "stream"
-        self.device = torch.device(device)
-        self.rows_cap = max(1, int(rows_cap))
-        self.graph_cls = graph_cls
-        self.thresholds = _thresholds(mcmc_cfg)
-        self.pieces: graphs.Pieces | None = None
-        self.n_chains = 0
+    NAME, IMPLS = "batch", ("lazy", "stream", "blocked")
 
     def _setup(self, batch: CRPState) -> None:
         """The slot generators, the graphs and the static buffers, shaped
         after the batched state `batch`."""
         dev, c = self.device, batch.assignment.shape[0]
-        self.n_chains = c
+        self.n_chains, self.thresholds = c, _thresholds(self.mcmc_cfg)
         self.slots = [TorchDraws(0, dev) for _ in range(c)]
         self.pieces = graphs.Pieces(None, piece_family, self.graph_cls)
         self.state = CRPState(*(torch.empty_like(f) for f in batch))
@@ -880,13 +899,7 @@ class _CapturedBatch:
         k, m = self.cfg.k_max, batch.params.shape[-1]
         self.n1, self.n0 = zeros(c, k, m, dtype=f32), zeros(c, k, m,
                                                            dtype=f32)
-        self.t = zeros(1)
-        _write(self.state, batch)
-        row = summarize(self.state, self.data, self.cfg, self.trace_k,
-                        ax=ChainAxis(chains=c))
-        self.rows = TraceRow(*(
-            torch.zeros((self.rows_cap,) + tuple(f.shape), dtype=f.dtype,
-                        device=dev) for f in row))
+        self._setup_rows(batch)
 
     def statics(self) -> list[torch.Tensor]:
         """Every static tensor the pieces read and write."""
@@ -901,46 +914,17 @@ class _CapturedBatch:
         coupled one with `coupled`): (states, rows, next_draws), `draws`
         one TorchDraws a chain on the block's device (each generator's
         state moves on as its chain draws)."""
-        for d in draws:
-            if type(d) is not TorchDraws or not _same_device(d.gen.device,
-                                                            self.device):
-                raise ValueError(f"the captured batch draws from TorchDraws "
-                                 f"on {self.device}, not {d!r}")
         if coupled and self.impl == "blocked":
             raise ValueError("the coupled step runs the exact sweep, not "
                              "the blocked one")
-        block = trace.on and trace.begin("runner.block", steps=n_steps,
-                                         chains=len(states))
-        batch = stack_states(states)
-        if self.pieces is None or self.n_chains != len(states):
-            self._setup(batch)
-        _write(self.state, batch)
-        host, filled = [], 0
-        self.t.zero_()
-        for t in range(n_steps if keep is None else keep):
-            if filled == self.rows_cap:
-                host.append(self._flush(filled))
-                self.t.zero_()
-                filled = 0
-            sp = trace.on and trace.begin("runner.step", step=t)
-            self._step(draws, coupled)
-            if sp:
-                trace.end(sp)
-            filled += 1
-        host.append(self._flush(filled))
-        rows = {f: np.ascontiguousarray(np.swapaxes(
-            np.concatenate([h[f] for h in host]), 0, 1))
-            for f in TraceRow._fields}
+        self._copy_in(draws, stack_states(states))
         # A TorchDraws splits into itself: each chain's next draws are its
         # own, moved on.
-        out = unstack_states(self.state), rows, list(draws)
-        if block:
-            trace.end(block)
-        return out
-
-    def _flush(self, k: int) -> dict:
-        """The first `k` rows, [k, C, ...], on the host."""
-        return _flush_rows(self.rows, k)
+        return self._loop(n_steps, keep, len(states),
+                          lambda t: self._step(draws, coupled),
+                          lambda rows: (unstack_states(self.state), {
+                              f: np.ascontiguousarray(np.swapaxes(v, 0, 1))
+                              for f, v in rows.items()}, list(draws)))
 
     def _run(self, key, draws, chains, fn) -> None:
         """Piece `fn` under `key`, slot j drawing for chain chains[j]."""
@@ -1153,34 +1137,123 @@ class _CapturedBatch:
                 .index_copy(0, idx, torch.stack([acc, 1 - acc], -1))
         row = summarize(st, self.data, self.cfg, self.trace_k,
                         stats=(self.n1, self.n0), ax=ChainAxis(chains=c))
-        for buf, x in zip(self.rows, row._replace(mh_counts=counts)):
-            buf.index_copy_(0, self.t, x[None])
-        self.t.add_(1)
+        self._put_row(row._replace(mh_counts=counts))
         self.sm_counts.zero_()
 
 
-def _make_block(step, chain_exec: str, one=None, batch=None):
-    """(states, draws, n_steps, keep=None) -> (states, rows, next_draws): a
-    block of `step` over a list of one-chain states and their draws, the
-    chains one after another (each by `one`, _chain_block's signature;
-    default _chain_block over `step`) or, under chain_exec="vmap" and more
-    than one chain, as one batch (by `batch`, _CapturedBatch.run's
-    signature; default _batch_block over `step`). rows hold [chains,
-    steps, ...] host arrays (an empty dict without chains)."""
-    one = one or functools.partial(_chain_block, step)
-    batch = batch or functools.partial(_batch_block, step)
+def _form(cuda: bool, mesh: bool, sharded: bool, impl: str, exact: str,
+          chain_exec: str, coupled: bool, n_chains: int):
+    """The seam's table: the executor of a block of `n_chains` chains as
+    (name, impl, coupled), `impl` None for the eager ones. Only on the card
+    (`cuda`) outside a mesh (or a sharded axis) do CAPTURED_IMPLS run
+    captured. Coupled moves bind more than one chain outside a sharded
+    axis: within each step one after another under "sequential", as one
+    batch on the exact sweep `exact` under "vmap"."""
+    capture = cuda and not mesh
+    coupled = coupled and not sharded and n_chains > 1
+    if coupled and chain_exec == "sequential":
+        return "_coupled_chains", None, True
+    if chain_exec == "vmap" and n_chains > 1:
+        impl = exact if coupled else impl
+        if capture and impl in CAPTURED_IMPLS:
+            return "_CapturedBatch", impl, coupled
+        return "_batch_block", None, coupled
+    if capture and impl in CAPTURED_IMPLS:
+        return "_CapturedBlock", impl, False
+    return "_chain_block", None, False
+
+
+def _make_block(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
+                trace_k: int, ax: MutAxis = _NO_AXIS,
+                gibbs_impl: str = "auto", chain_exec: str = "auto",
+                mesh=None, rows_cap: int = 256, graphs_for=None):
+    """The one place that decides how a block of chains runs:
+    block(states, draws, n_steps, keep=None) -> (states, rows, next_draws)
+    runs every chain of `states` by the executor ``_form`` names; rows hold
+    [chains, steps, ...] host arrays ({} without chains). `chain_exec` is
+    resolved here, once. A captured executor is made at its first block
+    and kept, its graphs with it. `graphs_for(executor)`, its graph class,
+    stands in for the card: the captured forms then run on any device.
+    Attributes: ``chain_exec``, the eager ``step`` and ``coupled_step``,
+    their ``cfg``, ``data`` and ``ax``, and ``executors`` made so far."""
+    device = data.xm.device
+    chain_exec = resolve_chain_exec(chain_exec, device, mesh,
+                                    mcmc_cfg.gibbs_block,
+                                    mcmc_cfg.coupled_moves)
+    if chain_exec == "vmap":
+        _check_chains_step(gibbs_impl)
+    on_cuda = device.type == "cuda"
+    step = make_step_fn(cfg, mcmc_cfg, data, trace_k, ax, gibbs_impl)
+    coupled_step = make_coupled_step_fn(cfg, mcmc_cfg, data, trace_k,
+                                        gibbs_impl)
+    exact = resolve_impl(gibbs_impl, cfg, on_cuda)
+    table = functools.partial(
+        _form, on_cuda or graphs_for is not None,
+        mesh is not None or ax.sharded, ax.sharded,
+        "blocked" if mcmc_cfg.gibbs_block > 0 else exact, exact, chain_exec,
+        mcmc_cfg.coupled_moves)
+    executors = {}
+
+    def captured(cls, impl):
+        if (cls, impl) not in executors:
+            ex = cls(cfg, mcmc_cfg, data, trace_k, impl, device, rows_cap)
+            if graphs_for is not None:
+                ex.graph_cls = graphs_for(ex)
+            executors[cls, impl] = ex
+        return executors[cls, impl]
 
     def block(states, draws, n_steps: int, keep: int | None = None):
         if not states:
             return [], {}, []
-        if chain_exec == "vmap" and len(states) > 1:
-            return batch(states, draws, n_steps, keep)
+        name, impl, coupled = table(len(states))
+        if name == "_CapturedBatch":
+            return captured(_CapturedBatch, impl).run(
+                states, draws, n_steps, keep, coupled=coupled)
+        if name == "_batch_block":
+            return _batch_block(coupled_step if coupled else step, states,
+                                draws, n_steps, keep, coupled)
+        if name == "_coupled_chains":
+            return _coupled_chains(coupled_step, states, draws, n_steps,
+                                   keep)
+        one = (captured(_CapturedBlock, impl).run
+               if name == "_CapturedBlock"
+               else functools.partial(_chain_block, step))
         out = [one(st, d, n_steps, keep) for st, d in zip(states, draws)]
         states, rows, draws = (list(x) for x in zip(*out))
         return states, {f: np.stack([r[f] for r in rows])
                         for f in TraceRow._fields}, draws
 
+    block.chain_exec, block.step, block.coupled_step = (chain_exec, step,
+                                                        coupled_step)
+    block.cfg, block.data, block.ax = cfg, data, ax
+    block.executors = executors
     return block
+
+
+def _one_chain(block, state: CRPState, draws: Draws, n_steps: int,
+               keep: int | None = None):
+    """`block` (``_make_block``'s) on one chain: (state, rows, next_draws),
+    rows with a leading step axis."""
+    states, rows, nxt = block([state], [draws], n_steps, keep)
+    return states[0], {f: v[0] for f, v in rows.items()}, nxt[0]
+
+
+def make_block_fn(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
+                  trace_k: int, ax: MutAxis = _NO_AXIS,
+                  gibbs_impl: str = "auto"):
+    """A block of make_step_fn's steps (bnpc_tpu make_block_fn, a
+    ``lax.scan`` of the step): block(state, draws, n_steps, keep=None) ->
+    (state, rows, next_draws), ``_chain_block``'s signature: one chain
+    through ``_make_block``, captured on a CUDA device with an unsharded
+    `ax` (rows reaching the host every 256 steps), else ``_chain_block``
+    over the eager step (``scan`` reads the host a cell, and no graph
+    holds a sharded `ax`'s gloo all-reduces). ``executors`` holds the
+    captured block once it is made."""
+    block = _make_block(cfg, mcmc_cfg, data, trace_k, ax, gibbs_impl,
+                        "sequential")
+    one = functools.partial(_one_chain, block)
+    one.executors = block.executors
+    return one
 
 
 class _TraceBuffer:
@@ -1260,24 +1333,13 @@ CHAIN_EXECS = ("auto", "sequential", "vmap")
 AUTO_CUDA_CHAIN_EXEC = "sequential"
 # Coupled chains (coupled_moves) take their own rule in its place: phase
 # 12 (d), the captured coupled batch against the coupled chains one after
-# another, 3.644-5.912 x in each of five calls, so "vmap".
+# another, 3.644-5.912 x in each of five calls, so "vmap". A blocked sweep
+# (gibbs_block > 0) takes the exact or coupled rule (PERF.md §6 has its
+# own measurements). A rank's local chains under a mesh take a rule beside
+# those (phase 11 (e), two ranks sharing the card, NVIDIA H100 80GB HBM3,
+# 700 W): 1 x 2 with 2 chains 1.093-1.212 x, but 2 x 1 with 2 chains a
+# rank 0.557, 1.125 and 0.990 x, so "sequential".
 AUTO_CUDA_COUPLED_CHAIN_EXEC = "vmap"
-# Rules that apply beside those: a blocked sweep (gibbs_block > 0) and a
-# rank's local chains under a mesh, "vmap" only where the batch reached
-# the sequential chain-steps/s in every call (NVIDIA H100 80GB HBM3, 700
-# W; PERF.md §6). Blocked (phase 12 (f)), with both forms eager: main
-# cell 4 chains 1.270-1.966 x, large-n 2 chains 1.112-1.467 x (three
-# calls), so "vmap"; it composes with the exact rule, so blocked runs go
-# "sequential" under "auto". With both forms captured (the captured batch
-# against captured sequential chains, a fresh runner a run, vmap /
-# sequential / sequential / vmap): main 4 chains 1.002 and 1.123 x,
-# large-n 2 chains 0.855 and 0.806 x (NVIDIA H100 80GB HBM3, 700.00 W,
-# two calls; PERF.md §6), not ahead in every call, so the exact rule
-# keeps its place. Mesh
-# (phase 11 (e), two ranks sharing the card): 1 x 2 with 2 chains
-# 1.093-1.212 x, but 2 x 1 with 2 chains a rank 0.557, 1.125 and 0.990 x,
-# so "sequential".
-AUTO_CUDA_BLOCKED_CHAIN_EXEC = "vmap"
 AUTO_CUDA_MESH_CHAIN_EXEC = "sequential"
 
 
@@ -1285,20 +1347,16 @@ def resolve_chain_exec(chain_exec: str, device, mesh=None,
                        gibbs_block: int = 0, coupled: bool = False) -> str:
     """"auto" -> "vmap" on CUDA where every rule that applies takes it
     (AUTO_CUDA_CHAIN_EXEC, or AUTO_CUDA_COUPLED_CHAIN_EXEC for coupled
-    chains; AUTO_CUDA_BLOCKED_CHAIN_EXEC with a blocked sweep;
-    AUTO_CUDA_MESH_CHAIN_EXEC under a mesh), "sequential" otherwise and on
-    the CPU."""
+    chains; AUTO_CUDA_MESH_CHAIN_EXEC under a mesh), "sequential" otherwise
+    and on the CPU. `gibbs_block` adds no rule of its own."""
     if chain_exec not in CHAIN_EXECS:
         raise ValueError(f"chain_exec={chain_exec!r}; expected one of "
                          f"{CHAIN_EXECS}")
     if chain_exec != "auto":
         return chain_exec
     rules = [AUTO_CUDA_COUPLED_CHAIN_EXEC if coupled
-             else AUTO_CUDA_CHAIN_EXEC]
-    if mesh is not None:
-        rules.append(AUTO_CUDA_MESH_CHAIN_EXEC)
-    if gibbs_block > 0:
-        rules.append(AUTO_CUDA_BLOCKED_CHAIN_EXEC)
+             else AUTO_CUDA_CHAIN_EXEC] + (
+        [] if mesh is None else [AUTO_CUDA_MESH_CHAIN_EXEC])
     batchable = (torch.device(device).type == "cuda"
                  and all(r == "vmap" for r in rules))
     return "vmap" if batchable else "sequential"
@@ -1324,16 +1382,14 @@ class MCMCRunner:
       * "auto": see ``resolve_chain_exec`` (PERF.md §6 has the
         measurements behind its rules); "sequential" on the CPU.
 
-    One chain always runs the one-chain step; on the card a chain that
-    runs alone takes the captured block (``_CapturedBlock``,
-    ``run_block``), and a batch the captured batch (``_CapturedBatch``),
-    the blocked sweep's too; not under a mesh. With
-    ``mcmc_cfg.coupled_moves`` and more than one chain the chains step in
-    lockstep with one shared move selection a step, batched under "vmap"
-    (bnpc_tpu's coupled pipe) and one after another within each step under
-    "sequential" (bnpc_tpu honours it only on its vmapped path; the port
-    honours it whenever n_chains > 1). Checkpoints hold one state a chain
-    under either, so a run saved under one resumes under the other.
+    ``_make_block`` makes the runner's one block and decides how it runs
+    (the module docstring). With ``mcmc_cfg.coupled_moves`` and more than
+    one chain the chains step in lockstep with one shared move selection a
+    step, batched under "vmap" (bnpc_tpu's coupled pipe) and one after
+    another within each step under "sequential" (bnpc_tpu honours it only
+    on its vmapped path; the port honours it whenever n_chains > 1).
+    Checkpoints hold one state a chain under either, so a run saved under
+    one resumes under the other.
     ``checkpoint_dir`` saves the run every ``checkpoint_every`` blocks and
     resumes from it, in all three modes.
 
@@ -1367,9 +1423,6 @@ class MCMCRunner:
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int = 4, mesh=None,
                  chain_exec: str = "auto"):
-        self.chain_exec = resolve_chain_exec(chain_exec, device, mesh,
-                                             mcmc_cfg.gibbs_block,
-                                             mcmc_cfg.coupled_moves)
         self.cfg = cfg
         self.mcmc_cfg = mcmc_cfg
         self.data = data
@@ -1379,48 +1432,21 @@ class MCMCRunner:
         self.checkpoint_every = checkpoint_every
         self.trace_k = resolve_trace_k(cfg, mcmc_cfg)
         self.mesh = mesh
-        self.ax = _NO_AXIS
         self.m_pad = cfg.n_muts
-        # The step's config, data and axis: this rank's columns of the
-        # padded matrix under mutation sharding, else the whole matrix.
-        self._step_cfg, self._step_data = cfg, data
-        # One chain's block: on the card the captured block (the Gibbs
-        # move is the blocked sweep with gibbs_block > 0, else the exact
-        # one, "lazy" or "stream" there), else _chain_block over the eager
-        # step. A batch: the captured batch; coupled chains run the exact
-        # sweep (make_coupled_step_fn does not route gibbs_block).
-        self._captured = self._captured_batch = None
-        self._captured_coupled = None
+        # How every block of this rank's chains runs (the seam, _make_block):
+        # under a mesh on this rank's columns of the padded matrix.
         if mesh is None:
-            self._step = make_step_fn(cfg, mcmc_cfg, data, self.trace_k)
-            self._one_block = functools.partial(_chain_block, self._step)
-            if self.device.type == "cuda":
-                impl = _sweep_impl(cfg, mcmc_cfg, "auto", on_cuda=True)
-                exact = resolve_impl("auto", cfg, on_cuda=True)
-                args = (cfg, mcmc_cfg, data, self.trace_k)
-                self._captured = _CapturedBlock(*args, impl, self.device,
-                                                block_size)
-                self._captured_batch = _CapturedBatch(*args, impl,
-                                                      self.device, block_size)
-                self._captured_coupled = (
-                    self._captured_batch if impl == exact else
-                    _CapturedBatch(*args, exact, self.device, block_size))
-                self._one_block = self._captured.run
-            self._block = _make_block(
-                self._step, self.chain_exec, self._one_block,
-                self._captured_batch and self._captured_batch.run)
+            self._block = _make_block(cfg, mcmc_cfg, data, self.trace_k,
+                                      chain_exec=chain_exec,
+                                      rows_cap=block_size)
         else:
             from bnpc_tpu_torch.data import pad_muts
             from bnpc_tpu_torch.parallel import sharded
 
             padded, self.m_pad = pad_muts(data, mesh.muts)
-            self._block = sharded.make_sharded_block(
-                mesh, cfg, mcmc_cfg, padded, chain_exec=self.chain_exec)
-            self._step, self.ax = self._block.step, self._block.ax
-            self._step_cfg = self._block.cfg
-            self._step_data = self._block.data
-        self._coupled_step = make_coupled_step_fn(cfg, mcmc_cfg, data,
-                                                self.trace_k)
+            self._block = sharded.make_sharded_block(mesh, cfg, mcmc_cfg,
+                                                     padded, chain_exec)
+        self.chain_exec, self.ax = self._block.chain_exec, self._block.ax
         # The seed of each chain of the last run() (args.txt's chain_seeds).
         self.seeds: np.ndarray | None = None
         self.final_states: list[CRPState] = []
@@ -1449,57 +1475,29 @@ class MCMCRunner:
                   keep: int | None = None):
         """One chain's block of `n_steps` steps, or its first `keep` steps
         (a partial final block takes the keys of a whole block, as bnpc_tpu
-        does). Returns (state, rows, next_draws): rows is a dict of host
-        arrays with a leading step axis, one entry per TraceRow field. On
-        the card the steps run as captured graphs (_CapturedBlock); the
-        eager block is _chain_block over self._step."""
-        if self.mesh is not None:
-            return _chain_block(self._step, state, draws, n_steps, keep)
-        return self._one_block(state, draws, n_steps, keep)
+        does), as run_chains runs it. Returns (state, rows, next_draws):
+        rows is a dict of host arrays with a leading step axis, one entry
+        per TraceRow field."""
+        return _one_chain(self._block, state, draws, n_steps, keep)
 
     def run_chains(self, states: list[CRPState], draws: list[Draws],
                    n_steps: int, keep: int | None = None):
-        """One block of every chain of this rank (see run_block): one after
-        another or, under chain_exec="vmap", as one batch; coupled chains
-        in lockstep (unless the mutation axis is sharded). Returns (states,
-        rows, next_draws); rows hold [n_chains, steps, ...] host arrays (an
-        empty dict on a rank without chains)."""
+        """One block of every chain of this rank (see run_block), as
+        ``_make_block`` decides: one after another or, under
+        chain_exec="vmap", as one batch; coupled chains in lockstep (unless
+        the mutation axis is sharded). Returns (states, rows, next_draws);
+        rows hold [n_chains, steps, ...] host arrays (an empty dict on a
+        rank without chains)."""
         if trace.on:
             trace.new_run()
-        if len(states) < 2 or not self.mcmc_cfg.coupled_moves \
-                or self.ax.sharded:
-            return self._block(states, draws, n_steps, keep)
-        if self.chain_exec == "vmap":
-            if self._captured_coupled is not None:
-                return self._captured_coupled.run(states, draws, n_steps,
-                                                  keep, coupled=True)
-            return _batch_block(self._coupled_step, states, draws, n_steps,
-                                keep, coupled=True)
-        # Chain 0's key stream drives the shared move choice (bnpc_tpu
-        # _pipe_coupled); every chain's key advances.
-        block = trace.on and trace.begin("runner.block", steps=n_steps,
-                                         chains=len(states))
-        keys = [d.split(n_steps + 1) for d in draws]
-        rows = [[] for _ in states]
-        for t in range(1, 1 + (n_steps if keep is None else keep)):
-            sp = trace.on and trace.begin("runner.step", step=t - 1)
-            states, step_rows = self._coupled_step(
-                states, keys[0][t], _own_streams(keys, t))
-            if sp:
-                trace.end(sp)
-            for chain_rows, row in zip(rows, step_rows):
-                chain_rows.append(row)
-        blocks = [_rows_to_host(r) for r in rows]
-        if block:
-            trace.end(block)
-        return states, {f: np.stack([b[f] for b in blocks])
-                        for f in TraceRow._fields}, [k[0] for k in keys]
+        return self._block(states, draws, n_steps, keep)
 
     def _init_rows(self, states) -> dict | None:
         """Each chain's initial-state row, [n_chains, 1, ...] (on rank 0
         under a mesh, None elsewhere)."""
-        rows = [_rows_to_host([summarize(st, self._step_data, self._step_cfg,
-                                         self.trace_k, ax=self.ax)])
+        rows = [_rows_to_host([summarize(st, self._block.data,
+                                         self._block.cfg, self.trace_k,
+                                         ax=self.ax)])
                 for st in states]
         return self._gather({f: np.stack([r[f] for r in rows])
                              for f in TraceRow._fields} if rows else {})

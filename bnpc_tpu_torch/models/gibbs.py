@@ -150,12 +150,13 @@ def resolve_impl(impl: str, cfg: ModelConfig, on_cuda: bool) -> str:
 
 
 def gibbs_sweep(draws: Draws, state: CRPState, data: PackedData,
-                cfg: ModelConfig, impl: str = "auto",
-                block: int = 0, ax: MutAxis = _NO_AXIS) -> CRPState:
-    """One full Gibbs sweep. impl: "auto" (see resolve_impl), "lazy",
-    "stream", "eager", "scan" or "blocked" (``block`` cells a block,
-    default 128). `data` and the params are this rank's mutation columns
-    when `ax` is sharded."""
+                cfg: ModelConfig, ax: MutAxis = _NO_AXIS,
+                impl: str = "auto", block: int = 0) -> CRPState:
+    """One full Gibbs sweep, bnpc_tpu's argument order (without its
+    `interpret` and `return_veto`). impl: "auto" (see resolve_impl),
+    "lazy", "stream", "eager", "scan" or "blocked" (``block`` cells a
+    block, default 128). `data` and the params are this rank's mutation
+    columns when `ax` is sharded."""
     impl = resolve_impl(impl, cfg, state.assignment.is_cuda)
     batched = state.assignment.dim() == 2
     if batched and impl == "eager":

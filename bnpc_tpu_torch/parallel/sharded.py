@@ -31,9 +31,7 @@ import torch.distributed as dist
 
 from bnpc_tpu_torch.config import MCMCConfig, ModelConfig
 from bnpc_tpu_torch.data import PackedData, local_cols, local_mut_mask
-from bnpc_tpu_torch.mcmc import (_check_chains_step, _make_block,
-                                 make_step_fn, resolve_chain_exec,
-                                 resolve_trace_k)
+from bnpc_tpu_torch.mcmc import _make_block, resolve_trace_k
 from bnpc_tpu_torch.parallel.axis import MutAxis
 
 
@@ -103,14 +101,14 @@ def mut_axis(mesh: Mesh, m_pad: int, m_real: int, device) -> MutAxis:
 
 
 def make_sharded_block(mesh: Mesh, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
-                       data: PackedData, gibbs_impl: str = "auto",
-                       chain_exec: str = "auto"):
-    """(states, draws, n_steps, keep=None) -> (states, rows, next_draws)
-    over this rank's local chains: one after another, or under
-    ``chain_exec="vmap"`` (bnpc_tpu's sharded.py:124-185) as one batch, the
-    step run on a ChainAxis over this rank's mutation axis with a
-    StackedDraws of the chains' providers (mcmc.py::_batch_block); "auto"
-    as mcmc.py::resolve_chain_exec decides for a mesh.
+                       data: PackedData, chain_exec: str = "auto",
+                       gibbs_impl: str = "auto"):
+    """mcmc.py::_make_block's block over this rank's local chains and
+    mutation axis: (states, draws, n_steps, keep=None) -> (states, rows,
+    next_draws), the chains one after another or, under
+    ``chain_exec="vmap"`` (bnpc_tpu's sharded.py:124-185), as one batch on
+    a ChainAxis over that axis; "auto" as resolve_chain_exec decides for a
+    mesh.
 
     Under a batch every rank of a mutation group issues the same
     all-reduces in the same order: each batched sum is one all-reduce of
@@ -127,19 +125,12 @@ def make_sharded_block(mesh: Mesh, cfg: ModelConfig, mcmc_cfg: MCMCConfig,
     m_pad = data.n_muts
     cfg_pad = (cfg if m_pad == cfg.n_muts
                else dataclasses.replace(cfg, n_muts=m_pad))
-    ax = mut_axis(mesh, m_pad, cfg.n_muts, data.xm.device)
     local = (local_cols(data, mesh.mut_index, mesh.muts) if mesh.muts > 1
              else data)
-    chain_exec = resolve_chain_exec(chain_exec, data.xm.device, mesh,
-                                    mcmc_cfg.gibbs_block)
-    if chain_exec == "vmap":
-        _check_chains_step(gibbs_impl)
-    step = make_step_fn(cfg_pad, mcmc_cfg, local,
-                        resolve_trace_k(cfg, mcmc_cfg), ax, gibbs_impl)
-    block = _make_block(step, chain_exec)
-    block.step, block.ax, block.data, block.cfg = step, ax, local, cfg_pad
-    block.chain_exec = chain_exec
-    return block
+    return _make_block(cfg_pad, mcmc_cfg, local,
+                       resolve_trace_k(cfg, mcmc_cfg),
+                       mut_axis(mesh, m_pad, cfg.n_muts, data.xm.device),
+                       gibbs_impl, chain_exec, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,10 @@ one timeline.
 The spans, where they are made:
 
   * ``runner.block`` (``steps``, ``chains``): one block of one chain, or of
-    a batch, in mcmc.py (``_chain_block``, ``_CapturedBlock.run``,
-    ``_batch_block``, ``_CapturedBatch.run``, the coupled steps of
-    ``MCMCRunner.run_chains``);
+    a batch, opened by mcmc.py's one block loop (``_block_loop``), which
+    every executor of ``_make_block`` runs (``_chain_block``,
+    ``_CapturedBlock``, ``_batch_block``, ``_CapturedBatch``,
+    ``_coupled_chains``);
   * ``runner.step`` (``step``; ``move`` gibbs / split / merge and
     ``do_dpa``, ``do_err`` for one chain, counts of each for a batch): one
     step inside its block;

@@ -1761,7 +1761,8 @@ def mh_captured(dev, mod=None):
     cfg, mc = bench_configs(n, 64)
     runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                              block_size=steps)
-    forms = {"eager": functools.partial(mcmc._chain_block, runner._step),
+    forms = {"eager": functools.partial(mcmc._chain_block,
+                                        runner._block.step),
              "captured": runner.run_block}
     state = runner.init_chains(TorchDraws(0, dev))[0]
     draws = TorchDraws(1, dev)
@@ -4019,13 +4020,13 @@ def chains_step_costs(dev, data, cfg, mc, n_chains, steps, warm=16):
     batch = [stack_states(states)]
 
     def batched():
-        batch[0], _ = runner._step(batch[0], StackedDraws(gens))
+        batch[0], _ = runner._block.step(batch[0], StackedDraws(gens))
 
     seq = list(states)
 
     def sequential():
         for c in range(n_chains):
-            seq[c], _ = runner._step(seq[c], gens[c])
+            seq[c], _ = runner._block.step(seq[c], gens[c])
 
     out = {}
     for tag, fn in (("vmap", batched), ("sequential", sequential)):
@@ -4314,6 +4315,12 @@ def launch_profile(fn, steps):
             "wall_ms_per_step": wall_ms / steps}
 
 
+def captured_pieces(executors):
+    """The pieces of the one captured executor in `executors` (a block's,
+    mcmc.py::_make_block), None before the block has made it."""
+    return next(iter(executors.values())).pieces if executors else None
+
+
 def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
                   steps_b, steps_c, gibbs_block=0, gibbs_impl=None):
     """Phase 13 at one cell: (a) `windows` blocks of `steps_a` steps from
@@ -4342,9 +4349,9 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
     del data
     if gibbs_impl is None:
         forms = {"eager": functools.partial(mcmc._chain_block,
-                                            runner._step),
+                                            runner._block.step),
                  "captured": runner.run_block}
-        captured = runner._captured
+        executors = runner._block.executors
     else:
         step = mcmc.make_step_fn(cfg, mc, packed, runner.trace_k,
                                  gibbs_impl=gibbs_impl)
@@ -4352,7 +4359,7 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
                  "captured": mcmc.make_block_fn(
                      cfg, mc, packed, runner.trace_k,
                      gibbs_impl=gibbs_impl)}
-        captured = forms["captured"].__self__
+        executors = forms["captured"].executors
 
     def fresh(gen_state):
         d = TorchDraws(1, dev)
@@ -4424,7 +4431,7 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
             f"{costs['host_syncs_per_step']:.3f} host syncs, busy "
             f"{costs['busy_share']:.4f} of {costs['wall_ms_per_step']:.3f} "
             f"ms, peak {costs['peak_mb']:.1f} MB")
-    pieces = captured.pieces
+    pieces = captured_pieces(executors)
     out["graphs"] = sorted(str(k) for k in pieces.graphs)
     out["capture_seconds"] = pieces.capture_seconds
     out["pool_mb"] = (pieces.pool_bytes() or 0) / 1e6
@@ -4491,8 +4498,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
     runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
                              block_size=steps, chain_exec="vmap")
     del data
-    step = runner._coupled_step if coupled else runner._step
-    batch = runner._captured_coupled if coupled else runner._captured_batch
+    step = runner._block.coupled_step if coupled else runner._block.step
     forms = {"eager": functools.partial(mcmc._batch_block, step,
                                         coupled=coupled),
              "captured": runner.run_chains}
@@ -4513,7 +4519,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
            "captured": {"chain_steps_per_s": [], "replay_share": []}}
     want = None
     for form in ("eager", "captured", "captured", "eager"):
-        pieces = batch.pieces
+        pieces = captured_pieces(runner._block.executors)
         before = (pieces.replays, pieces.eager_runs) if pieces else (0, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4526,7 +4532,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
         else:
             same_batch(f"{case} {form}", got, want)
         if form == "captured":
-            pieces = batch.pieces
+            pieces = captured_pieces(runner._block.executors)
             runs = (pieces.replays - before[0], pieces.eager_runs - before[1])
             out["captured"]["replay_share"].append(runs[0] / sum(runs))
     counts = want[1]["mh_counts"]  # [chains, steps, 5, 2]
@@ -4563,7 +4569,7 @@ def captured_batch_case(dev, smi, case, cell, n_chains, steps, coupled,
             f"{costs['host_syncs_per_step']:.3f} host syncs, busy "
             f"{costs['busy_share']:.4f} of {costs['wall_ms_per_step']:.3f} "
             f"ms, peak {costs['peak_mb']:.1f} MB")
-    pieces = batch.pieces
+    pieces = captured_pieces(runner._block.executors)
     out["graphs"] = len(pieces.graphs)
     out["keys"] = sorted(str(k) for k in pieces.graphs)
     out["capture_seconds"] = pieces.capture_seconds

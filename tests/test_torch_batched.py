@@ -425,29 +425,29 @@ def test_refusals():
         _port(chain_exec="pmap")
 
 
+# resolve_chain_exec's answers for uncoupled chains: (chain_exec, device)
+# -> the answer without a mesh (gibbs_block 0, 8), then under one (0, 8).
+AUTO_EXACT = {
+    ("auto", "cpu"): ("sequential", "sequential", "sequential", "sequential"),
+    ("auto", "cuda"): ("sequential", "sequential", "sequential",
+                       "sequential"),
+    ("sequential", "cpu"): ("sequential", "sequential", "sequential",
+                            "sequential"),
+    ("sequential", "cuda"): ("sequential", "sequential", "sequential",
+                             "sequential"),
+    ("vmap", "cpu"): ("vmap", "vmap", "vmap", "vmap"),
+    ("vmap", "cuda"): ("vmap", "vmap", "vmap", "vmap"),
+}
+
+
 def test_auto_rule():
-    """"auto": sequential on the CPU, AUTO_CUDA_CHAIN_EXEC on CUDA."""
-    assert port_mcmc.resolve_chain_exec("auto", "cpu") == "sequential"
-    assert port_mcmc.resolve_chain_exec("auto", "cuda") \
-        == port_mcmc.AUTO_CUDA_CHAIN_EXEC
-    assert port_mcmc.AUTO_CUDA_CHAIN_EXEC in ("sequential", "vmap")
+    """"auto": sequential on the CPU, AUTO_CUDA_CHAIN_EXEC on CUDA, and
+    AUTO_EXACT's answer on every row (a mesh adds its own rule; the blocked
+    sweep none)."""
+    assert port_mcmc.AUTO_CUDA_CHAIN_EXEC == "sequential"
     assert _port(chain_exec="auto").chain_exec == "sequential"
-    # A mesh and the blocked sweep each add their own measured rule; the
-    # CPU stays sequential.
-    rules = {"mesh": port_mcmc.AUTO_CUDA_MESH_CHAIN_EXEC,
-             "gibbs_block": port_mcmc.AUTO_CUDA_BLOCKED_CHAIN_EXEC}
-    for mesh in (None, object()):
-        for block in (0, 8):
-            want = [port_mcmc.AUTO_CUDA_CHAIN_EXEC]
-            want += [rules["mesh"]] if mesh is not None else []
-            want += [rules["gibbs_block"]] if block else []
-            got = port_mcmc.resolve_chain_exec("auto", "cuda", mesh=mesh,
-                                               gibbs_block=block)
-            assert got == ("vmap" if set(want) == {"vmap"}
-                           else "sequential")
-            assert port_mcmc.resolve_chain_exec(
-                "auto", "cpu", mesh=mesh, gibbs_block=block) == "sequential"
-    for ex in ("sequential", "vmap"):
-        assert port_mcmc.resolve_chain_exec(ex, "cuda") == ex
-        assert port_mcmc.resolve_chain_exec(ex, "cuda", mesh=object(),
-                                            gibbs_block=8) == ex
+    for (chain_exec, device), want in AUTO_EXACT.items():
+        got = tuple(port_mcmc.resolve_chain_exec(
+            chain_exec, device, mesh=mesh, gibbs_block=block)
+            for mesh in (None, object()) for block in (0, 8))
+        assert got == want, (chain_exec, device)

@@ -263,8 +263,8 @@ def test_cpu_runner_never_captures(monkeypatch):
     monkeypatch.setattr(graphs.CudaGraph, "__init__", refuse)
     monkeypatch.setattr(port_mcmc._CapturedBlock, "__init__", refuse)
     runner = port_mcmc.MCMCRunner(CFG, MIX, DATA, device="cpu", block_size=6)
-    assert runner._captured is None
     res = runner.run((8, 2), seed=5)
+    assert runner._block.executors == {}
     assert res[0].assignments.shape == (9, N)
 
 
@@ -274,24 +274,131 @@ def test_runner_resumes_through_the_captured_block(tmp_path):
     def runner(ckpt=None, captured=True):
         r = port_mcmc.MCMCRunner(CFG, MIX, DATA, device="cpu", block_size=6,
                                  checkpoint_dir=ckpt, checkpoint_every=1)
-        if captured:
-            block = port_mcmc._CapturedBlock(CFG, MIX, DATA, r.trace_k,
-                                             "lazy", "cpu", 6)
-            block.graph_cls = stand_in(block)
-            r._one_block = block.run
-            r._block = port_mcmc._make_block(r._step, r.chain_exec,
-                                             block.run)
-        else:
-            r._step = _eager_step("lazy")
-            r._one_block = lambda *a: port_mcmc._chain_block(r._step, *a)
-            r._block = port_mcmc._make_block(r._step, r.chain_exec)
+        r._block = port_mcmc._make_block(
+            CFG, MIX, DATA, r.trace_k, gibbs_impl="lazy",
+            chain_exec=r.chain_exec, rows_cap=6,
+            graphs_for=stand_in if captured else None)
         return r
 
     want = runner(captured=False).run((18, 6), seed=9)[0]
     ck = str(tmp_path / "ck")
     runner(ck).run((12, 6), seed=9)
-    got = runner(ck).run((18, 6), seed=9)[0]
+    resumed = runner(ck)
+    got = resumed.run((18, 6), seed=9)[0]
+    assert list(resumed._block.executors) == [(port_mcmc._CapturedBlock,
+                                               "lazy")]
     for f in ("ML", "MAP", "DP_alpha", "FP", "FN", "assignments", "params",
               "mh_counts"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                       err_msg=f)
+
+
+# The seam's table (mcmc.py::_make_block and its _form): the executor of a
+# block by (device, mesh, sweep), the sweep "blocked" (gibbs_block 4 on the
+# exact "lazy") or "scan"; each row lists chain_exec "sequential" then
+# "vmap", each uncoupled then coupled, each for 1 and for 3 chains.
+C = ("_chain_block", None, False)
+B = ("_CapturedBlock", "blocked", False)
+E = ("_batch_block", None, False)
+EC = ("_batch_block", None, True)
+CB = ("_CapturedBatch", "blocked", False)
+CBC = ("_CapturedBatch", "lazy", True)
+S = ("_coupled_chains", None, True)
+SEAM = {
+    ("cpu", None, "blocked"): (C, C, C, S, C, E, C, EC),
+    ("cpu", None, "scan"): (C, C, C, S, C, E, C, EC),
+    ("cpu", "unsharded", "blocked"): (C, C, C, S, C, E, C, EC),
+    ("cpu", "unsharded", "scan"): (C, C, C, S, C, E, C, EC),
+    ("cpu", "sharded", "blocked"): (C, C, C, C, C, E, C, E),
+    ("cpu", "sharded", "scan"): (C, C, C, C, C, E, C, E),
+    ("cuda", None, "blocked"): (B, B, B, S, B, CB, B, CBC),
+    ("cuda", None, "scan"): (C, C, C, S, C, E, C, EC),
+    ("cuda", "unsharded", "blocked"): (C, C, C, S, C, E, C, EC),
+    ("cuda", "unsharded", "scan"): (C, C, C, S, C, E, C, EC),
+    ("cuda", "sharded", "blocked"): (C, C, C, C, C, E, C, E),
+    ("cuda", "sharded", "scan"): (C, C, C, C, C, E, C, E),
+}
+SEAM_ROWS = [pytest.param(*k, ex, coupled, n, want[4 * i + 2 * j + c],
+                          id=f"{k[0]}-{k[1]}-{k[2]}-{ex}-"
+                          f"{'coupled' if coupled else 'exact'}-{n}")
+             for k, want in SEAM.items()
+             for i, ex in enumerate(("sequential", "vmap"))
+             for j, coupled in enumerate((False, True))
+             for c, n in enumerate((1, 3))]
+
+
+def _spy(monkeypatch, ran):
+    """Each executor, recording (name, impl, coupled) into `ran`."""
+    for name in ("_chain_block", "_batch_block", "_coupled_chains"):
+        fn = getattr(port_mcmc, name)
+
+        def eager(step, *a, _fn=fn, _name=name, **k):
+            coupled = _name == "_coupled_chains" or a[4:5] == (True,)
+            ran.append((_name, None, coupled))
+            return _fn(step, *a, **k)
+
+        monkeypatch.setattr(port_mcmc, name, eager)
+    for cls in (port_mcmc._CapturedBlock, port_mcmc._CapturedBatch):
+        def run(self, *a, _run=cls.run, _name=cls.__name__, **k):
+            ran.append((_name, self.impl, k.get("coupled", False)))
+            return _run(self, *a, **k)
+
+        monkeypatch.setattr(cls, "run", run)
+
+
+@pytest.mark.parametrize("device,mesh,sweep,chain_exec,coupled,chains,want",
+                         SEAM_ROWS)
+def test_seam_table(device, mesh, sweep, chain_exec, coupled, chains, want,
+                    monkeypatch):
+    """_form gives the row's executor; where a row runs here (no sharded
+    axis: that needs a process group), _make_block's block runs it for one
+    step, the card stood in for by the stand-in graph class."""
+    from tests.test_torch_graphs_blocked import stand_in as any_stand_in
+
+    impl, exact = ("blocked", "lazy") if sweep == "blocked" else ("scan",
+                                                                   "scan")
+    assert port_mcmc._form(device == "cuda", mesh is not None,
+                           mesh == "sharded", impl, exact, chain_exec,
+                           coupled, chains) == want
+    if mesh == "sharded":
+        return
+    mix = MCMCConfig(sm_prob=0.33, dpa_prob=0.25, error_prob=0.25,
+                     sm_steps=2, coupled_moves=coupled,
+                     gibbs_block=4 if sweep == "blocked" else 0)
+    ran = []
+    _spy(monkeypatch, ran)
+    block = port_mcmc._make_block(
+        CFG, mix, DATA, port_mcmc.resolve_trace_k(CFG, mix),
+        gibbs_impl="lazy" if sweep == "blocked" else "scan",
+        chain_exec=chain_exec, mesh=mesh and object(),
+        graphs_for=any_stand_in if device == "cuda" else None)
+    states = [_start() for _ in range(chains)]
+    draws = [TorchDraws(11 + c, "cpu") for c in range(chains)]
+    out, rows, _ = block(states, draws, 1)
+    assert len(out) == chains and rows["ml"].shape[:2] == (chains, 1)
+    per_chain = want[0] in ("_chain_block", "_CapturedBlock")
+    assert ran == [want] * (chains if per_chain else 1)
+
+
+def test_positional_arguments_follow_bnpc_tpu():
+    """gibbs_sweep and make_sharded_block take bnpc_tpu's argument order,
+    so a positional call as bnpc_tpu makes it lands each argument where
+    bnpc_tpu's does: the axis and impl of a sweep (a sharded axis refuses
+    the eager sweep; the unsharded scan gives the keyword call's state),
+    and chain_exec of a mesh block."""
+    from bnpc_tpu_torch.parallel import sharded
+    from bnpc_tpu_torch.parallel.axis import MutAxis
+
+    state = _start()
+    with pytest.raises(ValueError, match="sharded mutation axis"):
+        gibbs.gibbs_sweep(TorchDraws(5, "cpu"), state, DATA, CFG,
+                          MutAxis(group=object(), index=0, size=2), "eager")
+    got = gibbs.gibbs_sweep(TorchDraws(5, "cpu"), state, DATA, CFG,
+                            MutAxis(), "scan")
+    want = gibbs.gibbs_sweep(TorchDraws(5, "cpu"), state, DATA, CFG,
+                             impl="scan")
+    for f, g, w in zip(port_mcmc.CRPState._fields, got, want):
+        assert torch.equal(g, w), f
+    mesh = sharded.Mesh(1, 1, 0, None, None)
+    assert sharded.make_sharded_block(mesh, CFG, MIX, DATA,
+                                      "vmap").chain_exec == "vmap"

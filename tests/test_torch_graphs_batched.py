@@ -309,8 +309,8 @@ def test_cpu_runner_never_captures(monkeypatch):
     for mix in (MIX, COUPLED):
         runner = port_mcmc.MCMCRunner(CFG, mix, DATA, device="cpu",
                                       block_size=6, chain_exec="vmap")
-        assert runner._captured_batch is None
         res = runner.run((8, 2), seed=5, n_chains=3)
+        assert runner._block.executors == {}
         assert len(res) == 3 and res[0].assignments.shape == (9, N)
 
 
@@ -336,9 +336,9 @@ def test_resume_under_sequential(tmp_path):
                                  checkpoint_dir=ckpt, checkpoint_every=1,
                                  chain_exec=chain_exec)
         if chain_exec == "vmap":
-            batch = _captured("lazy", 6)
-            r._block = port_mcmc._make_block(r._step, r.chain_exec,
-                                             batch=batch.run)
+            r._block = port_mcmc._make_block(
+                CFG, MIX, DATA, TRACE_K, gibbs_impl="lazy",
+                chain_exec=r.chain_exec, rows_cap=6, graphs_for=stand_in)
         return r
 
     want = runner("vmap").run((18, 6), seed=9, n_chains=3)
@@ -381,21 +381,30 @@ def test_capture_runs_without_cyclic_gc(monkeypatch):
     assert gc.isenabled()
 
 
+# resolve_chain_exec's answers for coupled chains: (chain_exec, device) ->
+# the answer without a mesh (gibbs_block 0, 8), then under one (0, 8).
+AUTO_COUPLED = {
+    ("auto", "cpu"): ("sequential", "sequential", "sequential", "sequential"),
+    ("auto", "cuda"): ("vmap", "vmap", "sequential", "sequential"),
+    ("sequential", "cpu"): ("sequential", "sequential", "sequential",
+                            "sequential"),
+    ("sequential", "cuda"): ("sequential", "sequential", "sequential",
+                             "sequential"),
+    ("vmap", "cpu"): ("vmap", "vmap", "vmap", "vmap"),
+    ("vmap", "cuda"): ("vmap", "vmap", "vmap", "vmap"),
+}
+
+
 def test_auto_rule_for_coupled_chains():
     """Coupled chains take AUTO_CUDA_COUPLED_CHAIN_EXEC on CUDA in the
-    exact-chain rule's place, beside the mesh and blocked rules; the CPU
-    stays sequential, and a CPU runner resolves "auto" so."""
-    coupled = port_mcmc.AUTO_CUDA_COUPLED_CHAIN_EXEC
-    assert coupled in ("sequential", "vmap")
-    assert port_mcmc.resolve_chain_exec("auto", "cuda", coupled=True) \
-        == coupled
-    assert port_mcmc.resolve_chain_exec("auto", "cuda", coupled=False) \
-        == port_mcmc.AUTO_CUDA_CHAIN_EXEC
-    mesh_rule = port_mcmc.AUTO_CUDA_MESH_CHAIN_EXEC
-    want = "vmap" if {coupled, mesh_rule} == {"vmap"} else "sequential"
-    assert port_mcmc.resolve_chain_exec("auto", "cuda", mesh=object(),
-                                        coupled=True) == want
-    assert port_mcmc.resolve_chain_exec("auto", "cpu",
-                                        coupled=True) == "sequential"
+    exact-chain rule's place, beside the mesh rule: resolve_chain_exec
+    gives AUTO_COUPLED's answer on every row; the CPU stays sequential, and
+    a CPU runner resolves "auto" so."""
+    assert port_mcmc.AUTO_CUDA_COUPLED_CHAIN_EXEC == "vmap"
+    for (chain_exec, device), want in AUTO_COUPLED.items():
+        got = tuple(port_mcmc.resolve_chain_exec(
+            chain_exec, device, mesh=mesh, gibbs_block=block, coupled=True)
+            for mesh in (None, object()) for block in (0, 8))
+        assert got == want, (chain_exec, device)
     runner = port_mcmc.MCMCRunner(CFG, COUPLED, DATA, device="cpu")
     assert runner.chain_exec == "sequential"

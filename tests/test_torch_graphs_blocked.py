@@ -376,11 +376,9 @@ def test_runner_resumes_through_the_captured_blocked_forms(chain_exec,
                                  block_size=6, checkpoint_dir=ckpt,
                                  checkpoint_every=1, chain_exec=chain_exec)
         if captured:
-            block = _captured("blocked", 6)
-            batch = _captured_batch(6)
-            r._one_block = block.run
-            r._block = port_mcmc._make_block(r._step, r.chain_exec,
-                                             block.run, batch.run)
+            r._block = port_mcmc._make_block(
+                CFG, BLOCKED, DATA, TRACE_K, chain_exec=r.chain_exec,
+                rows_cap=6, graphs_for=stand_in)
         return r
 
     want = runner(captured=False).run((18, 6), seed=9, n_chains=chains)
