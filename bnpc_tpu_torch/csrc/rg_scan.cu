@@ -52,6 +52,10 @@
 // synchronizes to launch the scan. The TPU's 2C+128 SMEM window staging is
 // not carried over: it only existed because of the TPU's scalar-memory size.
 //
+// The chain itself (thresholds, the integer chain, the producers and
+// writers) is csrc/rg_chain.cuh, which kernel 9 (csrc/rg_assign.cu, a
+// launch scan's per-cell work around this chain) runs too.
+//
 // A batch of chains runs as a grid of one block a chain (bnpc_rg_scan_
 // chains): block c scans chain c's rows of dz, lau, dtab and out with its own
 // s_count[c] and count1[c], and stages its own table in its own shared
@@ -62,54 +66,13 @@
 
 #include <cuda_runtime.h>
 
+#include "rg_chain.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 1024;
-// Positions a chunk: one for each thread outside the chain's warp.
-constexpr int kChunk = kThreads - 32;
-// The chain's loop handles positions in groups of kGroup, two groups a
-// turn; a chunk's tail is padded to a whole turn with neutral entries.
-constexpr int kGroup = 16;
-static_assert(kChunk % (2 * kGroup) == 0, "a chunk is whole turns");
+using rg_chain::kThreads;
 // Table entries staged in shared memory at most (160 KB).
 constexpr int kTabSmem = 40960;
-// An entry is U - 1. That of a position the scan does not reach: below
-// 2^30, so that the link's subtract cannot overflow, and never passed.
-constexpr int kNever = 0x3fffffff;
-
-__device__ __forceinline__ void load_group(int (&e)[kGroup], const int* src) {
-#pragma unroll
-  for (int r = 0; r < kGroup; ++r) e[r] = src[r];
-}
-
-// kGroup links of the chain, y' = y + (y > e) with e = U - 1. The y each
-// cell met is kept for the writers, who recompute its side from it.
-__device__ __forceinline__ void chain_group(const int (&e)[kGroup], int* seen,
-                                            int& y) {
-#pragma unroll
-  for (int r = 0; r < kGroup; ++r) {
-    seen[r] = y;
-    y += (int)((unsigned)(e[r] - y) >> 31);
-  }
-}
-
-// The producers' own barrier (the chain's warp does not take part).
-__device__ __forceinline__ void producers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kChunk) : "memory");
-}
-
-// First s in [0, len) with dz + tab[s] > 0, else len: the count of leading
-// false values of a predicate that is false, then true.
-__device__ __forceinline__ int threshold(const float* tab, int len,
-                                         int top_step, float x) {
-  int pos = 0;
-  for (int step = top_step; step > 0; step >>= 1) {
-    const int idx = pos + step - 1;
-    if (idx < len && !(x + tab[idx] > 0.f)) pos += step;
-  }
-  return pos;
-}
 
 __global__ void __launch_bounds__(kThreads, 1) rg_scan_kernel(
     const float* __restrict__ dz,     // [n] decision margins, visit order
@@ -117,11 +80,8 @@ __global__ void __launch_bounds__(kThreads, 1) rg_scan_kernel(
     const float* __restrict__ dtab,   // [n + 2] count log-table
     const int* __restrict__ s_count_p, const int* __restrict__ count1_p,
     int* __restrict__ out, int n, int tab_cap) {
-  extern __shared__ float tab_s[];                          // [tab_cap]
-  __shared__ __align__(16) int entries[2][kChunk + kGroup];  // U - 1
-  __shared__ __align__(16) int seen[2][kChunk];  // y before each cell
-  __shared__ int warp_sides[2][32];  // launch sides a producer warp
-  __shared__ int chunk_sides[2];     // launch sides a chunk
+  extern __shared__ float tab_s[];  // [tab_cap]
+  __shared__ rg_chain::Buffers buf;
   const int tid = threadIdx.x;
   // Chain blockIdx.x's rows (every argument [chains, ...]).
   const size_t ch = blockIdx.x;
@@ -162,60 +122,13 @@ __global__ void __launch_bounds__(kThreads, 1) rg_scan_kernel(
     return;
   }
 
-  const float* tab = staged ? tab_s : dtab + lo;
-  int top_step = 1;
-  while (top_step * 2 <= len) top_step *= 2;
-  const int chunks = (s_count + kChunk - 1) / kChunk;
-  const int j = tid - 32;  // this thread's position within every chunk
-  const int lane = tid & 31, warp = tid >> 5;
-
-  // Entries of chunk k into entries[k & 1] (every producer thread calls
-  // it); positions from s_count on get an entry that changes nothing.
-  auto produce = [&](int k) {
-    const int i = k * kChunk + j;
-    const bool live = i < s_count;
-    const int la = live ? lau[i] : 0;
-    const unsigned ones = __ballot_sync(kFull, la != 0);
-    if (lane == 0) warp_sides[k & 1][warp - 1] = __popc(ones);
-    const int t = live ? threshold(tab, len, top_step, dz[i]) : 0;
-    producers_sync();
-    const int earlier = lane < warp - 1 ? warp_sides[k & 1][lane] : 0;
-    const int before = __reduce_add_sync(kFull, earlier)
-        + __popc(ones & ((1u << lane) - 1u));
-    entries[k & 1][j] = live ? lo + t + la + before - 1 : kNever;
-    if (j == kChunk - 1) chunk_sides[k & 1] = before + la;
-  };
-
-  if (j >= 0) produce(0);
-  __syncthreads();
-
-  for (int k = 0; k <= chunks; ++k) {
-    if (tid == 0) {
-      if (k < chunks) {
-        const int cnt = min(kChunk, s_count - k * kChunk);
-        const int* src = entries[k & 1];
-        int* dst = seen[k & 1];
-        int y = c1;
-        int ea[kGroup], eb[kGroup];
-        load_group(ea, src);
-        for (int b = 0; b < cnt; b += 2 * kGroup) {
-          load_group(eb, src + b + kGroup);
-          chain_group(ea, dst + b, y);
-          load_group(ea, src + b + 2 * kGroup);  // the pad past a full chunk
-          chain_group(eb, dst + b + kGroup, y);
-        }
-        c1 = y - chunk_sides[k & 1];
-      }
-    } else if (j >= 0) {
-      if (k >= 1) {
-        const int i = (k - 1) * kChunk + j;
-        if (i < s_count)
-          out[i] = seen[(k - 1) & 1][j] > entries[(k - 1) & 1][j] ? 1 : 0;
-      }
-      if (k + 1 < chunks) produce(k + 1);
-    }
-    __syncthreads();
-  }
+  rg_chain::scan(
+      buf, staged ? tab_s : dtab + lo, lo, len, s_count, c1,
+      [&](int i, float& x, int& la) {
+        x = dz[i];
+        la = lau[i];
+      },
+      [&](int i, int side) { out[i] = side; });
 }
 
 }  // namespace

@@ -31,6 +31,13 @@ import numpy as np
 import torch
 
 
+def gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    """jax.random.gumbel's transform of uniforms `u`: -log(-log(U)), U
+    clamped to [tiny, 1)."""
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32)
+                                         .tiny)))
+
+
 def axis_seed(seed: int, i: int) -> int:
     """Seed of shard `i`'s own stream beside the stream seeded `seed`."""
     return int(np.random.SeedSequence([int(seed), int(i)])
@@ -149,9 +156,7 @@ class TorchDraws(Draws):
                                      dtype=torch.float32))
 
     def gumbel(self, shape) -> torch.Tensor:
-        # jax.random.gumbel: -log(-log(U)), U on [tiny, 1).
-        u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
-        return -torch.log(-torch.log(u))
+        return gumbel_of(self.uniform(shape))
 
     def bits(self, shape) -> torch.Tensor:
         return self._out(torch.randint(0, 2**32, shape, generator=self.gen,
@@ -335,3 +340,14 @@ class StackedDraws(Draws):
         if self._batched("truncnorm"):
             return TorchDraws.truncnorm(self, a, b, loc, scale)
         return self._per_chain("truncnorm", a, b, loc, scale)
+
+
+def replays(draws: Draws, name: str) -> bool:
+    """True where a kernel that takes the primitives of composite `name`
+    replays what `draws` would draw: a TorchDraws that keeps TorchDraws'
+    own `name`, or a StackedDraws that runs it once on stacked primitives
+    (``StackedDraws._batched``)."""
+    if isinstance(draws, StackedDraws):
+        return draws._batched(name)
+    return (isinstance(draws, TorchDraws)
+            and getattr(type(draws), name) is getattr(TorchDraws, name))

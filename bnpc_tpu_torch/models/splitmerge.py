@@ -6,9 +6,13 @@ The move is a function over fixed-shape masked tensors: the cells taking
 part are a boolean mask over all n cells, the restricted 2-way assignment
 ``rg`` is an int vector over all n cells, and every likelihood term is a
 masked matvec of sufficient statistics. The serial restricted scan runs in
-the rg kernel (ops/cuda_rg.py). Only the split-or-merge choice is read on
-the host (one synchronization per move); the scan's s_count and count1
-stay on the device, and acceptance is applied with ``torch.where``.
+the rg kernel (ops/cuda_rg.py); on the card a launch scan's per-cell work
+around it (margins, visit order, counts, the scan, the new sides and their
+masks, the replay's terms) is one launch of kernel 9
+(ops/cuda_rg_assign.py) up to its cell cap. Only the split-or-merge choice
+is read on the host (one synchronization per move); the scan's s_count and
+count1 stay on the device, and acceptance is applied with
+``torch.where``.
 
 As in bnpc_tpu, the merge reverse path iterates the movable cells in
 ascending cell-id order (a fixed order of the same restricted
@@ -23,7 +27,8 @@ skip padded columns; the rg kernel's inputs come from the all-reduced
 Every function here also takes a batch of chains (a state with a leading
 chain axis, StackedDraws, ``ax`` a ChainAxis; mcmc.py's chain_exec="vmap"):
 per-chain scalars become [C], cell vectors [C, n], and the restricted scans
-run on the rg kernel's chain grid (ops/cuda_rg.py::rg_scan_chains), each
+run on kernel 9's or the rg kernel's chain grid
+(ops/cuda_rg.py::rg_scan_chains), each
 chain with its own s_count and count1 on the device. ``split_merge`` reads
 every chain's split-or-merge choice in one [C] host read and runs the chains
 that split and the chains that merge as two sub-batches, each on its own
@@ -43,7 +48,7 @@ from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
 from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
-from bnpc_tpu_torch.ops import mh
+from bnpc_tpu_torch.ops import cuda_rg_assign, mh
 from bnpc_tpu_torch.ops.cuda_rg import rg_scan, rg_scan_chains
 from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import (CRPState, beta_posterior_rows,
@@ -248,12 +253,12 @@ def _side1_others(final, launch):
     return before + after
 
 
-def _trans_prob_replay(ctx: _MoveCtx, lau_v, fin_v, ll0_v, ll1_v, s_count,
-                       dp_alpha, ax: MutAxis = _NO_AXIS):
-    """Chosen-log-probability sum of a completed restricted scan. Given the
-    launch and final sides the count evolution is deterministic, so the
-    sequential accumulation of libs/CRP.py:622-630 is prefix/suffix sums in
-    visit order."""
+def _trans_prob_terms(ctx: _MoveCtx, lau_v, fin_v, ll0_v, ll1_v, s_count,
+                      dp_alpha):
+    """Chosen log-probability of each visit position of a completed
+    restricted scan, 0 from s_count on. Given the launch and final sides
+    the count evolution is deterministic, so the sequential accumulation of
+    libs/CRP.py:622-630 is prefix/suffix sums in visit order."""
     n = lau_v.shape[-1]
     in_s = (torch.arange(n, device=lau_v.device) < s_count[..., None]).to(
         torch.float32)
@@ -267,33 +272,24 @@ def _trans_prob_replay(ctx: _MoveCtx, lau_v, fin_v, ll0_v, ll1_v, s_count,
     lse = mx + torch.log(torch.exp(lp0 - mx) + torch.exp(lp1 - mx))
     chosen = torch.where(fin_v > 0, lp1, lp0) - lse
     # where, not multiply: non-movable positions can hold nan/-inf rows.
-    return ax.sum(torch.where(in_s > 0.0, chosen, 0.0))
+    return torch.where(in_s > 0.0, chosen, 0.0)
 
 
-def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
-                    state: CRPState, data: PackedData, cfg: ModelConfig,
-                    trans_prob: bool, ax: MutAxis = _NO_AXIS):
-    """Sequential restricted 2-way Gibbs over the non-anchor cells
-    (_rg_scan_assign, libs/CRP.py:609-632). Returns (rg, sum of chosen
-    log-probabilities; 0 unless `trans_prob`).
-
-    With hoisted Gumbel noise, side 1 wins iff dz + log(n_j) - log(n_i) > 0
-    with dz = (ll2[:,1]+g1) - (ll2[:,0]+g0); the count logs are the table
-    dtab[s1], +inf where side i would empty (the reference's
-    lp0 = ll0 + log(0) = -inf, libs/CRP.py:622)."""
-    n = cfg.n_cells
-    k_perm, k_gumbel = draws.split(2)
-    gumbel = k_gumbel.gumbel(tuple(ctx.n_move.shape) + (n, 2))
-    c1, c0 = lk.log_prob_tables(params_split, state.fp, state.fn)  # [2, m]
-    ll2 = ax.psum(ax.rmul(data.xm, c1.mT)
-                  + ax.rmul(data.xm0, c0.mT))  # [n, 2]
+def _assign_composed(ctx: _MoveCtx, rg, ll2, gumbel, k_perm: Draws,
+                     dp_alpha, trans_prob: bool):
+    """A launch scan after its Gumbel noise and likelihood product, as torch
+    ops around kernel 2 (the definition of kernel 9, ops/cuda_rg_assign.py):
+    the margins, the visit order (drawn from `k_perm`), the count
+    log-table, the scan, the new sides. Returns (rg, (side0, side1) of rg,
+    the replay's chosen terms by visit position or None unless
+    `trans_prob`)."""
+    n = ctx.s_mask.shape[-1]
+    dev = ll2.device
     z = ll2 + gumbel
     dz = z[..., 1] - z[..., 0]
-
     order, lau_v, ll0_v, ll1_v, dz_v = _visit_order(
         k_perm, ctx.s_mask, rg, ll2, dz)
 
-    dev = dz.device
     s1r = torch.arange(n + 2, dtype=torch.float32, device=dev)
     dtab = torch.log(s1r + 1.0) - torch.log(torch.clamp(
         ctx.n_move[..., None] - s1r - 2.0, min=0.0))
@@ -307,25 +303,68 @@ def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
     fin_v = torch.where(pos < s_count[..., None], out_v, lau_i)
     fin_cell = torch.empty_like(fin_v).scatter_(-1, order.long(), fin_v)
     rg_new = torch.where(ctx.s_mask, fin_cell, rg)
-    if trans_prob:
-        return rg_new, _trans_prob_replay(ctx, lau_v, fin_v, ll0_v, ll1_v,
-                                          s_count, state.dp_alpha, ax)
-    return rg_new, torch.zeros(tuple(s_count.shape), device=dev)
+    chosen = (_trans_prob_terms(ctx, lau_v, fin_v, ll0_v, ll1_v, s_count,
+                                dp_alpha) if trans_prob else None)
+    return rg_new, _side_masks(ctx, rg_new), chosen
+
+
+def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
+                    state: CRPState, data: PackedData, cfg: ModelConfig,
+                    trans_prob: bool, ax: MutAxis = _NO_AXIS):
+    """Sequential restricted 2-way Gibbs over the non-anchor cells
+    (_rg_scan_assign, libs/CRP.py:609-632). Returns (rg, sum of chosen
+    log-probabilities; 0 unless `trans_prob`, (side0, side1) of rg as
+    _side_masks gives them).
+
+    With hoisted Gumbel noise, side 1 wins iff dz + log(n_j) - log(n_i) > 0
+    with dz = (ll2[:,1]+g1) - (ll2[:,0]+g0); the count logs are the table
+    dtab[s1], +inf where side i would empty (the reference's
+    lp0 = ll0 + log(0) = -inf, libs/CRP.py:622).
+
+    On the card, up to cuda_rg_assign.MAX_CELLS cells, everything after
+    the draws and the likelihood product, up to the sum of the chosen
+    terms, is one launch of kernel 9 (ops/cuda_rg_assign.py); elsewhere
+    its definition, _assign_composed, runs."""
+    n = cfg.n_cells
+    k_perm, k_gumbel = draws.split(2)
+    shape = tuple(ctx.n_move.shape) + (n, 2)
+    fused = cuda_rg_assign.fits(rg.device, n)
+    if fused:
+        noise = cuda_rg_assign.noise(k_gumbel, shape)
+    else:
+        gumbel = k_gumbel.gumbel(shape)
+    c1, c0 = lk.log_prob_tables(params_split, state.fp, state.fn)  # [2, m]
+    ll2 = ax.psum(ax.rmul(data.xm, c1.mT)
+                  + ax.rmul(data.xm0, c0.mT))  # [n, 2]
+    if fused:
+        bits = k_perm.bits(tuple(ctx.s_mask.shape[:-1]) + (2, n))
+        rg_new, sides, chosen = cuda_rg_assign.rg_assign(
+            noise, bits, ll2.contiguous(), ctx.s_mask, rg,
+            ctx.anchor_i, ctx.anchor_j, ctx.n_move, state.dp_alpha,
+            trans_prob)
+        sides = sides.unbind(-2)
+    else:
+        rg_new, sides, chosen = _assign_composed(
+            ctx, rg, ll2, gumbel, k_perm, state.dp_alpha, trans_prob)
+    prob = (ax.sum(chosen) if trans_prob
+            else torch.zeros(tuple(ctx.n_move.shape), device=ll2.device))
+    return rg_new, prob, sides
 
 
 def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
                    trans_prob: bool, ax: MutAxis = _NO_AXIS):
-    """One launch scan of the split configuration (libs/CRP.py:570-606)."""
+    """One launch scan of the split configuration (libs/CRP.py:570-606).
+    Returns (state, transition sum, (side0, side1) of the new sides)."""
     k_assign, k_par = draws.split(2)
-    rg, prob_cl = _rg_scan_assign(k_assign, ctx, rgs.rg, rgs.params_split,
-                                  state, data, cfg, trans_prob, ax)
-    side0, side1 = _side_masks(ctx, rg)
+    rg, prob_cl, (side0, side1) = _rg_scan_assign(
+        k_assign, ctx, rgs.rg, rgs.params_split, state, data, cfg,
+        trans_prob, ax)
     n1 = torch.stack([side0 @ data.xm, side1 @ data.xm], dim=-2)
     n0 = torch.stack([side0 @ data.xm0, side1 @ data.xm0], dim=-2)
     res = mh.mh_cluster_params(k_par, rgs.params_split, n1, n0, state.fp,
                                state.fn, cfg, trans_prob=trans_prob, ax=ax)
     return rgs._replace(rg=rg, params_split=res.params), \
-        prob_cl + ax.sum(res.trans_logprob)
+        prob_cl + ax.sum(res.trans_logprob), (side0, side1)
 
 
 def _rg_scan_merge(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
@@ -423,8 +462,8 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     n = cfg.n_cells
     dev = state.assignment.device
     # Final scan to the proposal state, with transition probabilities.
-    rgs2, gs_split = _rg_scan_split(k_f1, ctx, rgs, state, data, cfg, True,
-                                    ax)
+    rgs2, gs_split, (side0, side1) = _rg_scan_split(
+        k_f1, ctx, rgs, state, data, cfg, True, ax)
     # Reverse: merge-launch -> the original single cluster (eq. 15).
     std = mh.draw_proposal_std(ax.fold_key(k_f2),
                                tuple(rgs.params_merge.shape))
@@ -447,7 +486,6 @@ def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
         lprior = lprior + _beta_prior_sum(cfg, rgs2.params_split, ax) \
             - _beta_prior_sum(cfg, params_a, ax)
 
-    side0, side1 = _side_masks(ctx, rgs2.rg)
     ll_split, ll_all = _ll_split_all(side0, side1, cells_f,
                                      rgs2.params_split, rgs2.params_merge,
                                      state, data, ax)
@@ -559,7 +597,8 @@ def _move(is_split: bool, keys, state: CRPState, data: PackedData,
     # the merge configuration.
     for kk in k_scans.split(sm_steps):
         k1, k2 = kk.split(2)
-        rgs, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False, ax)
+        rgs, _, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False,
+                                   ax)
         rgs, _ = _rg_scan_merge(k2, ctx, rgs, state, data, cfg, False, ax)
 
     k_f1, k_f2 = k_final.split(2)

@@ -11,8 +11,9 @@ rebuilds. ``build_seconds`` holds the seconds of the last build and load
 Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
 needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
 add is contracted into an FMA the plain torch version does not make. The
-MH sweep (``csrc/mh_sweep.cu``) and the Beta posterior rows
-(``csrc/beta_post.cu``) instead reproduce ATen's own CUDA kernels, which
+MH sweep (``csrc/mh_sweep.cu``), the Beta posterior rows
+(``csrc/beta_post.cu``) and a launch scan's per-cell work
+(``csrc/rg_assign.cu``) instead reproduce ATen's own CUDA kernels, which
 nvcc and the jiterator build with FMA contraction on, so they take
 ``--fmad=true`` (their torch-level arithmetic goes through intrinsics that
 are never contracted; each file says how).
@@ -40,7 +41,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-Xptxas", "-v",
 ]
 # Sources built with FMA contraction on (module docstring).
-FMAD_SOURCES = ("beta_post.cu", "mh_sweep.cu")
+FMAD_SOURCES = ("beta_post.cu", "mh_sweep.cu", "rg_assign.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,6 +83,9 @@ _SIGNATURES = {
     "bnpc_mh_realized": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _P],
     # n1, n0, prims, out, rows, m, p, q, stream
     "bnpc_beta_post": [_P] * 4 + [_I, _I, _F, _F, _P],
+    # noise, bits, ll2, s_mask, rg, anchor_i, anchor_j, n_move, dp_alpha,
+    # rg_new, sides, chosen, chains, n, stream
+    "bnpc_rg_assign": [_P] * 12 + [_I, _I, _P],
 }
 
 _lib = None

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from bnpc_tpu_torch.config import ModelConfig
-from bnpc_tpu_torch.draws import StackedDraws, TorchDraws
+from bnpc_tpu_torch.draws import StackedDraws, replays
 from bnpc_tpu_torch.ops import _build
 from bnpc_tpu_torch.ops.randomx import BETA_PRIMITIVES, BOOST_ROUNDS
 
@@ -42,13 +42,9 @@ chain_grids: dict[int, int] = {}
 
 
 def takes(draws) -> bool:
-    """True for the providers whose Beta the kernel replays: a TorchDraws'
-    own, or a StackedDraws that runs it once on stacked primitives
-    (``StackedDraws._batched``)."""
-    if isinstance(draws, StackedDraws):
-        return draws._batched("beta_general")
-    return (isinstance(draws, TorchDraws)
-            and type(draws).beta_general is TorchDraws.beta_general)
+    """True for the providers whose Beta the kernel replays
+    (``draws.replays``)."""
+    return replays(draws, "beta_general")
 
 
 def primitives(draws, shape) -> list:

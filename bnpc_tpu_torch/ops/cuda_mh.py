@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from bnpc_tpu_torch.config import ModelConfig
-from bnpc_tpu_torch.draws import StackedDraws, TorchDraws
+from bnpc_tpu_torch.draws import replays
 from bnpc_tpu_torch.ops import _build
 
 # Kernel launches since the last reset (each wrapper adds one per launch):
@@ -47,13 +47,9 @@ chain_grids: dict[int, int] = {}
 
 
 def takes(draws) -> bool:
-    """True for the providers whose truncnorm the kernel replays: a
-    TorchDraws' own, or a StackedDraws that runs it once on stacked
-    primitives (``StackedDraws._batched``)."""
-    if isinstance(draws, StackedDraws):
-        return draws._batched("truncnorm")
-    return (isinstance(draws, TorchDraws)
-            and type(draws).truncnorm is TorchDraws.truncnorm)
+    """True for the providers whose truncnorm the kernel replays
+    (``draws.replays``)."""
+    return replays(draws, "truncnorm")
 
 
 def primitives(draws, shape, n_std: int):

@@ -96,6 +96,25 @@ Phases (any failure exits non-zero, and no result line is printed):
                                the composition's arithmetic (run it alone
                                with `python3 -c "import chip_smoke as cs;
                                cs.phase_beta_post('cuda', cs.nvidia_smi())"`);
+                 rg_assign     a split-merge launch scan's per-cell work
+                               (kernel 9) against the torch composition it
+                               replaces (models/splitmerge.py's, kernel 2
+                               inside it, on the card) and the twin at
+                               5,000 cells: s_count 0, 1, 37, 1,984 and
+                               4,998, equal keys, launch sides all 0 and
+                               all 1, the table's +inf reached, trans_prob
+                               off and on: the new sides, the side masks,
+                               the chosen terms and their torch sum bit for
+                               bit; a batch of 4 == its one-chain launches;
+                               n = MAX_CELLS; _rg_scan_assign's route ==
+                               its composition (split and merge, one chain
+                               and a StackedDraws batch of 4) with the
+                               generators' states; the runner's captured
+                               block == its eager block, the launches
+                               counted alike; its time a call in a CUDA
+                               graph beside the composition's (run it alone
+                               with `python3 -c "import chip_smoke as cs;
+                               cs.phase_rg_assign('cuda', cs.nvidia_smi())"`);
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
@@ -106,11 +125,12 @@ Phases (any failure exits non-zero, and no result line is printed):
   5. main    — the main path: MCMCRunner on the card at the bench
                configuration (5,000 x 200, k_max 256, learned errors,
                sm 0.33 / sm_steps 3 / dpa 0.25 / err 0.25), 256 warm-up and
-               256 timed steps; state invariants, lazy_segment and rg_scan
-               launched, steps/s, launches per sweep, host syncs per step,
-               cluster count and ARI against the planted truth; the mean
-               and the largest s_count of its rg_scan launches (kept on the
-               device, read once after the timed block);
+               256 timed steps; state invariants, lazy_segment and
+               rg_assign launched (rg_scan not), steps/s, launches per
+               sweep, host syncs per step, cluster count and ARI against
+               the planted truth; the mean and the largest s_count of its
+               rg_assign launches (kept on the device, read once after the
+               timed block);
   6. large   — the large-n path: MCMCRunner at 131,072 x 200, k_max 128
                (benchmarks/scale_bench.py's data and configuration), 16
                warm-up and 64 timed steps; the same invariants, lazy_stream
@@ -133,8 +153,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   9. cli     — the port's entry point, bnpc_tpu_torch.cli.main, on the card:
                the main cell's data written as the reference's input file
                (mutations x cells, 3 for missing) and run with -s 512 -e
-               posterior ML MAP (lazy_segment and rg_scan launched,
-               lazy_stream not), then the 131,072-cell data with -s 64
+               posterior ML MAP (lazy_segment and rg_assign launched,
+               lazy_stream and rg_scan not), then the 131,072-cell data with -s 64
                --max_clusters 128 (lazy_stream and rg_scan, never
                lazy_segment); args.txt, errors.txt, assignment.txt and every
                genotypes_<est>_mean.tsv parsed (n entries, m x n finite); a
@@ -149,7 +169,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                256, the bench mixture), each check on its own line:
                (a) 4 chains x 256 steps through MCMCRunner.run: total
                chain-steps/s beside the one-chain steps/s of this call,
-               each chain's state invariants, lazy_segment and rg_scan
+               each chain's state invariants, lazy_segment and rg_assign
                launched (lazy_stream never), chain 1 == the one-chain run
                with its seed, bit for bit; (b) 2 coupled chains x 64 steps:
                invariants and launches; (c) 2 chains, block 64, a
@@ -175,7 +195,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                1 x 2 mesh at the main cell, 128 steps in blocks of 32: the
                hashes of each block's replicated state (assignment, sizes,
                alpha, FP, FN) equal on both ranks, the invariants, kernels
-               1 and 2 launched on each rank, steps/s beside one process's
+               1 and 9 launched on each rank, steps/s beside one process's
                in this call, the all-reduces a step, their MB, and their
                ms a step (32 more steps, each all-reduce between two device
                synchronizations); (c) a 1 x 2 mesh at 131,072 x 200, k_max
@@ -192,7 +212,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                and a 1 x 2 mesh with 2 chains; each chain == its sequential
                run bit for bit, the hashes of the replicated state and the
                all-reduce count after every block equal on both ranks of
-               the 1 x 2 group, kernels 1 and 2 launched batched only, on
+               the 1 x 2 group, kernels 1 and 9 launched batched only, on
                grids of 1 and 2 (2 among them), chain-steps/s, all-reduces
                a step with their MB and ms (16 more steps, timed) of both
                forms; (f) cli.main with --mesh 1,2 and --mesh 2,1 at the
@@ -237,7 +257,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                blocks) in this call, runs vmap, sequential, sequential,
                vmap, a fresh runner a run, chain by chain bit for bit
                (assignments, MH counts, trace floats), chain-steps/s
-               of both, rg_scan the only kernel (batched); at the main cell
+               of both, the split-merge scan's kernel the only one
+               (batched: rg_assign at the main cell, rg_scan at large-n); at the main cell
                a profiled step of all 4 chains in each form (launches, draw
                calls, busy share, host syncs); (g) cli.main -n 4 -s 128: the
                chain_exec "auto" chose printed, the files parsed. Then
@@ -323,6 +344,9 @@ from bnpc_tpu_torch.probes import cuda_ms
 N, M, K_MAX = 5000, 200, 256
 N_LARGE, K_LARGE = 131072, 128
 STREAM_TAIL = 8192
+# The movable cells of the launch scan whose kernel 9 time the kernels
+# line reports (the main path's moves hold 397 on average, 888 at most).
+RG_TIMED_S = 1000
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory bandwidth
 # and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -390,13 +414,23 @@ def max_err(pairs) -> float:
 
 def kernel_modules():
     from bnpc_tpu_torch.ops import (cuda_beta, cuda_gibbs, cuda_mh, cuda_rg,
-                                    cuda_stream, cuda_sweep)
+                                    cuda_rg_assign, cuda_stream, cuda_sweep)
     from bnpc_tpu_torch.probes import vecflow_probe, while_probe
 
     return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
             "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep,
             "vecflow": vecflow_probe, "while_exit": while_probe,
-            "mh_sweep": cuda_mh, "beta_post": cuda_beta}
+            "mh_sweep": cuda_mh, "beta_post": cuda_beta,
+            "rg_assign": cuda_rg_assign}
+
+
+def rg_kernel(n):
+    """The kernel a split-merge launch scan of n cells runs on the card:
+    kernel 9 (rg_assign) up to its cell cap, else kernel 2's own entry
+    (rg_scan) inside the torch composition."""
+    from bnpc_tpu_torch.ops.cuda_rg_assign import MAX_CELLS
+
+    return "rg_assign" if n <= MAX_CELLS else "rg_scan"
 
 
 def reset_launches():
@@ -2099,6 +2133,301 @@ def phase_beta_post(dev, smi):
             "bound_ms": timing["bytes_bound_ms"], "bound_by": "bytes"}
 
 
+RG_ASSIGN_COUNTS = (0, 1, 37, 1984, N - 2)
+
+
+def rg_assign_case(seed, n, s_count, dev="cpu", launch="random", ties=0,
+                   n_move=None):
+    """One chain's launch-scan inputs after the draws, made on the host by
+    a seeded generator: s_count movable cells and two anchors among n, the
+    launch sides (random, or all 0 / all 1 on the movable cells), `ties`
+    movable cells whose 64-bit keys equal another's, a uniform of 0 (the
+    clamp at tiny), n_move (default s_count + 2, the move's cells)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n, generator=g)
+    s_mask = torch.zeros(n, dtype=torch.bool)
+    s_mask[perm[2:2 + s_count]] = True
+    rg = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    if launch != "random":
+        rg = torch.where(s_mask, int(launch == "ones"), rg).to(torch.int32)
+    u = torch.rand((n, 2), generator=g)
+    u[perm[2], 0] = 0.0
+    bits = torch.randint(0, 2**32, (2, n), generator=g, dtype=torch.int64)
+    for t in range(min(ties, s_count - 1)):
+        bits[:, perm[3 + t]] = bits[:, perm[2]]
+    x = dict(noise=u, bits=bits, ll2=-torch.rand((n, 2), generator=g) * 40.0,
+             s_mask=s_mask, rg=rg, anchor_i=perm[0].to(torch.int32),
+             anchor_j=perm[1].to(torch.int32),
+             n_move=torch.tensor(float(s_count + 2 if n_move is None
+                                       else n_move)),
+             dp_alpha=torch.tensor(0.37 + 0.1 * (seed % 3)))
+    return {k: v.to(dev) for k, v in x.items()}
+
+
+def rg_assign_batch(cases):
+    """The cases of rg_assign_case as one batch (a leading chain axis)."""
+    import torch
+
+    return {k: torch.stack([c[k] for c in cases]) for k in cases[0]}
+
+
+def rg_assign_args(x, trans_prob):
+    """The positional arguments of cuda_rg_assign.rg_assign / _ref."""
+    return (x["noise"], x["bits"], x["ll2"], x["s_mask"], x["rg"],
+            x["anchor_i"], x["anchor_j"], x["n_move"], x["dp_alpha"],
+            trans_prob)
+
+
+def rg_assign_composed(x, trans_prob):
+    """models/splitmerge.py's composition after the draws
+    (splitmerge._assign_composed) on x's device, kernel 2's own entry
+    inside it on the card. Returns (rg_new, sides, chosen or None), what
+    kernel 9 returns."""
+    import torch
+
+    from bnpc_tpu_torch.draws import gumbel_of
+    from bnpc_tpu_torch.models import splitmerge as sm
+
+    class GivenBits:
+        def bits(self, shape):
+            return x["bits"]
+
+    idx = torch.arange(x["s_mask"].shape[-1], device=x["s_mask"].device)
+    cells = x["s_mask"] | (idx == x["anchor_i"][..., None]) \
+        | (idx == x["anchor_j"][..., None])
+    zero = torch.zeros_like(x["n_move"])
+    ctx = sm._MoveCtx(is_split=True, cells=cells, s_mask=x["s_mask"],
+                      anchor_i=x["anchor_i"], anchor_j=x["anchor_j"],
+                      cl_a=zero, cl_b=zero, n_move=x["n_move"],
+                      ltrans_size=zero, inv_sum_others=zero)
+    rg_new, sides, chosen = sm._assign_composed(
+        ctx, x["rg"], x["ll2"], gumbel_of(x["noise"]), GivenBits(),
+        x["dp_alpha"], trans_prob)
+    return rg_new, torch.stack(sides, dim=-2), chosen
+
+
+def same_bits(tag, got, want):
+    """Raise unless two tensors (or Nones) are equal bit for bit, NaN
+    payloads included."""
+    import torch
+
+    if got is None or want is None:
+        if got is not None or want is not None:
+            raise AssertionError(f"{tag}: one of the two is None")
+        return
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag}: differs bit for bit")
+
+
+def rg_assign_sum(chosen):
+    """The move's torch sum of the chosen terms (ax.sum): one chain's, or
+    each chain's of a batch."""
+    from bnpc_tpu_torch.parallel.axis import ChainAxis, MutAxis
+
+    if chosen.dim() == 1:
+        return MutAxis().sum(chosen)
+    return ChainAxis(chains=chosen.shape[0]).sum(chosen)
+
+
+def rg_assign_check(tag, x, trans_prob):
+    """Kernel 9 == the composition on the card (kernel 2 inside it) == the
+    twin on the card, bit for bit: the new sides, the side masks, the
+    chosen terms and their torch sum. Returns the kernel's outputs."""
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_rg_assign
+
+    args = rg_assign_args(x, trans_prob)
+    got = cuda_rg_assign.rg_assign(*args)
+    want = rg_assign_composed(x, trans_prob)
+    twin = cuda_rg_assign.rg_assign_ref(*args)
+    torch.cuda.synchronize()
+    for name, g, w, t in zip(("rg_new", "sides", "chosen"), got, want, twin):
+        same_bits(f"rg_assign {tag} {name} (composition)", g, w)
+        same_bits(f"rg_assign {tag} {name} (twin)", g, t)
+    if trans_prob:
+        same_bits(f"rg_assign {tag} sum", rg_assign_sum(got[2]),
+                  rg_assign_sum(want[2]))
+    return got
+
+
+def rg_move_inputs(dev, n, m, k_max, clones, seed, chains=0, split=True):
+    """A split-merge move's context and launch state at n x m (planted
+    clones as the state's clusters), for `_rg_scan_assign`: (cfg, data,
+    state, ctx, rgs), one chain or a stack of `chains`."""
+    import torch
+
+    from bnpc_tpu_torch.config import ModelConfig
+    from bnpc_tpu_torch.data import pack_data
+    from bnpc_tpu_torch.models import splitmerge as sm
+    from bnpc_tpu_torch.state import init_state, stack_states
+
+    cfg = ModelConfig(n_cells=n, n_muts=m, k_max=k_max, p=0.25, q=0.25)
+    data_np, planted = make_data(n, m, clones, 0.1, seed=seed)
+    data = pack_data(data_np, dev)
+    out = []
+    for c in range(max(chains, 1)):
+        state = init_state(TorchDraws(seed + c, dev), cfg, data, dev,
+                           assign=planted)
+        ctx = sm._setup(TorchDraws(50 + c, dev), state, cfg, split)
+        rgs = sm._rg_init(TorchDraws(70 + c, dev), ctx, state, data, cfg)
+        out.append((state, ctx, rgs))
+    if not chains:
+        return (cfg, data) + out[0]
+    fields = range(1, len(sm._MoveCtx._fields))
+    ctx = sm._MoveCtx(split, *(torch.stack([o[1][f] for o in out])
+                               for f in fields))
+    rgs = sm._RGState(*(torch.stack([o[2][f] for o in out])
+                        for f in range(3)))
+    return cfg, data, stack_states([o[0] for o in out]), ctx, rgs
+
+
+def rg_move_check(dev, chains, split, trans_prob, seed):
+    """models/splitmerge.py::_rg_scan_assign on the card, kernel 9's route
+    against the composition's (the route turned off), from one seed: the
+    new sides, the transition sum and the side masks bit for bit, every
+    generator left in the same state. Returns the move's s_counts."""
+    import torch
+
+    from bnpc_tpu_torch.draws import StackedDraws
+    from bnpc_tpu_torch.models import splitmerge as sm
+    from bnpc_tpu_torch.ops import cuda_rg_assign
+    from bnpc_tpu_torch.parallel.axis import ChainAxis
+
+    cfg, data, state, ctx, rgs = rg_move_inputs(dev, N, M, K_MAX, 10, seed,
+                                                chains, split)
+    ax = ChainAxis(chains=chains) if chains else sm._NO_AXIS
+
+    def run(fits):
+        provs = [TorchDraws(seed + 90 + c, dev) for c in range(max(chains, 1))]
+        draws = StackedDraws(provs) if chains else provs[0]
+        kept = cuda_rg_assign.fits
+        cuda_rg_assign.fits = fits
+        try:
+            before = cuda_rg_assign.launches + cuda_rg_assign.chain_launches
+            out = sm._rg_scan_assign(draws, ctx, rgs.rg, rgs.params_split,
+                                     state, data, cfg, trans_prob, ax)
+            torch.cuda.synchronize()
+            launched = (cuda_rg_assign.launches
+                        + cuda_rg_assign.chain_launches - before)
+        finally:
+            cuda_rg_assign.fits = kept
+        return out, [p.gen.get_state() for p in provs], launched
+
+    got, got_gens, launched = run(cuda_rg_assign.fits)
+    want, want_gens, none = run(lambda device, n: False)
+    tag = (f"rg_assign move ({'split' if split else 'merge'}, "
+           f"{chains or 1} chain(s), trans_prob {trans_prob})")
+    if (launched, none) != (1, 0):
+        raise AssertionError(f"{tag}: launches {launched} / {none}")
+    same_bits(f"{tag} rg_new", got[0], want[0])
+    same_bits(f"{tag} sum", got[1], want[1])
+    for side, g, w in zip((0, 1), got[2], want[2]):
+        same_bits(f"{tag} side {side}", g, w)
+    if not all(torch.equal(g, w) for g, w in zip(got_gens, want_gens)):
+        raise AssertionError(f"{tag}: generator states differ")
+    return ctx.s_mask.sum(-1).reshape(-1).tolist()
+
+
+def phase_rg_assign(dev, smi):
+    """Kernel 9 (csrc/rg_assign.cu) against the torch composition it
+    replaces and the twin, on the card, bit for bit: at n = 5,000 with
+    s_count 0, 1, 37, 1,984 and 4,998, equal keys, launch sides all 0 and
+    all 1, the table's +inf reached, each with and without trans_prob; a
+    batch of 4 (s_count 0, 1, 37, 4,998) against its one-chain launches;
+    n = MAX_CELLS; _rg_scan_assign's route against its composition on
+    TorchDraws (a split and a merge, one chain and a StackedDraws batch of
+    4), generator states alike; the runner's captured block against its
+    eager one; then the kernel's time a call in a CUDA graph against the
+    composition's, at the s_counts of a move."""
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_rg_assign
+
+    cases = {f"s_count={s}": rg_assign_case(s + 5, N, s, dev)
+             for s in RG_ASSIGN_COUNTS}
+    cases.update({
+        "equal keys": rg_assign_case(11, N, 1200, dev, ties=40),
+        "launch all 0": rg_assign_case(12, N, 1500, dev, launch="zeros"),
+        "launch all 1": rg_assign_case(13, N, 1500, dev, launch="ones"),
+        "table +inf reached": rg_assign_case(14, N, 900, dev, n_move=400)})
+    for tag, x in cases.items():
+        for trans_prob in (False, True):
+            rg_assign_check(tag, x, trans_prob)
+    batch_counts = (0, 1, 37, N - 2)
+    one = [rg_assign_case(20 + c, N, s, dev)
+           for c, s in enumerate(batch_counts)]
+    x = rg_assign_batch(one)
+    for trans_prob in (False, True):
+        grids = dict(cuda_rg_assign.chain_grids)
+        got = rg_assign_check(f"batch {batch_counts}", x, trans_prob)
+        if cuda_rg_assign.chain_grids.get(4, 0) != grids.get(4, 0) + 1:
+            raise AssertionError("rg_assign batch: not one launch on a "
+                                 "grid of 4")
+        for c, xc in enumerate(one):
+            alone = cuda_rg_assign.rg_assign(*rg_assign_args(xc, trans_prob))
+            for name, g, a in zip(("rg_new", "sides", "chosen"), got, alone):
+                same_bits(f"rg_assign batch chain {c} {name} (one-chain "
+                          "launch)", None if g is None else g[c], a)
+    cap = cuda_rg_assign.MAX_CELLS
+    rg_assign_check(f"n={cap}", rg_assign_case(30, cap, cap - 2, dev), True)
+    s_counts = []
+    for chains in (0, 4):
+        for split in (True, False):
+            for trans_prob in (False, True):
+                s_counts += rg_move_check(dev, chains, split, trans_prob,
+                                          40 + chains)
+    log(f"  rg_assign == the torch composition (kernel 2 inside) and the "
+        f"twin bit for bit at n = {N:,}: {sorted(cases)}, trans_prob off "
+        f"and on; a batch of 4 == its one-chain launches; n = {cap:,}; "
+        f"_rg_scan_assign's route == its composition (s_counts {s_counts}),"
+        f" generators alike")
+    launches_per_step = mh_captured(dev, cuda_rg_assign)
+    log(f"  rg_assign in the captured block: == eager bit for bit, "
+        f"{launches_per_step} launches a step counted under replay")
+
+    timing = {}
+    for s_count in (37, 500, RG_TIMED_S, 1984, N - 2):
+        x = rg_assign_case(50 + s_count, N, s_count, dev)
+        for trans_prob in (False, True):
+            args = rg_assign_args(x, trans_prob)
+
+            def kernel():
+                cuda_rg_assign.rg_assign(*args)
+
+            def composed():
+                rg_assign_composed(x, trans_prob)
+
+            timing[f"{s_count}{' trans' if trans_prob else ''}"] = {
+                "kernel_graph_ms": mh_graph_ms(kernel, 20),
+                "composition_graph_ms": mh_graph_ms(composed, 1),
+                "composition_kernels": mh_kernels_per_call(composed)}
+    # At the s_count timed for the kernels line, with trans_prob: s_mask
+    # and rg of every cell; bits, noise and ll2 of the S cells alone;
+    # rg_new, the two sides and chosen of every cell.
+    moved = N * (1 + 4 + 4 + 8 + 4) + RG_TIMED_S * (16 + 8 + 8)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    for key, t in timing.items():
+        log(f"  rg_assign s_count {key} ({smi}): kernel "
+            f"{t['kernel_graph_ms']:.5f} ms in a graph; composition "
+            f"{t['composition_graph_ms']:.5f} ms in a graph, "
+            f"{t['composition_kernels']} kernels a call")
+    main = timing[f"{RG_TIMED_S} trans"]
+    log(f"  rg_assign bytes bound at s_count {RG_TIMED_S:,}: {moved:,} B, "
+        f"{bound_ms:.7f} ms (the chain bound: phase 8)")
+    return {"max_abs_err": 0.0, "launches_per_step": launches_per_step,
+            "timing": timing, "ms": main["kernel_graph_ms"],
+            "plain_ms": main["composition_graph_ms"], "bound_ms": bound_ms,
+            "bound_by": "bytes"}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: small input, GPU against CPU on identical draws
 # ---------------------------------------------------------------------------
@@ -2204,12 +2533,13 @@ def syncs_per_step(run, steps):
 
 
 class ScanLengths:
-    """While active, notes the s_count of every rg_scan launch of the
-    split-merge move in a device buffer at a device position (one small
-    device copy a launch, no host read). The noting runs inside the
-    captured block's graphs too, so it counts every replay; it must be
-    active when the runner first runs (captures) its split-merge pieces.
-    `reset()` starts over; `read()` fetches the notes once, afterwards."""
+    """While active, notes the s_count of every restricted scan of the
+    split-merge move (a launch of kernel 2's own entry or of kernel 9) in
+    a device buffer at a device position (one small device copy a launch,
+    no host read). The noting runs inside the captured block's graphs too,
+    so it counts every replay; it must be active when the runner first runs
+    (captures) its split-merge pieces. One chain's moves only. `reset()`
+    starts over; `read()` fetches the notes once, afterwards."""
 
     def __init__(self, dev, cap=4096):
         import torch
@@ -2218,24 +2548,38 @@ class ScanLengths:
         self.pos = torch.zeros((1,), dtype=torch.long, device=dev)
 
     def __enter__(self):
+        import torch
+
         from bnpc_tpu_torch.models import splitmerge
+        from bnpc_tpu_torch.ops import cuda_rg_assign
 
         self.scan = splitmerge.rg_scan
+        self.assign = cuda_rg_assign.rg_assign
         last = self.buf.shape[0] - 1
 
-        def noting(dz_v, lau_v, dtab, s_count, count1):
+        def note(s_count):
             self.buf.index_copy_(0, self.pos.clamp(max=last),
                                  s_count.reshape(1))
             self.pos.add_(1)
+
+        def noting(dz_v, lau_v, dtab, s_count, count1):
+            note(s_count)
             return self.scan(dz_v, lau_v, dtab, s_count, count1)
 
+        def noting_assign(noise, bits, ll2, s_mask, *args):
+            note(s_mask.sum(-1, dtype=torch.int32))
+            return self.assign(noise, bits, ll2, s_mask, *args)
+
         splitmerge.rg_scan = noting
+        cuda_rg_assign.rg_assign = noting_assign
         return self
 
     def __exit__(self, *exc):
         from bnpc_tpu_torch.models import splitmerge
+        from bnpc_tpu_torch.ops import cuda_rg_assign
 
         splitmerge.rg_scan = self.scan
+        cuda_rg_assign.rg_assign = self.assign
 
     def reset(self):
         self.pos.zero_()
@@ -2265,10 +2609,11 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
     seconds = time.perf_counter() - t0
     launches = read_launches()
     s_counts = scans.read()
-    if s_counts.size != launches["rg_scan"]:
+    rg = rg_kernel(n)
+    if s_counts.size != launches[rg]:
         raise AssertionError(f"{name}: {s_counts.size} scan lengths noted, "
-                             f"{launches['rg_scan']} rg_scan launches")
-    check_launches(name, launches, {sweep_kernel, "rg_scan", "mh_sweep",
+                             f"{launches[rg]} {rg} launches")
+    check_launches(name, launches, {sweep_kernel, rg, "mh_sweep",
                                     "beta_post"})
     a, sizes = check_state(state, [warm_rows, rows], n, k_max)
 
@@ -2282,7 +2627,8 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
         "sm_moves": sm_steps,
         "launches_path": launches,
         "launches_per_sweep": timed_l[sweep_kernel] / max(sweeps, 1),
-        "rg_launches_per_sm_move": timed_l["rg_scan"] / max(sm_steps, 1),
+        "rg_kernel": rg,
+        "rg_launches_per_sm_move": timed_l[rg] / max(sm_steps, 1),
         "host_syncs_per_step": syncs_per_step(
             lambda k: run_block(state, draws, k), 16),
         "clusters": int((sizes > 0).sum()),
@@ -2295,11 +2641,11 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
         f"{seconds:.3f} s, after {warm} warm-up; {sweeps} Gibbs sweeps, "
         f"{sm_steps} split-merge moves)")
     log(f"  launches on this path: {launches}; {sweep_kernel} per Gibbs "
-        f"sweep {out['launches_per_sweep']:.3f}; rg_scan per split-merge "
+        f"sweep {out['launches_per_sweep']:.3f}; {rg} per split-merge "
         f"{out['rg_launches_per_sm_move']:.3f}")
     log(f"  host syncs per step {out['host_syncs_per_step']:.3f}; clusters "
         f"{out['clusters']}; ARI vs truth {out['ari']:.4f}")
-    log(f"  s_count over the {s_counts.size} rg_scan launches: mean "
+    log(f"  s_count over the {s_counts.size} {rg} launches: mean "
         f"{out['s_count_mean']:.1f}, median {out['s_count_median']:.1f}, "
         f"max {out['s_count_max']}")
     return out
@@ -2405,6 +2751,8 @@ def chain_bounds():
     res = chain_probe.main([])
     argmax, scan = res["argmax_chain_cycles"], res["scan_chain_cycles"]
     cells = {"lazy_segment": (N, argmax), "rg_scan": (N, scan),
+             # Kernel 9's chain runs over S alone.
+             "rg_assign": (RG_TIMED_S, scan),
              "lazy_stream": (N_LARGE, argmax), "eager_sweep": (N, argmax),
              # Every cell, and one argmax for the inert tail positions.
              "vecflow": (N + (N % vecflow_probe.BATCH != 0), argmax),
@@ -2605,7 +2953,7 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi,
         wall = time.perf_counter() - t0
     launches = read_launches()
     check_launches(f"cli {cell}", launches,
-                   {sweep, "rg_scan", "mh_sweep", "beta_post"})
+                   {sweep, rg_kernel(n), "mh_sweep", "beta_post"})
     assigns = check_outputs(out_dir, estimators_, n, M)
     score = ari(assigns["posterior"], truth)
     line = stages.line()
@@ -2781,7 +3129,7 @@ def mode_chains(dev, data, cfg, mc):
     chains_s = time.perf_counter() - t0
     launches = read_launches()
     check_launches("chains", launches,
-                   {"lazy_segment", "rg_scan", "mh_sweep", "beta_post"})
+                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post"})
     check_results("chains", res, kept.states, N, K_MAX, 257)
     seeds = runner.seeds.tolist()
     one = modes_runner(data, cfg, mc, dev)
@@ -2816,7 +3164,7 @@ def mode_coupled(dev, data, cfg, mc):
     secs = time.perf_counter() - t0
     launches = read_launches()
     check_launches("coupled", launches,
-                   {"lazy_segment", "rg_scan", "mh_sweep", "beta_post"})
+                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post"})
     check_results("coupled", res, kept.states, N, K_MAX, 65)
     out = {"chain_steps_per_s": 2 * 64 / secs, "launches": launches}
     log(f"  (b) coupled: 2 x 64 steps, {out['chain_steps_per_s']:.3f} "
@@ -2939,7 +3287,7 @@ def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
         launches = read_launches()
         gibbs = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) == 0).sum())
         a, sizes = check_state(state, [rows], n, k_max)
-        used = ({"rg_scan", "mh_sweep", "beta_post"} if gibbs < timed
+        used = ({rg_kernel(n), "mh_sweep", "beta_post"} if gibbs < timed
                 else {"mh_sweep"})
         if name == "exact" and gibbs:
             used.add(sweep)
@@ -3189,7 +3537,7 @@ def mesh_batched(dev):
 def mesh_batched_check(ranks, smi):
     """(e) in the parent: each chain of a batched run == its sequential run
     bit for bit; replicated state and the all-reduces after every block
-    equal on the ranks of a mutation group; kernels 1 and 2 batched, on
+    equal on the ranks of a mutation group; kernels 1 and 9 batched, on
     grids of at most a rank's chains (2), a grid of 2 among them;
     chain-steps/s and all-reduces a step of both forms."""
     out = {}
@@ -3215,13 +3563,13 @@ def mesh_batched_check(ranks, smi):
                                  "1e-6, not bit for bit")
         for r, run in enumerate(runs["vmap"]):
             grids = run["chain_launches"]
-            for name in ("lazy_segment", "rg_scan"):
+            for name in ("lazy_segment", "rg_assign"):
                 g = grids[name][1]
                 if 2 not in g or max(g) > 2:
                     raise AssertionError(f"{tag} vmap rank {r}: {name} "
                                          f"grids {g}")
             check_launches(f"{tag} vmap rank {r}", run["launches"],
-                           {"lazy_segment", "rg_scan", "mh_sweep",
+                           {"lazy_segment", "rg_assign", "mh_sweep",
                             "beta_post"})
             if any(v for k, v in read_one_chain_launches_of(run).items()):
                 raise AssertionError(f"{tag} vmap rank {r}: one-chain "
@@ -3354,7 +3702,7 @@ def mesh_cli(dev, tmp):
 def phase_mesh(dev, smi):
     """Phase 11: two ranks sharing the card (gloo): (a) 2 x 1, each chain
     == its one-process run; (b) 1 x 2 at the main cell, replicated state
-    equal across the ranks at every block, kernels 1 and 2 on each rank,
+    equal across the ranks at every block, kernels 1 and 9 on each rank,
     all-reduces a step and their ms; (c) 1 x 2 at the large-n cell, kernel
     3 on each rank; (d) 500 x 201 on the card against the CPU, step by
     step; (e) 2 x 1 with 4 chains and 1 x 2 with 2, a rank's local chains
@@ -3397,7 +3745,7 @@ def phase_mesh(dev, smi):
                      want)
         for r, a in enumerate((a0, a1)):
             check_launches(f"mesh 2x1 rank {r}", a["launches"],
-                           {"lazy_segment", "rg_scan", "mh_sweep",
+                           {"lazy_segment", "rg_assign", "mh_sweep",
                             "beta_post"})
         log(f"  (a) 2 x 1 at {N:,} x {M}: 2 chains x {MESH_STEPS} steps, "
             f"{2 * MESH_STEPS / max(a0['seconds'], a1['seconds']):.3f} "
@@ -3414,7 +3762,7 @@ def phase_mesh(dev, smi):
                                  f"{b1['hashes']}")
         for r, b in enumerate((b0, b1)):
             check_launches(f"mesh 1x2 rank {r}", b["launches"],
-                           {"lazy_segment", "rg_scan", "mh_sweep",
+                           {"lazy_segment", "rg_assign", "mh_sweep",
                             "beta_post"})
         res = b0["results"][0]
         if res.ML.shape != (MESH_STEPS + 1,) or not (
@@ -3464,7 +3812,7 @@ def phase_mesh(dev, smi):
         for r, c in enumerate((c0, c1)):
             ln = c["launches"]
             if ln["lazy_stream"] == 0 or ln["lazy_segment"] \
-                    or ln["eager_sweep"]:
+                    or ln["eager_sweep"] or ln["rg_assign"]:
                 raise AssertionError(f"mesh 1x2 large rank {r}: launches "
                                      f"{ln}")
         c_out = {"steps_per_s": 16 / c0["seconds"],
@@ -3510,14 +3858,16 @@ CHAIN_GRIDS = (1, 4, 16, 132)
 
 
 def read_chain_launches():
-    """{kernel: (batched launches, {grid: launches})} of the three sampler
+    """{kernel: (batched launches, {grid: launches})} of the four sampler
     kernels that take a chain grid."""
-    from bnpc_tpu_torch.ops import cuda_gibbs, cuda_rg, cuda_stream
+    from bnpc_tpu_torch.ops import (cuda_gibbs, cuda_rg, cuda_rg_assign,
+                                    cuda_stream)
 
     return {name: (mod.chain_launches, dict(mod.chain_grids))
             for name, mod in (("lazy_segment", cuda_gibbs),
                               ("rg_scan", cuda_rg),
-                              ("lazy_stream", cuda_stream))}
+                              ("lazy_stream", cuda_stream),
+                              ("rg_assign", cuda_rg_assign))}
 
 
 # Crafted chains of a segment batch, (start, birth position or None) each:
@@ -4075,7 +4425,7 @@ def chains_blocked(dev, smi, data, data_l):
     log(f"  (f) blocked sweep, gibbs_block 128, main cell, 4 chains x 64 "
         f"steps ({smi})")
     out["main_4"] = chains_compare("blocked main 4", dev, data, cfg, mc_b,
-                                   4, 64, 45, {"rg_scan"}, N, K_MAX,
+                                   4, 64, 45, {"rg_assign"}, N, K_MAX,
                                    bits=True, interleave=True)
     out["main_4"]["steps"] = chains_step_costs(dev, data, cfg, mc_b, 4, 4,
                                                warm=8)
@@ -4151,7 +4501,7 @@ def phase_chains(dev, smi, k):
 
     data, _ = make_data(N, M, 10, 0.1, seed=0)
     cfg, mc = bench_configs(N, K_MAX)
-    main_kernels = {"lazy_segment", "rg_scan"}
+    main_kernels = {"lazy_segment", "rg_assign"}
     with part("b"):
         log(f"  (b) main cell, 4 chains x 128 steps ({smi})")
         chains_warm(dev, data, cfg, mc)
@@ -4730,7 +5080,8 @@ def main():
          "vecflow": phase_vecflow(dev, smi),
          "while_exit": phase_while_exit(dev, smi),
          "mh_sweep": phase_mh_sweep(dev, smi),
-         "beta_post": phase_beta_post(dev, smi)}
+         "beta_post": phase_beta_post(dev, smi),
+         "rg_assign": phase_rg_assign(dev, smi)}
     log("[4/13] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
@@ -4762,7 +5113,7 @@ def main():
 
     chain = probes.pop("chain")
     path_launches = {"lazy_segment": main_out["launches_path"],
-                     "rg_scan": main_out["launches_path"],
+                     "rg_scan": large_out["launches_path"],
                      "lazy_stream": large_out["launches_path"],
                      "eager_sweep": eager_out["launches_path"],
                      "vecflow": probes["vecflow"]["launches_path"],
@@ -4788,23 +5139,30 @@ def main():
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in meta.items()]
-    # Kernels 7 and 8 replace no TPU kernel; their launches are the main
-    # path's.
+    # Kernels 7-9 replace no TPU kernel of their own; their launches are
+    # the main path's.
     for name, src in (("mh_sweep", "mh_sweep.cu"),
-                      ("beta_post", "beta_post.cu")):
+                      ("beta_post", "beta_post.cu"),
+                      ("rg_assign", "rg_assign.cu")):
         out = k[name]
+        bound_ms, bound_by = out["bound_ms"], out["bound_by"]
+        chain_ms = chain["chain_bound_ms"].get(name)
+        if chain_ms is not None and chain_ms > bound_ms:
+            bound_ms, bound_by = chain_ms, "chain"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"bnpc_tpu_torch/csrc/{src}", "replaces": None,
             "launches": main_out["launches_path"][name],
             "max_abs_err": out["max_abs_err"], "ms": out["ms"],
-            "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
-            "bound_by": out["bound_by"], "library_ms": None})
-    # Kernels 1-3 on a chain grid: one launch of 16 chains, and the batched
-    # launches of phase 12's paths (main cell, 4 chains; large-n, 2).
+            "plain_ms": out["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    # Kernels 1-3 and 9 on a chain grid: one launch of 16 chains (1-3),
+    # and the batched launches of phase 12's paths (main cell, 4 chains;
+    # large-n, 2).
     batched_path = {"lazy_segment": chains_out["main_4"]["launches"],
-                    "rg_scan": chains_out["main_4"]["launches"],
-                    "lazy_stream": chains_out["large_2"]["launches"]}
+                    "rg_scan": chains_out["large_2"]["launches"],
+                    "lazy_stream": chains_out["large_2"]["launches"],
+                    "rg_assign": chains_out["main_4"]["launches"]}
     # And this rank-0 count on phase 11 (e)'s 1 x 2 batched mesh run, and
     # on phase 12 (f)'s batched blocked run at the main cell.
     mesh_path = mesh_out["batched"]["1x2"]["launches_grids"][0]
@@ -4812,7 +5170,9 @@ def main():
     for entry in kernels:
         name = entry["name"]
         if name in batched_path:
-            entry["batched_ms"] = chains_out["timing"][name]["batched_ms"][16]
+            if name in chains_out["timing"]:
+                entry["batched_ms"] = \
+                    chains_out["timing"][name]["batched_ms"][16]
             entry["batched_launches"] = batched_path[name][name][0]
             entry["mesh_batched_launches"] = mesh_path[name][0]
             entry["blocked_batched_launches"] = blocked_path[name][0]

@@ -38,11 +38,13 @@ FUNCTIONS = [
         "_merge_branch", "_reverse_split_prob")] + [
     ("bnpc_tpu_torch.ops.mh", f) for f in (
         "mh_cluster_params", "realized_trans_logprob")] + [
-    ("bnpc_tpu_torch.ops.cuda_beta", "primitives")]
+    ("bnpc_tpu_torch.ops.cuda_beta", "primitives")] + [
+    ("bnpc_tpu_torch.ops.cuda_rg_assign", "noise")]
 # The hand-written kernels' ctypes launches: (module, wrapper) pairs.
 KERNELS = [("bnpc_tpu_torch.ops.cuda_mh", f)
            for f in ("mh_sweep", "realized")] + [
-    ("bnpc_tpu_torch.ops.cuda_beta", "beta_post")]
+    ("bnpc_tpu_torch.ops.cuda_beta", "beta_post"),
+    ("bnpc_tpu_torch.ops.cuda_rg_assign", "rg_assign")]
 
 
 def wrap_all():
