@@ -39,9 +39,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "aten_special.cuh"
+#include "torch_ops.cuh"
 
 namespace {
+
+using namespace torch_ops;
 
 constexpr int kMaxThreads = 1024;
 constexpr int kWarp = 32;
@@ -49,71 +51,7 @@ constexpr int kWarp = 32;
 // The composition's constants, each as torch casts a Python float.
 constexpr float kTmin = static_cast<float>(1e-5);           // config.TMIN
 constexpr float kTmax = static_cast<float>(1.0 - 1e-5);     // config.TMAX
-constexpr float kHalfLog2Pi = static_cast<float>(0.9189385332046727);
-constexpr float kSqrt1_2 = static_cast<float>(0.70710678118654752440);
-constexpr float kPLo = static_cast<float>(1e-12);
-constexpr float kPHi = static_cast<float>(1.0 - 1e-12);
-constexpr float kMassMax = static_cast<float>(-1e-12);
 constexpr float kTransMax = static_cast<float>(-1e-10);
-
-// One torch elementwise op each, rounded once.
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-
-// torch.clamp(v, max=hi), torch.clamp(v, lo, hi): NaN passes through.
-__device__ __forceinline__ float clamp_max(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-// torch.maximum / torch.minimum: NaN propagates.
-__device__ __forceinline__ float maximum(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float minimum(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-
-// torch.special.ndtr: the composite (1 + erf(x * M_SQRT1_2)) * 0.5.
-__device__ __forceinline__ float ndtr(float x) {
-  return mul(add(1.0f, erff(mul(x, kSqrt1_2))), 0.5f);
-}
-
-// ops/truncnorm.py::_log_gauss_mass.
-__device__ __forceinline__ float log_gauss_mass(float a, float b) {
-  const bool flip = a > 0.0f;
-  const float a_ = flip ? -b : a;
-  const float b_ = flip ? -a : b;
-  const float la = aten_special::log_ndtr(a_);
-  const float lb = aten_special::log_ndtr(b_);
-  return add(lb, log1pf(-expf(clamp_max(sub(la, lb), kMassMax))));
-}
-
-// ops/truncnorm.py::logpdf.
-__device__ __forceinline__ float tn_logpdf(float x, float a, float b,
-                                           float loc, float scale) {
-  const float z = dvd(sub(x, loc), scale);
-  float r = mul(mul(z, -0.5f), z);
-  r = sub(r, kHalfLog2Pi);
-  r = sub(r, logf(scale));
-  return sub(r, log_gauss_mass(a, b));
-}
-
-// ops/distributions.py::beta_logpdf with log_beta_norm 0.
-__device__ __forceinline__ float beta_logpdf(float x, float pm1, float qm1) {
-  return sub(add(mul(logf(x), pm1), mul(log1pf(-x), qm1)), 0.0f);
-}
-
-// n1 * c1 + n0 * c0 of ops/likelihood.py::log_prob_tables.
-__device__ __forceinline__ float loglik(float th, float n1, float n0,
-                                        float fp, float fn) {
-  const float c1 = logf(add(mul(th, sub(1.0f, fn)), mul(sub(1.0f, th), fp)));
-  const float c0 = logf(add(mul(th, fn), mul(sub(1.0f, th), sub(1.0f, fp))));
-  return add(mul(n1, c1), mul(n0, c0));
-}
 
 struct Row {
   float fp, fn, pm1, qm1;
@@ -132,8 +70,8 @@ __device__ __forceinline__ float log_a(float nw, float old, float n1, float n0,
   const float old_ll = loglik(old, n1, n0, r.fp, r.fn);
   float A = sub(add(sub(new_ll, old_ll), old_p), new_p);
   if (r.beta_prior) {
-    A = add(A, beta_logpdf(nw, r.pm1, r.qm1));
-    A = sub(A, beta_logpdf(old, r.pm1, r.qm1));
+    A = add(A, beta_logpdf(nw, r.pm1, r.qm1, 0.0f));
+    A = sub(A, beta_logpdf(old, r.pm1, r.qm1, 0.0f));
   }
   return clip ? clamp_max(A, 0.0f) : A;
 }
@@ -213,11 +151,7 @@ __global__ void __launch_bounds__(kMaxThreads) mh_sweep_kernel(const Args g) {
       const float a = dvd(sub(kTmin, x), s);
       const float b = dvd(sub(kTmax, x), s);
       // ops/truncnorm.py::from_uniform, the inverse-CDF proposal.
-      const float pa = ndtr(a), pb = ndtr(b);
-      const float p = clamp(add(pa, mul(g.u_prop[e], sub(pb, pa))), kPLo, kPHi);
-      const float y = add(x, mul(s, aten_special::ndtri(p)));
-      const float prop = minimum(maximum(y, add(x, mul(a, s))),
-                                 add(x, mul(b, s)));
+      const float prop = tn_from_uniform(g.u_prop[e], a, b, x, s);
       const bool trans = g.trans_prob != 0;
       const float A = log_a(prop, x, g.n1[e], g.n0[e], a, b, s, r, trans);
       const bool decline = logf(g.u[e]) >= A;

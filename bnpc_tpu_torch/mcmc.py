@@ -61,6 +61,7 @@ from bnpc_tpu_torch.models.updates import (
     update_error_rates,
     update_parameters,
 )
+from bnpc_tpu_torch.ops import cuda_row
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.parallel.axis import ChainAxis, MutAxis
 from bnpc_tpu_torch.state import (CRPState, by_chain_flag, cluster_stats,
@@ -114,21 +115,40 @@ def _compact_params(state: CRPState, trace_k: int):
             state.params.dtype)
 
 
+class StepStats(NamedTuple):
+    """A step's sufficient statistics and, where its error move ran on
+    every chain, that move's likelihood at the new rates: the row's ML (the
+    same expression on the same values as summarize's, so the same
+    bits)."""
+    n1: torch.Tensor
+    n0: torch.Tensor
+    ml: torch.Tensor | None = None
+
+
 def summarize(state: CRPState, data: PackedData, cfg: ModelConfig,
               trace_k: int, stats=None, ax: MutAxis = _NO_AXIS) -> TraceRow:
     """One trace row for the current state (libs/MCMC.py:242-282). `stats`
-    reuses the step's (n1, n0) sufficient statistics. Under a sharded `ax`
-    ML and MAP are all-reduced and the params are this rank's columns; under
-    a chain axis every field leads with the chains."""
-    n1, n0 = stats if stats is not None else cluster_stats(
-        data, state.assignment, cfg.k_max)
-    c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
-    ml = lk.ll_from_stats(n1, n0, c1, c0, ax)
-    lprior = lk.log_prior_full(cfg, state.cluster_size, state.params,
-                               state.dp_alpha, state.fp, state.fn, ax)
+    reuses the step's (n1, n0) sufficient statistics, or a StepStats that
+    also carries the row's ML. Under a sharded `ax` ML and MAP are
+    all-reduced and the params are this rank's columns; under a chain axis
+    every field leads with the chains.
+
+    On the CPU the torch composition below runs; off it, ML and MAP come
+    from the fused kernel (ops/cuda_row.py) around the same torch sums."""
+    n1, n0, ml = StepStats(*(stats if stats is not None else cluster_stats(
+        data, state.assignment, cfg.k_max)))
+    if cuda_row.fits(state.params.device):
+        ml, map_ = cuda_row.ml_map(cfg, state, n1, n0, ml, ax)
+    else:
+        if ml is None:
+            c1, c0 = lk.log_prob_tables(state.params, state.fp, state.fn)
+            ml = lk.ll_from_stats(n1, n0, c1, c0, ax)
+        map_ = ml + lk.log_prior_full(cfg, state.cluster_size, state.params,
+                                      state.dp_alpha, state.fp, state.fn,
+                                      ax)
     a_dt, p_dt = _trace_dtypes(cfg)
     return TraceRow(
-        ml=ml, map_=ml + lprior, dp_alpha=state.dp_alpha, fp=state.fp,
+        ml=ml, map_=map_, dp_alpha=state.dp_alpha, fp=state.fp,
         fn=state.fn, assignment=state.assignment.to(a_dt),
         params=_compact_params(state, trace_k).to(p_dt),
         mh_counts=torch.zeros(tuple(ml.shape) + (5, 2), dtype=torch.int32,
@@ -170,12 +190,17 @@ def _make_finish(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
         counts[..., 0, :] += torch.stack([par_acc, par_dec], -1).to(
             torch.int32)
 
+        ml = None
+
         def error_move(do_err, sub, sub_ax, take, idx):
+            nonlocal ml
             if not do_err:
                 return sub, None
             s1, s0 = (n1, n0) if idx is None else (n1[idx], n0[idx])
-            sub, fp_acc, fn_acc = update_error_rates(take(k_err), sub, s1,
-                                                     s0, cfg, sub_ax)
+            sub, fp_acc, fn_acc, ll = update_error_rates(take(k_err), sub,
+                                                         s1, s0, cfg, sub_ax)
+            if idx is None:
+                ml = ll  # every chain moved: the row's ML
             acc = torch.stack([fp_acc, fn_acc], -1).to(torch.int32)
             return sub, torch.stack([acc, 1 - acc], dim=-1)
 
@@ -186,8 +211,8 @@ def _make_finish(cfg: ModelConfig, mcmc_cfg: MCMCConfig, data: PackedData,
             if c is not None:
                 counts[..., 3:5, :] += c
 
-        row = summarize(state, data, cfg, trace_k, stats=(n1, n0),
-                        ax=step_ax)
+        row = summarize(state, data, cfg, trace_k,
+                        stats=StepStats(n1, n0, ml), ax=step_ax)
         return state, row._replace(mh_counts=counts)
 
     return finish
@@ -1126,17 +1151,21 @@ class _CapturedBatch(_Captured):
         counts = torch.zeros((c, 5, 2), dtype=torch.int32, device=self.device)
         counts[:, 1:3, :] += self.sm_counts
         counts[:, 0, :] += self.par_counts
+        ml = None
         if k:
             idx = self._first(self._flag(2))[:k]
-            sub, fp_acc, fn_acc = update_error_rates(
+            sub, fp_acc, fn_acc, ll = update_error_rates(
                 StackedDraws(self.slots[:k]), take_states(st, idx),
                 self.n1[idx], self.n0[idx], self.cfg, ChainAxis(chains=k))
             self._put(idx, sub)
             acc = torch.stack([fp_acc, fn_acc], -1).to(torch.int32)
             counts[:, 3:5, :] += torch.zeros_like(counts[:, 3:5, :]) \
                 .index_copy(0, idx, torch.stack([acc, 1 - acc], -1))
+            if k == c:  # every chain moved: the rows' ML
+                ml = torch.empty_like(ll).index_copy_(0, idx, ll)
         row = summarize(st, self.data, self.cfg, self.trace_k,
-                        stats=(self.n1, self.n0), ax=ChainAxis(chains=c))
+                        stats=StepStats(self.n1, self.n0, ml),
+                        ax=ChainAxis(chains=c))
         self._put_row(row._replace(mh_counts=counts))
         self.sm_counts.zero_()
 

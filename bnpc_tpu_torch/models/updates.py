@@ -13,6 +13,7 @@ import torch
 
 from bnpc_tpu_torch.config import EPSILON, ModelConfig
 from bnpc_tpu_torch.draws import Draws
+from bnpc_tpu_torch.ops import cuda_error_mh
 from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
 from bnpc_tpu_torch.ops import mh
@@ -73,37 +74,87 @@ def _full_ll_at_rates(params, n1, n0, fp, fn, ax: MutAxis = _NO_AXIS):
 def _mh_error_rate(draws: Draws, old, prior_mean: float, prior_sd: float,
                    ll_fn):
     """Single scalar truncated-normal MH step
-    (libs/CRP_learning_errors.py:66-111)."""
+    (libs/CRP_learning_errors.py:66-111). Returns (new rate, accepted, the
+    likelihood at the new rate)."""
     k_std, k_prop, k_u = draws.split(3)
-    # float32 products, as jnp.array([0.5, 1.0, 1.5]) * prior_sd
-    sds = (torch.tensor([0.5, 1.0, 1.5]) * prior_sd).tolist()
-    std = mh.choose(k_std.randint(old.shape, 0, 3), sds)
+    std = mh.choose(k_std.randint(old.shape, 0, 3),
+                    cuda_error_mh.proposal_sds(prior_sd))
     a = (0.0 - old) / std
     b = (1.0 - old) / std
     new = k_prop.truncnorm(a, b, old, std)
+    return _mh_accept(old, new, a, b, std, k_u.uniform(old.shape),
+                      ll_fn(new), ll_fn(old), prior_mean, prior_sd)
 
+
+def _mh_accept(old, new, a, b, std, u, ll_new, ll_old, prior_mean: float,
+               prior_sd: float):
+    """The acceptance of :func:`_mh_error_rate` for a drawn proposal `new`
+    (bounds `a`, `b`, `std`), its acceptance uniform `u` and the
+    likelihoods at `new` and `old`."""
     new_p_target = truncnorm.logpdf(new, a, b, old, std)
     a_rev = (0.0 - new) / std
     b_rev = (1.0 - new) / std
     old_p_target = truncnorm.logpdf(old, a_rev, b_rev, new, std)
 
-    A = (ll_fn(new) - ll_fn(old)
+    A = (ll_new - ll_old
          + dist.truncnorm_prior_logpdf(new, prior_mean, prior_sd)
          - dist.truncnorm_prior_logpdf(old, prior_mean, prior_sd)
          + old_p_target - new_p_target)
-    accept = torch.log(k_u.uniform(old.shape)) < A
-    return torch.where(accept, new, old).to(torch.float32), accept
+    accept = torch.log(u) < A
+    return (torch.where(accept, new, old).to(torch.float32), accept,
+            torch.where(accept, ll_new, ll_old))
 
 
 def update_error_rates(draws: Draws, state: CRPState, n1, n0,
                        cfg: ModelConfig, ax: MutAxis = _NO_AXIS):
     """MH on FP then FN (libs/CRP_learning_errors.py:52-55; FN's likelihood
-    sees the freshly updated FP)."""
+    sees the freshly updated FP). Returns (state, fp_acc, fn_acc, ll), `ll`
+    the log-likelihood at the new rates: the step's trace ML, the same
+    expression on the same values as summarize's.
+
+    On the CPU the torch composition below runs; a tensor on another device
+    goes to the fused kernel (ops/cuda_error_mh.py) on the same six
+    primitives, drawn in the same order, or raises where it cannot."""
+    if cuda_error_mh.fits(state.fp.device):
+        prims = cuda_error_mh.primitives(draws, state.fp.shape)
+        fp, fn, fp_acc, fn_acc, ll = cuda_error_mh.error_mh(
+            state.params.contiguous(), n1.contiguous(), n0.contiguous(),
+            state.fp, state.fn, prims, cfg, ax)
+        return state._replace(fp=fp, fn=fn), fp_acc, fn_acc, ll
     k_fp, k_fn = draws.split(2)
-    fp, fp_acc = _mh_error_rate(
+    fp, fp_acc, _ = _mh_error_rate(
         k_fp, state.fp, cfg.fp, cfg.fp_sd,
         lambda e: _full_ll_at_rates(state.params, n1, n0, e, state.fn, ax))
-    fn, fn_acc = _mh_error_rate(
+    fn, fn_acc, ll = _mh_error_rate(
         k_fn, state.fn, cfg.fn, cfg.fn_sd,
         lambda e: _full_ll_at_rates(state.params, n1, n0, fp, e, ax))
-    return state._replace(fp=fp, fn=fn), fp_acc, fn_acc
+    return state._replace(fp=fp, fn=fn), fp_acc, fn_acc, ll
+
+
+def _mh_on(idx, u_prop, u, old, prior_mean: float, prior_sd: float, ll_fn,
+           ll_old=None):
+    """:func:`_mh_error_rate` on its drawn primitives; `ll_old`, when
+    given, is the likelihood at `old`."""
+    std = mh.choose(idx, cuda_error_mh.proposal_sds(prior_sd))
+    a = (0.0 - old) / std
+    b = (1.0 - old) / std
+    new = truncnorm.from_uniform(u_prop, a, b, old, std)
+    return _mh_accept(old, new, a, b, std, u, ll_fn(new),
+                      ll_fn(old) if ll_old is None else ll_old, prior_mean,
+                      prior_sd)
+
+
+def error_rates_on(params, n1, n0, fp, fn, prims, cfg: ModelConfig,
+                   ax: MutAxis = _NO_AXIS):
+    """:func:`update_error_rates`' composition on its six drawn primitives
+    (``cuda_error_mh.primitives``), FN's old likelihood taken from FP's
+    chosen one as the kernel takes it: the kernel's plain twin. Returns
+    (fp, fn, fp_acc, fn_acc, ll), what ``cuda_error_mh.error_mh``
+    returns."""
+    fp_new, fp_acc, ll = _mh_on(
+        *prims[:3], fp, cfg.fp, cfg.fp_sd,
+        lambda e: _full_ll_at_rates(params, n1, n0, e, fn, ax))
+    fn_new, fn_acc, ll = _mh_on(
+        *prims[3:], fn, cfg.fn, cfg.fn_sd,
+        lambda e: _full_ll_at_rates(params, n1, n0, fp_new, e, ax), ll)
+    return fp_new, fn_new, fp_acc, fn_acc, ll

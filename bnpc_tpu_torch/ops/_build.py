@@ -12,11 +12,12 @@ Flags: Hopper only (``sm_90a``); no ``--use_fast_math`` (the Gibbs kernel
 needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
 add is contracted into an FMA the plain torch version does not make. The
 MH sweep (``csrc/mh_sweep.cu``), the Beta posterior rows
-(``csrc/beta_post.cu``) and a launch scan's per-cell work
-(``csrc/rg_assign.cu``) instead reproduce ATen's own CUDA kernels, which
-nvcc and the jiterator build with FMA contraction on, so they take
-``--fmad=true`` (their torch-level arithmetic goes through intrinsics that
-are never contracted; each file says how).
+(``csrc/beta_post.cu``), a launch scan's per-cell work
+(``csrc/rg_assign.cu``), the error-rate MH (``csrc/error_mh.cu``) and the
+trace row (``csrc/trace_row.cu``) instead reproduce ATen's own CUDA
+kernels, which nvcc and the jiterator build with FMA contraction on, so
+they take ``--fmad=true`` (their torch-level arithmetic goes through
+intrinsics that are never contracted; each file says how).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ NVCC_FLAGS = [
     "--fmad=false", "-Xptxas", "-v",
 ]
 # Sources built with FMA contraction on (module docstring).
-FMAD_SOURCES = ("beta_post.cu", "mh_sweep.cu", "rg_assign.cu")
+FMAD_SOURCES = ("beta_post.cu", "error_mh.cu", "mh_sweep.cu", "rg_assign.cu",
+                "trace_row.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,6 +88,9 @@ _SIGNATURES = {
     # noise, bits, ll2, s_mask, rg, anchor_i, anchor_j, n_move, dp_alpha,
     # rg_new, sides, chosen, chains, n, stream
     "bnpc_rg_assign": [_P] * 12 + [_I, _I, _P],
+    # stage, args (a host Args struct), stream
+    "bnpc_error_mh": [_I, _P, _P],
+    "bnpc_trace_row": [_I, _P, _P],
 }
 
 _lib = None

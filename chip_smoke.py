@@ -115,6 +115,24 @@ Phases (any failure exits non-zero, and no result line is printed):
                                graph beside the composition's (run it alone
                                with `python3 -c "import chip_smoke as cs;
                                cs.phase_rg_assign('cuda', cs.nvidia_smi())"`);
+                 error_mh,     the error-rate MH and the trace row (kernels
+                 trace_row     10 and 11) against the torch composition on
+                               the card at 256 x 200, one chain and a batch
+                               of 4, Beta(0.25, 0.25) and uniform priors, a
+                               padded mask: the rates, both flags, the
+                               move's likelihood, ML, MAP and the whole row
+                               bit for bit, the generators alike, the row
+                               from the move's likelihood == the row from
+                               the statistics; every outcome forced == the
+                               twin (updates.error_rates_on); both inside a
+                               CUDA graph; the captured block == eager;
+                               10,000 eager steps of a chain past burn-in
+                               and 512 of a batch of 4, each kernel's every
+                               call held to the composition; each one's
+                               time a call in a graph beside the
+                               composition's (run it alone with `python3 -c
+                               "import chip_smoke as cs;
+                               cs.phase_rest('cuda', cs.nvidia_smi())"`);
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
@@ -413,15 +431,23 @@ def max_err(pairs) -> float:
 
 
 def kernel_modules():
-    from bnpc_tpu_torch.ops import (cuda_beta, cuda_gibbs, cuda_mh, cuda_rg,
-                                    cuda_rg_assign, cuda_stream, cuda_sweep)
+    from bnpc_tpu_torch.ops import (cuda_beta, cuda_error_mh, cuda_gibbs,
+                                    cuda_mh, cuda_rg, cuda_rg_assign,
+                                    cuda_row, cuda_stream, cuda_sweep)
     from bnpc_tpu_torch.probes import vecflow_probe, while_probe
 
     return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
             "lazy_stream": cuda_stream, "eager_sweep": cuda_sweep,
             "vecflow": vecflow_probe, "while_exit": while_probe,
             "mh_sweep": cuda_mh, "beta_post": cuda_beta,
-            "rg_assign": cuda_rg_assign}
+            "rg_assign": cuda_rg_assign, "error_mh": cuda_error_mh,
+            "trace_row": cuda_row}
+
+
+# The kernels of every step's rest (kernels 10 and 11: the error-rate MH,
+# which a step with learned errors takes a quarter of the time, and the
+# trace row), on every path that runs steps.
+REST_KERNELS = {"error_mh", "trace_row"}
 
 
 def rg_kernel(n):
@@ -449,6 +475,40 @@ def read_launches():
 
 def read_one_chain_launches():
     return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+class SetupLaunches:
+    """While active, the kernel launches made inside the captured
+    executors' row set-up (mcmc._Captured._setup_rows: one eager summarize,
+    which launches kernel 11, outside any graph): a captured block's first
+    call adds them to what its steps' replays add."""
+
+    def __enter__(self):
+        from bnpc_tpu_torch import mcmc
+
+        self.real = mcmc._Captured._setup_rows
+        self.launches = {name: 0 for name in kernel_modules()}
+        counted = self
+
+        def setup_rows(block, state):
+            before = read_launches()
+            counted.real(block, state)
+            for name, v in read_launches().items():
+                counted.launches[name] += v - before[name]
+
+        mcmc._Captured._setup_rows = setup_rows
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch import mcmc
+
+        mcmc._Captured._setup_rows = self.real
+
+    def take(self):
+        """The launches counted since the last take."""
+        out = dict(self.launches)
+        self.launches = {name: 0 for name in out}
+        return out
 
 
 def check_launches(path, launches, used):
@@ -1779,8 +1839,8 @@ def mh_captured(dev, mod=None):
     """The runner's captured block against its eager block at a small
     cell, two 32-step windows from one state: bit for bit, and the launches
     of kernel wrapper `mod` (default the MH sweep's) counted alike (replays
-    add what the capture took, graphs.COUNTED), and not zero. Returns
-    launches a step."""
+    add what the capture took, graphs.COUNTED; the block's row set-up
+    apart, SetupLaunches), and not zero. Returns launches a step."""
     import functools
 
     import torch
@@ -1800,6 +1860,7 @@ def mh_captured(dev, mod=None):
              "captured": runner.run_block}
     state = runner.init_chains(TorchDraws(0, dev))[0]
     draws = TorchDraws(1, dev)
+    name = next(k for k, v in kernel_modules().items() if v is mod)
     per_step = []
     for w in range(2):
         gen, out, count = draws.gen.get_state(), {}, {}
@@ -1807,9 +1868,10 @@ def mh_captured(dev, mod=None):
             d = TorchDraws(1, dev)
             d.gen.set_state(gen)
             before = mod.launches
-            out[form] = fn(state, d, steps)
-            torch.cuda.synchronize()
-            count[form] = mod.launches - before
+            with SetupLaunches() as setup:
+                out[form] = fn(state, d, steps)
+                torch.cuda.synchronize()
+            count[form] = mod.launches - before - setup.take()[name]
         tag = f"{mod.__name__} captured window {w}"
         same_block(tag, out["captured"], out["eager"])
         if count["captured"] != count["eager"] or not count["eager"]:
@@ -2220,8 +2282,10 @@ def same_bits(tag, got, want):
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)} "
                              f"against {want.dtype} {tuple(want.shape)}")
-    if got.dtype == torch.float32:
-        got, want = got.view(torch.int32), want.view(torch.int32)
+    bits = {torch.float32: torch.int32,
+            torch.float16: torch.int16}.get(got.dtype)
+    if bits is not None:
+        got, want = got.view(bits), want.view(bits)
     if not torch.equal(got, want):
         raise AssertionError(f"{tag}: differs bit for bit")
 
@@ -2429,6 +2493,467 @@ def phase_rg_assign(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, kernels 10 and 11: the error-rate MH and the trace row against
+# the torch composition
+# ---------------------------------------------------------------------------
+
+REST_SEEDS = (2147483629, 3000000037, 29)
+# (name, (FP's proposal uniform, acceptance uniform), FN's, expected
+# flags): a uniform of 0 accepts any proposal (log 0 = -inf); a proposal in
+# the far upper tail against a uniform of 1 is declined.
+REST_FORCED = (("accept both", (None, 0.0), (None, 0.0), (True, True)),
+               ("decline both", (1.0 - 1e-7, 1.0), (1.0 - 1e-7, 1.0),
+                (False, False)),
+               ("FP accepted", (None, 0.0), (1.0 - 1e-7, 1.0),
+                (True, False)),
+               ("FN accepted", (1.0 - 1e-7, 1.0), (None, 0.0),
+                (False, True)))
+REST_CHAIN_STEPS = 10_000
+REST_BATCH_STEPS = 512
+REST_TRACE_K = 128
+
+
+def rest_case(seed, chains, dev):
+    """A state at K_MAX x M whose statistics a 5,000-cell panel with FP
+    0.01 and FN 0.2 would give: live slots of up to 400 cells and free
+    slots, parameters as the bench's Beta(0.25, 0.25) prior leaves them,
+    counts drawn from them (10% missing), and one chain's (0-d) or
+    `chains` chains' ([C]) scalars. Returns (state, n1, n0)."""
+    import torch
+
+    from bnpc_tpu_torch.config import TMAX, TMIN
+    from bnpc_tpu_torch.state import CRPState
+
+    rng = np.random.default_rng(seed % 2**32)
+    lead = (chains,) if chains else ()
+    sizes = rng.integers(1, 400, lead + (K_MAX,)) \
+        * (rng.random(lead + (K_MAX,)) < 0.7)
+    params = np.clip(rng.beta(0.25, 0.25, lead + (K_MAX, M)), TMIN, TMAX)
+    seen = np.broadcast_to(np.round(sizes[..., None] * 0.9).astype(int),
+                           params.shape)
+    n1 = rng.binomial(seen, params * 0.8 + (1.0 - params) * 0.01)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    state = CRPState(
+        assignment=torch.zeros(lead + (N,), dtype=torch.int32, device=dev),
+        params=f32(params),
+        cluster_size=torch.tensor(sizes, dtype=torch.int32, device=dev),
+        dp_alpha=f32(rng.uniform(1.5, 30.0, lead)),
+        fp=f32(rng.uniform(0.005, 0.015, lead)),
+        fn=f32(rng.uniform(0.15, 0.25, lead)))
+    return state, f32(n1), f32(seen - n1)
+
+
+def rest_axis(chains, mask=None):
+    from bnpc_tpu_torch.parallel.axis import ChainAxis, MutAxis
+
+    mut = MutAxis(mask=mask)
+    return ChainAxis(chains=chains, mut=mut) if chains else mut
+
+
+def rest_draws(seed, chains, dev):
+    """(draws, providers): TorchDraws(seed + c) a chain, stacked for a
+    batch."""
+    from bnpc_tpu_torch.draws import StackedDraws
+
+    provs = [TorchDraws(seed + c, dev) for c in range(max(chains, 1))]
+    return (StackedDraws(provs) if chains else provs[0]), provs
+
+
+class rest_composed:
+    """While active, update_error_rates and summarize take the torch
+    composition on the card (kernels 10 and 11's routes turned off)."""
+
+    def __enter__(self):
+        from bnpc_tpu_torch.ops import cuda_error_mh, cuda_row
+
+        self.kept = cuda_error_mh.fits, cuda_row.fits
+        cuda_error_mh.fits = cuda_row.fits = lambda device: False
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.ops import cuda_error_mh, cuda_row
+
+        cuda_error_mh.fits, cuda_row.fits = self.kept
+
+
+def rest_launches():
+    from bnpc_tpu_torch.ops import cuda_error_mh, cuda_row
+
+    return [m.launches + m.chain_launches for m in (cuda_error_mh, cuda_row)]
+
+
+def rest_outputs(case, cfg, draws, ax):
+    """update_error_rates on `case`, then summarize twice, its ML from the
+    statistics and handed from the move: every field kernels 10 and 11
+    give."""
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.models import updates
+
+    state, n1, n0 = case
+    st, fp_acc, fn_acc, ll = updates.update_error_rates(draws, state, n1, n0,
+                                                        cfg, ax)
+    row = mcmc.summarize(st, None, cfg, REST_TRACE_K, stats=(n1, n0), ax=ax)
+    handed = mcmc.summarize(st, None, cfg, REST_TRACE_K,
+                            stats=mcmc.StepStats(None, None, ll), ax=ax)
+    return {"fp": st.fp, "fn": st.fn, "fp_acc": fp_acc, "fn_acc": fn_acc,
+            "ll": ll, **{f"row {f}": v for f, v in row._asdict().items()},
+            "handed ml": handed.ml, "handed map": handed.map_}
+
+
+def rest_check(tag, dev, case, cfg, seed, mask=None):
+    """The fused route (kernels 10 and 11) against the composition on the
+    card, from one seed: every output bit for bit, the generators left
+    alike, the row from the move's likelihood == the row from the
+    statistics, and the kernels launched on the fused route alone. Returns
+    the flags (FP, FN) of each chain."""
+    import torch
+
+    chains = case[0].fp.shape[0] if case[0].fp.dim() else 0
+    ax = rest_axis(chains, mask)
+
+    def run():
+        draws, provs = rest_draws(seed, chains, dev)
+        out = rest_outputs(case, cfg, draws, ax)
+        return out, [p.gen.get_state() for p in provs]
+
+    before = rest_launches()
+    got, got_gens = run()
+    fused = rest_launches()
+    with rest_composed():
+        want, want_gens = run()
+    launched = [a - b for a, b in zip(fused, before)]
+    if launched != [3, 4] or rest_launches() != fused:
+        raise AssertionError(f"rest {tag}: launches {launched}, then "
+                             f"{rest_launches()} after the composition")
+    for name, w in want.items():
+        same_bits(f"rest {tag} {name}", got[name], w)
+    same_bits(f"rest {tag} ML handed", got["handed ml"], got["row ml"])
+    same_bits(f"rest {tag} MAP handed", got["handed map"], got["row map_"])
+    if not all(torch.equal(g, w) for g, w in zip(got_gens, want_gens)):
+        raise AssertionError(f"rest {tag}: generator states differ")
+    return torch.stack([got["fp_acc"], got["fn_acc"]], -1).reshape(
+        -1, 2).tolist()
+
+
+def rest_forced(dev, cfg, chains, seed):
+    """Kernel 10 on drawn primitives whose uniforms force each outcome
+    (REST_FORCED) against its twin on the card (updates.error_rates_on):
+    the rates, flags and likelihood bit for bit, the flags as forced."""
+    import torch
+
+    from bnpc_tpu_torch.models import updates
+    from bnpc_tpu_torch.ops import cuda_error_mh
+
+    state, n1, n0 = rest_case(seed, chains, dev)
+    ax = rest_axis(chains)
+    prims = cuda_error_mh.primitives(rest_draws(seed, chains, dev)[0],
+                                     tuple(state.fp.shape))
+    for name, fp_u, fn_u, flags in REST_FORCED:
+        p = list(prims)
+        for at, v in zip((1, 2, 4, 5), (*fp_u, *fn_u)):
+            if v is not None:
+                p[at] = torch.full_like(p[at], v)
+        got = cuda_error_mh.error_mh(state.params, n1, n0, state.fp,
+                                     state.fn, p, cfg, ax)
+        want = updates.error_rates_on(state.params, n1, n0, state.fp,
+                                      state.fn, p, cfg, ax)
+        tag = f"rest forced {name} ({chains or 1} chain(s))"
+        for f, g, w in zip(("fp", "fn", "fp_acc", "fn_acc", "ll"), got,
+                           want):
+            same_bits(f"{tag} {f}", g, w)
+        seen = torch.stack(got[2:4], -1).reshape(-1, 2).tolist()
+        if any(tuple(s) != flags for s in seen):
+            raise AssertionError(f"{tag}: flags {seen}")
+
+
+def rest_graph(dev, cfg, chains, seed):
+    """Kernels 10 and 11 on fixed primitives, captured in one CUDA graph
+    (the torch sums between their launches inside it) and replayed twice,
+    against the composition run eager: bit for bit."""
+    import torch
+
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.models import updates
+    from bnpc_tpu_torch.ops import cuda_error_mh, cuda_row
+
+    case = rest_case(seed, chains, dev)
+    state, n1, n0 = case
+    ax = rest_axis(chains)
+    prims = cuda_error_mh.primitives(rest_draws(seed, chains, dev)[0],
+                                     tuple(state.fp.shape))
+
+    def fused():
+        fp, fn, fp_acc, fn_acc, ll = cuda_error_mh.error_mh(
+            state.params, n1, n0, state.fp, state.fn, prims, cfg, ax)
+        st = state._replace(fp=fp, fn=fn)
+        ml, map_ = cuda_row.ml_map(cfg, st, n1, n0, None, ax)
+        _, map_handed = cuda_row.ml_map(cfg, st, None, None, ll, ax)
+        return fp, fn, fp_acc, fn_acc, ll, ml, map_, map_handed
+
+    fused()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fused()
+    fp, fn, fp_acc, fn_acc, ll = updates.error_rates_on(
+        state.params, n1, n0, state.fp, state.fn, prims, cfg, ax)
+    with rest_composed():
+        row = mcmc.summarize(state._replace(fp=fp, fn=fn), None, cfg,
+                             REST_TRACE_K, stats=(n1, n0), ax=ax)
+    want = (fp, fn, fp_acc, fn_acc, ll, row.ml, row.map_, row.map_)
+    for rep in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, g, w in zip(("fp", "fn", "fp_acc", "fn_acc", "ll", "ml",
+                               "map", "map (ML handed)"), outs, want):
+            same_bits(f"rest graph ({chains or 1} chain(s)) replay {rep} "
+                      f"{name}", g, w)
+
+
+def bits_differ(tag, got, want):
+    """The count of elements whose bits differ, on the device (a dtype or
+    shape mismatch raises at once)."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    bits = {torch.float32: torch.int32,
+            torch.float16: torch.int16}.get(got.dtype)
+    if bits is not None:
+        got, want = got.view(bits), want.view(bits)
+    return (got != want).sum()
+
+
+class RestChecker:
+    """While active, every update_error_rates and summarize call of an
+    eager step (mcmc.py looks both up at call time) runs twice: the fused
+    route, then the composition (the routes turned off) from the same
+    generator states; the fused results go on. summarize also runs the
+    error MH both ways on the state it sums with side draws of its own, so
+    that kernel 10 is held at every step, not on a quarter of them. The
+    results are held bit for bit on the device and read once
+    (:meth:`verify`)."""
+
+    def __init__(self, dev, side_seed):
+        import torch
+
+        self.dev, self.side_seed = dev, side_seed
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        self.calls = {"error_mh": 0, "trace_row": 0}
+        self.gen_faults = 0
+        self.side = {}
+
+    def __enter__(self):
+        from bnpc_tpu_torch import mcmc
+
+        self.real = mcmc.update_error_rates, mcmc.summarize
+        self.start = rest_launches()
+        mcmc.update_error_rates, mcmc.summarize = self.errors, self.summarize
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch import mcmc
+
+        mcmc.update_error_rates, mcmc.summarize = self.real
+
+    def _differ(self, tag, got, want):
+        for g, w in zip(got, want):
+            self.bad += bits_differ(tag, g, w)
+
+    def errors(self, draws, state, n1, n0, cfg, ax):
+        import torch
+
+        from bnpc_tpu_torch.draws import StackedDraws
+
+        provs = draws.chains if isinstance(draws, StackedDraws) else [draws]
+        before = [p.gen.get_state() for p in provs]
+        got = self.real[0](draws, state, n1, n0, cfg, ax)
+        after = [p.gen.get_state() for p in provs]
+        for p, s in zip(provs, before):
+            p.gen.set_state(s)
+        with rest_composed():
+            want = self.real[0](draws, state, n1, n0, cfg, ax)
+        self.gen_faults += sum(not torch.equal(p.gen.get_state(), a)
+                               for p, a in zip(provs, after))
+        self._differ("error_mh", (got[0].fp, got[0].fn, *got[1:]),
+                     (want[0].fp, want[0].fn, *want[1:]))
+        self.calls["error_mh"] += 1
+        return got
+
+    def summarize(self, state, data, cfg, trace_k, stats=None, ax=None):
+        from bnpc_tpu_torch.mcmc import StepStats
+
+        got = self.real[1](state, data, cfg, trace_k, stats, ax)
+        n1, n0, _ = StepStats(*stats)
+        with rest_composed():
+            want = self.real[1](state, data, cfg, trace_k, (n1, n0), ax)
+        self._differ("trace_row", got, want)
+        self.calls["trace_row"] += 1
+        chains = state.fp.shape[0] if state.fp.dim() else 0
+        if chains not in self.side:
+            self.side[chains] = rest_draws(self.side_seed, chains,
+                                           self.dev)[0]
+        self.errors(self.side[chains], state, n1, n0, cfg, ax)
+        return got
+
+    def verify(self, tag):
+        """Raise unless every pair agreed and the fused route launched
+        kernel 10 three times and kernel 11 twice a call. Returns the
+        calls."""
+        bad = int(self.bad)
+        launched = [a - b for a, b in zip(rest_launches(), self.start)]
+        want = [3 * self.calls["error_mh"], 2 * self.calls["trace_row"]]
+        if bad or self.gen_faults or launched != want:
+            raise AssertionError(
+                f"rest chain {tag}: {bad} elements differ, "
+                f"{self.gen_faults} generators moved otherwise, launches "
+                f"{launched} against {want}")
+        return dict(self.calls)
+
+
+def rest_chain(dev, chains, steps, seed):
+    """A real chain at the main cell (or a batch of `chains` chains):
+    burn-in (0.33 x 5,000 steps) through the captured block, then `steps`
+    eager steps under RestChecker. Returns the calls checked."""
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.data import pack_data
+
+    data, _ = make_data(N, M, 10, 0.1, seed=3)
+    cfg, mc = bench_configs()
+    runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                             block_size=256)
+    states, draws = [], []
+    for c in range(max(chains, 1)):
+        state = runner.init_chains(TorchDraws(seed + c, dev))[0]
+        d = TorchDraws(seed + 100 + c, dev)
+        for _ in range(7):
+            state, _, d = runner.run_block(state, d, 256)
+        states.append(state)
+        draws.append(d)
+    step = runner._block.step
+    with RestChecker(dev, seed + 1000) as checker:
+        if chains:
+            mcmc._batch_block(step, states, draws, steps)
+        else:
+            for _ in range(steps // 1000):
+                states[0], _, draws[0] = mcmc._chain_block(
+                    step, states[0], draws[0], 1000)
+    return checker.verify(f"{chains or 1} chain(s)")
+
+
+def rest_timing(dev, smi, cfg):
+    """Each kernel's time a call inside a CUDA graph against the
+    composition's, its device operations a call, and its bytes bound, at
+    K_MAX x M, one chain."""
+    from bnpc_tpu_torch.models import updates
+    from bnpc_tpu_torch.ops import cuda_error_mh, cuda_row
+    from bnpc_tpu_torch.ops import likelihood as lk
+
+    state, n1, n0 = rest_case(1, 0, dev)
+    ax = rest_axis(0)
+    prims = cuda_error_mh.primitives(TorchDraws(1, dev), ())
+    ll = updates.error_rates_on(state.params, n1, n0, state.fp, state.fn,
+                                prims, cfg, ax)[4]
+
+    forms = {
+        "error_mh": (lambda: cuda_error_mh.error_mh(
+            state.params, n1, n0, state.fp, state.fn, prims, cfg, ax),
+            lambda: updates.error_rates_on(state.params, n1, n0, state.fp,
+                                           state.fn, prims, cfg, ax)),
+        "trace_row": (lambda: cuda_row.ml_map(cfg, state, n1, n0),
+                      lambda: lk.ll_from_stats(
+                          n1, n0, *lk.log_prob_tables(state.params, state.fp,
+                                                      state.fn))
+                      + lk.log_prior_full(cfg, state.cluster_size,
+                                          state.params, state.dp_alpha,
+                                          state.fp, state.fn)),
+        "trace_row_ml_handed": (lambda: cuda_row.ml_map(
+            cfg, state, None, None, ll), None)}
+    plane = K_MAX * M * 4
+    # Kernel 10: params, n1, n0 read by stages 0 and 1, three planes of
+    # terms written and read back by the sums. Kernel 11: params, n1, n0
+    # and the sizes read, the ML and Beta planes written and summed.
+    moved = {"error_mh": 2 * 3 * plane + 2 * 3 * plane,
+             "trace_row": 3 * plane + K_MAX * 4 + 2 * 2 * plane,
+             "trace_row_ml_handed": plane + K_MAX * 4 + 2 * plane}
+    out = {}
+    for name, (kernel, composed) in forms.items():
+        t = {"kernel_graph_ms": mh_graph_ms(kernel, 20),
+             "kernel_ops": mh_kernels_per_call(kernel),
+             "bytes_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3}
+        if composed is not None:
+            t.update(composition_graph_ms=mh_graph_ms(composed, 1),
+                     composition_ops=mh_kernels_per_call(composed))
+        out[name] = t
+        log(f"  {name} at {K_MAX} x {M}, one chain ({smi}): "
+            + ", ".join(f"{k} {v:.5g}" for k, v in t.items()))
+    return out
+
+
+def phase_rest(dev, smi):
+    """Kernels 10 (csrc/error_mh.cu) and 11 (csrc/trace_row.cu) against
+    the torch composition they replace, on the card, bit for bit: the
+    rates, both flags, the move's likelihood, ML, MAP and the whole trace
+    row, at K_MAX x M, one chain and a batch of 4, Beta(0.25, 0.25) and
+    uniform priors, a padded column mask, every outcome forced against the
+    twin; inside a CUDA graph; the runner's captured block against its
+    eager one; along a real chain past burn-in (REST_CHAIN_STEPS steps, a
+    check of each kernel every step) and a batch of 4; then each kernel's
+    time a call in a graph against the composition's."""
+    import dataclasses
+
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_error_mh, cuda_row
+
+    cfg, _ = bench_configs()
+    uniform = dataclasses.replace(cfg, p=1.0, q=1.0)
+    mask = torch.ones(M, device=dev)
+    mask[-3:] = 0.0
+    flags = []
+    for seed in REST_SEEDS:
+        for chains in (0, 4):
+            case = rest_case(seed, chains, dev)
+            flags += rest_check(f"seed {seed} chains {chains}", dev, case,
+                                cfg, seed)
+            rest_check(f"uniform seed {seed} chains {chains}", dev, case,
+                       uniform, seed + 1)
+            rest_check(f"masked seed {seed} chains {chains}", dev, case,
+                       cfg, seed + 2, mask)
+    for chains in (0, 4):
+        rest_forced(dev, cfg, chains, 31)
+        rest_graph(dev, cfg, chains, 37)
+    log(f"  error_mh and trace_row == the torch composition bit for bit "
+        f"(rates, flags, likelihood, ML, MAP, the trace row; one chain and "
+        f"4; Beta and uniform priors; a padded mask; drawn flags {flags}); "
+        f"every outcome forced == the twin; in a CUDA graph, two replays")
+    per_step = {}
+    for mod in (cuda_error_mh, cuda_row):
+        per_step[mod.__name__] = mh_captured(dev, mod)
+    log(f"  in the captured block: == eager bit for bit, launches a step "
+        f"counted under replay {per_step}")
+    t0 = time.perf_counter()
+    calls = rest_chain(dev, 0, REST_CHAIN_STEPS, 2147483001)
+    calls_4 = rest_chain(dev, 4, REST_BATCH_STEPS, 2147484001)
+    log(f"  along a real chain past burn-in at {N:,} x {M}: {calls} calls "
+        f"of one chain, {calls_4} of a batch of 4, each fused == the "
+        f"composition bit for bit ({time.perf_counter() - t0:.1f} s)")
+    timing = rest_timing(dev, smi, cfg)
+    return {name: {"max_abs_err": 0.0, "launches_per_step": per_step[
+        mod.__name__], "chain_calls": calls[name], "timing": timing,
+        "ms": timing[name]["kernel_graph_ms"],
+        "plain_ms": timing[name]["composition_graph_ms"],
+        "bound_ms": timing[name]["bytes_bound_ms"], "bound_by": "bytes"}
+        for name, mod in (("error_mh", cuda_error_mh),
+                          ("trace_row", cuda_row))}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: small input, GPU against CPU on identical draws
 # ---------------------------------------------------------------------------
 
@@ -2614,7 +3139,7 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
         raise AssertionError(f"{name}: {s_counts.size} scan lengths noted, "
                              f"{launches[rg]} {rg} launches")
     check_launches(name, launches, {sweep_kernel, rg, "mh_sweep",
-                                    "beta_post"})
+                                    "beta_post", *REST_KERNELS})
     a, sizes = check_state(state, [warm_rows, rows], n, k_max)
 
     sm_steps = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) > 0).sum())
@@ -2953,7 +3478,8 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi,
         wall = time.perf_counter() - t0
     launches = read_launches()
     check_launches(f"cli {cell}", launches,
-                   {sweep, rg_kernel(n), "mh_sweep", "beta_post"})
+                   {sweep, rg_kernel(n), "mh_sweep", "beta_post",
+                    *REST_KERNELS})
     assigns = check_outputs(out_dir, estimators_, n, M)
     score = ari(assigns["posterior"], truth)
     line = stages.line()
@@ -3129,7 +3655,8 @@ def mode_chains(dev, data, cfg, mc):
     chains_s = time.perf_counter() - t0
     launches = read_launches()
     check_launches("chains", launches,
-                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post"})
+                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post",
+                    *REST_KERNELS})
     check_results("chains", res, kept.states, N, K_MAX, 257)
     seeds = runner.seeds.tolist()
     one = modes_runner(data, cfg, mc, dev)
@@ -3164,7 +3691,8 @@ def mode_coupled(dev, data, cfg, mc):
     secs = time.perf_counter() - t0
     launches = read_launches()
     check_launches("coupled", launches,
-                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post"})
+                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post",
+                    *REST_KERNELS})
     check_results("coupled", res, kept.states, N, K_MAX, 65)
     out = {"chain_steps_per_s": 2 * 64 / secs, "launches": launches}
     log(f"  (b) coupled: 2 x 64 steps, {out['chain_steps_per_s']:.3f} "
@@ -3288,7 +3816,7 @@ def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
         gibbs = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) == 0).sum())
         a, sizes = check_state(state, [rows], n, k_max)
         used = ({rg_kernel(n), "mh_sweep", "beta_post"} if gibbs < timed
-                else {"mh_sweep"})
+                else {"mh_sweep"}) | REST_KERNELS
         if name == "exact" and gibbs:
             used.add(sweep)
         check_launches(f"blocked {n} {name}", launches, used)
@@ -3570,7 +4098,7 @@ def mesh_batched_check(ranks, smi):
                                          f"grids {g}")
             check_launches(f"{tag} vmap rank {r}", run["launches"],
                            {"lazy_segment", "rg_assign", "mh_sweep",
-                            "beta_post"})
+                            "beta_post", *REST_KERNELS})
             if any(v for k, v in read_one_chain_launches_of(run).items()):
                 raise AssertionError(f"{tag} vmap rank {r}: one-chain "
                                      "launches")
@@ -3746,7 +4274,7 @@ def phase_mesh(dev, smi):
         for r, a in enumerate((a0, a1)):
             check_launches(f"mesh 2x1 rank {r}", a["launches"],
                            {"lazy_segment", "rg_assign", "mh_sweep",
-                            "beta_post"})
+                            "beta_post", *REST_KERNELS})
         log(f"  (a) 2 x 1 at {N:,} x {M}: 2 chains x {MESH_STEPS} steps, "
             f"{2 * MESH_STEPS / max(a0['seconds'], a1['seconds']):.3f} "
             f"chain-steps/s (ranks {a0['seconds']:.3f} / "
@@ -3763,7 +4291,7 @@ def phase_mesh(dev, smi):
         for r, b in enumerate((b0, b1)):
             check_launches(f"mesh 1x2 rank {r}", b["launches"],
                            {"lazy_segment", "rg_assign", "mh_sweep",
-                            "beta_post"})
+                            "beta_post", *REST_KERNELS})
         res = b0["results"][0]
         if res.ML.shape != (MESH_STEPS + 1,) or not (
                 np.isfinite(res.ML).all() and np.isfinite(res.MAP).all()):
@@ -4196,12 +4724,17 @@ def chains_compare(tag, dev, data, cfg, mc, n_chains, steps, seed, kernels,
             out[ex]["sweeps"] = sweeps.batched
         if ex == "vmap":
             single = read_one_chain_launches()
+            # The run's initial rows (MCMCRunner._init_rows): summarize on
+            # each chain alone, kernel 11's two stages a chain, before the
+            # first batched step.
+            init = {"trace_row": 2 * n_chains}
             batched = read_chain_launches()
-            if any(single.values()) or any(
+            if any(v != init.get(k, 0) for k, v in single.items()) or any(
                     (batched[k][0] > 0) != (k in kernels) for k in batched):
                 raise AssertionError(f"{tag}: one-chain launches {single}, "
                                      f"batched {batched}; expected only "
-                                     f"{sorted(kernels)}, batched")
+                                     f"{sorted(kernels)}, batched, and the "
+                                     f"initial rows' {init}")
             out["launches"] = batched
     for ex in ("vmap", "sequential"):
         r = out[ex]["runs"]
@@ -4727,13 +5260,18 @@ def captured_cell(dev, smi, cell, n, k_max, k_clones, windows, steps_a,
         torch.cuda.synchronize()
         launches = read_launches()
         reset_launches()
-        got = forms["captured"](state, fresh(gen), steps_a)
-        torch.cuda.synchronize()
+        with SetupLaunches() as setup:
+            got = forms["captured"](state, fresh(gen), steps_a)
+            torch.cuda.synchronize()
         same_block(f"{cell} window {w}", got, want)
-        # Each replay adds its graph's launches: the counts agree.
-        if read_launches() != launches:
+        # Each replay adds its graph's launches: the counts agree, the
+        # block's row set-up apart.
+        setup_l = setup.take()
+        replayed = {k: v - setup_l[k] for k, v in read_launches().items()}
+        if replayed != launches:
             raise AssertionError(f"{cell} window {w}: launches captured "
-                                 f"{read_launches()}, eager {launches}")
+                                 f"{replayed} (set-up {setup_l} apart), "
+                                 f"eager {launches}")
         counts = want[1]["mh_counts"]
         sm = counts[:, 1:3].sum(axis=(1, 2)) > 0
         out["windows"].append({
@@ -5081,7 +5619,8 @@ def main():
          "while_exit": phase_while_exit(dev, smi),
          "mh_sweep": phase_mh_sweep(dev, smi),
          "beta_post": phase_beta_post(dev, smi),
-         "rg_assign": phase_rg_assign(dev, smi)}
+         "rg_assign": phase_rg_assign(dev, smi),
+         **phase_rest(dev, smi)}
     log("[4/13] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
@@ -5139,11 +5678,13 @@ def main():
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in meta.items()]
-    # Kernels 7-9 replace no TPU kernel of their own; their launches are
+    # Kernels 7-11 replace no TPU kernel of their own; their launches are
     # the main path's.
     for name, src in (("mh_sweep", "mh_sweep.cu"),
                       ("beta_post", "beta_post.cu"),
-                      ("rg_assign", "rg_assign.cu")):
+                      ("rg_assign", "rg_assign.cu"),
+                      ("error_mh", "error_mh.cu"),
+                      ("trace_row", "trace_row.cu")):
         out = k[name]
         bound_ms, bound_by = out["bound_ms"], out["bound_by"]
         chain_ms = chain["chain_bound_ms"].get(name)

@@ -44,7 +44,9 @@ FUNCTIONS = [
 KERNELS = [("bnpc_tpu_torch.ops.cuda_mh", f)
            for f in ("mh_sweep", "realized")] + [
     ("bnpc_tpu_torch.ops.cuda_beta", "beta_post"),
-    ("bnpc_tpu_torch.ops.cuda_rg_assign", "rg_assign")]
+    ("bnpc_tpu_torch.ops.cuda_rg_assign", "rg_assign"),
+    ("bnpc_tpu_torch.ops.cuda_error_mh", "error_mh"),
+    ("bnpc_tpu_torch.ops.cuda_row", "ml_map")]
 
 
 def wrap_all():
