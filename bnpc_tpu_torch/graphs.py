@@ -49,11 +49,11 @@ import torch
 from bnpc_tpu_torch import trace
 from bnpc_tpu_torch.ops import (cuda_beta, cuda_error_mh, cuda_gibbs,
                                 cuda_mh, cuda_rg, cuda_rg_assign, cuda_row,
-                                cuda_stream, cuda_sweep)
+                                cuda_sm_accept, cuda_stream, cuda_sweep)
 
 # The kernel wrappers a captured piece launches.
 COUNTED = (cuda_gibbs, cuda_stream, cuda_rg, cuda_sweep, cuda_mh, cuda_beta,
-           cuda_rg_assign, cuda_error_mh, cuda_row)
+           cuda_rg_assign, cuda_error_mh, cuda_row, cuda_sm_accept)
 
 def read_counts() -> list:
     """The launch counters of COUNTED: (launches, chain_launches,

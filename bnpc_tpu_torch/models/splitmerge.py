@@ -9,10 +9,15 @@ masked matvec of sufficient statistics. The serial restricted scan runs in
 the rg kernel (ops/cuda_rg.py); on the card a launch scan's per-cell work
 around it (margins, visit order, counts, the scan, the new sides and their
 masks, the replay's terms) is one launch of kernel 9
-(ops/cuda_rg_assign.py) up to its cell cap. Only the split-or-merge choice
-is read on the host (one synchronization per move); the scan's s_count and
-count1 stay on the device, and acceptance is applied with
-``torch.where``.
+(ops/cuda_rg_assign.py) up to its cell cap. A branch's acceptance and its
+application after the final scan are ops/cuda_sm_accept.py's stages
+around torch's sums: kernel 12's launches on the card, their plain twin
+on the CPU. The move counts each set of cells once: ``_rg_init``'s
+product gives the move's cells and the first launch sides, each split
+scan its new sides (``_RGState``); a merge alone counts its original
+sides. Only the split-or-merge choice is read on the host (one
+synchronization per move); the scan's s_count and count1 stay on the
+device, and acceptance is applied on the device.
 
 As in bnpc_tpu, the merge reverse path iterates the movable cells in
 ascending cell-id order (a fixed order of the same restricted
@@ -43,16 +48,15 @@ from typing import NamedTuple
 import torch
 
 from bnpc_tpu_torch import trace
-from bnpc_tpu_torch.config import TMAX, TMIN, ModelConfig
+from bnpc_tpu_torch.config import ModelConfig
 from bnpc_tpu_torch.data import PackedData
 from bnpc_tpu_torch.draws import Draws
-from bnpc_tpu_torch.ops import distributions as dist
 from bnpc_tpu_torch.ops import likelihood as lk
-from bnpc_tpu_torch.ops import cuda_rg_assign, mh
+from bnpc_tpu_torch.ops import cuda_rg_assign, cuda_sm_accept, mh
 from bnpc_tpu_torch.ops.cuda_rg import rg_scan, rg_scan_chains
 from bnpc_tpu_torch.parallel.axis import MutAxis
 from bnpc_tpu_torch.state import (CRPState, beta_posterior_rows,
-                                  by_chain_flag, first_free_slot)
+                                  by_chain_flag, pick_at)
 
 NEG_INF = float("-inf")
 _NO_AXIS = MutAxis()
@@ -78,18 +82,12 @@ class _RGState(NamedTuple):
     rg: torch.Tensor            # [n] int32 in {0, 1}
     params_split: torch.Tensor  # [2, m] f32
     params_merge: torch.Tensor  # [m] f32
-
-
-def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[..., i] for a per-chain index i (0-d, or [C] beside x [C, k]),
-    without a host read of i."""
-    return torch.gather(x, -1, i[..., None].long())[..., 0]
-
-
-def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """Row i of a per-chain matrix x ([k, m], or [C, k, m] with i [C])."""
-    return torch.take_along_dim(x, i[..., None, None].long(), dim=-2)[
-        ..., 0, :]
+    # Observed 1 / 0 counts (exact integers in float32) of the launch sides
+    # of `rg` and of the move's cells, the latter fixed for the move.
+    n1_sides: torch.Tensor      # [2, m] f32
+    n0_sides: torch.Tensor      # [2, m] f32
+    n1_cells: torch.Tensor      # [m] f32
+    n0_cells: torch.Tensor      # [m] f32
 
 
 def _data_row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -143,7 +141,7 @@ def _setup(draws: Draws, state: CRPState, cfg: ModelConfig,
         members = state.assignment == cl[..., None]
         anchor_i, anchor_j = _gumbel_top2(
             k_anchor_i, torch.where(members, 0.0, NEG_INF))
-        size = _pick(size_f, cl)
+        size = pick_at(size_f, cl)
         # Eq. 3 second term (libs/CRP.py:453-456).
         ltrans = torch.log(size / n) - torch.log(size) - torch.log(size - 1.0)
         slot_idx = torch.arange(cfg.k_max, device=dev)
@@ -165,10 +163,10 @@ def _setup(draws: Draws, state: CRPState, cfg: ModelConfig,
         anchor_j = k_anchor_j.categorical(
             torch.where(members_b, 0.0, NEG_INF))
         # Eq. 6 second term (libs/CRP.py:505-507).
-        ltrans = (torch.log(_pick(inv, cl_a) / inv_sum)
-                  + torch.log(_pick(inv, cl_b) / inv_sum)
-                  - torch.log(_pick(size_f, cl_a))
-                  - torch.log(_pick(size_f, cl_b)))
+        ltrans = (torch.log(pick_at(inv, cl_a) / inv_sum)
+                  + torch.log(pick_at(inv, cl_b) / inv_sum)
+                  - torch.log(pick_at(size_f, cl_a))
+                  - torch.log(pick_at(size_f, cl_b)))
         cells = members_a | members_b
         # read by splits only
         inv_others = torch.zeros(tuple(live.shape[:-1]), device=dev)
@@ -212,12 +210,15 @@ def _rg_init(draws: Draws, ctx: _MoveCtx, state: CRPState, data: PackedData,
 
     # The split pair's rows and the merge row from their Beta posteriors:
     # the three rows' counts in one product, then their draws in the order
-    # k_i, k_j, k_m (one launch of kernel 8 on the card).
+    # k_i, k_j, k_m (one launch of kernel 8 on the card). The move keeps the
+    # counts: the cells' for every merge scan and both branches, the sides'
+    # until a launch scan replaces them.
     side0, side1 = _side_masks(ctx, rg)
     n1, n0 = _masked_counts(torch.stack(
         [side0, side1, ctx.cells.to(torch.float32)], dim=-2), data)
     rows = beta_posterior_rows((k_i, k_j, k_m), cfg, n1, n0)
-    return _RGState(rg, rows[..., :2, :], rows[..., 2, :])
+    return _RGState(rg, rows[..., :2, :], rows[..., 2, :], n1[..., :2, :],
+                    n0[..., :2, :], n1[..., 2, :], n0[..., 2, :])
 
 
 def _visit_order(k_perm: Draws, s_mask, rg_launch, ll2, dz):
@@ -354,7 +355,8 @@ def _rg_scan_assign(draws: Draws, ctx: _MoveCtx, rg, params_split,
 def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
                    trans_prob: bool, ax: MutAxis = _NO_AXIS):
     """One launch scan of the split configuration (libs/CRP.py:570-606).
-    Returns (state, transition sum, (side0, side1) of the new sides)."""
+    Returns (state, with the new sides and their counts; transition
+    sum)."""
     k_assign, k_par = draws.split(2)
     rg, prob_cl, (side0, side1) = _rg_scan_assign(
         k_assign, ctx, rgs.rg, rgs.params_split, state, data, cfg,
@@ -363,225 +365,63 @@ def _rg_scan_split(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
     n0 = torch.stack([side0 @ data.xm0, side1 @ data.xm0], dim=-2)
     res = mh.mh_cluster_params(k_par, rgs.params_split, n1, n0, state.fp,
                                state.fn, cfg, trans_prob=trans_prob, ax=ax)
-    return rgs._replace(rg=rg, params_split=res.params), \
-        prob_cl + ax.sum(res.trans_logprob), (side0, side1)
+    return rgs._replace(rg=rg, params_split=res.params, n1_sides=n1,
+                        n0_sides=n0), prob_cl + ax.sum(res.trans_logprob)
 
 
 def _rg_scan_merge(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
                    trans_prob: bool, ax: MutAxis = _NO_AXIS):
     """One launch scan of the merge configuration (libs/CRP.py:581-587)."""
-    n1, n0 = _masked_counts(ctx.cells.to(torch.float32), data)
-    res = mh.mh_cluster_params(draws, rgs.params_merge, n1, n0, state.fp,
-                               state.fn, cfg, trans_prob=trans_prob, ax=ax)
+    res = mh.mh_cluster_params(draws, rgs.params_merge, rgs.n1_cells,
+                               rgs.n0_cells, state.fp, state.fn, cfg,
+                               trans_prob=trans_prob, ax=ax)
     return rgs._replace(params_merge=res.params), res.trans_logprob
 
 
 # ---------------------------------------------------------------------------
-# MH ratio pieces (libs/CRP.py:641-820)
+# The branches (libs/CRP.py:641-820)
 # ---------------------------------------------------------------------------
-
-
-def _ll_split_all(side0, side1, cells_f, params_split, params_merge, state,
-                  data, ax: MutAxis = _NO_AXIS):
-    """(ll_i + ll_j under split params, ll_all under merge params) — eqs.
-    11/12 (libs/CRP.py:716-733)."""
-    c1s, c0s = lk.log_prob_tables(params_split, state.fp, state.fn)
-    n1_0, n0_0 = _masked_counts(side0, data)
-    n1_1, n0_1 = _masked_counts(side1, data)
-    ll_split = ax.psum(
-        ax.sum(n1_0 * c1s[..., 0, :] + n0_0 * c0s[..., 0, :])
-        + ax.sum(n1_1 * c1s[..., 1, :] + n0_1 * c0s[..., 1, :]))
-    n1_m, n0_m = _masked_counts(cells_f, data)
-    c1m, c0m = lk.log_prob_tables(params_merge, state.fp, state.fn)
-    ll_all = ax.psum(ax.sum(n1_m * c1m + n0_m * c0m))
-    return ll_split, ll_all
-
-
-def _beta_prior_sum(cfg, x, ax: MutAxis = _NO_AXIS):
-    return ax.psum(ax.sum(ax.apply_mask(
-        dist.beta_logpdf(x, cfg.p, cfg.q, cfg.log_beta_norm))))
-
-
-def _reverse_split_prob(draws: Draws, ctx, rgs: _RGState, state, data, cfg,
-                        ax: MutAxis = _NO_AXIS):
-    """Probability of regenerating the ORIGINAL split from the launch state
-    (merge reverse path; _rg_get_split_prob, libs/CRP.py:777-820)."""
-    k_std, _ = ax.fold_key(draws).split(2)
-    std = mh.draw_proposal_std(k_std, tuple(rgs.params_split.shape))
-    # Bounds 0/1 here, not TMIN/TMAX — reference quirk (libs/CRP.py:779-780).
-    a = (0.0 - rgs.params_split) / std
-    b = (1.0 - rgs.params_split) / std
-
-    # Parameter transition terms use the LAUNCH sides.
-    side0, side1 = _side_masks(ctx, rgs.rg)
-    n1_0, n0_0 = _masked_counts(side0, data)
-    n1_1, n0_1 = _masked_counts(side1, data)
-    target_i = _row(state.params, ctx.cl_a)
-    target_j = _row(state.params, ctx.cl_b)
-    prob_param_i = mh.realized_trans_logprob(
-        target_i, rgs.params_split[..., 0, :], n1_0, n0_0, a[..., 0, :],
-        b[..., 0, :], std[..., 0, :], state.fp, state.fn, cfg, ax)
-    prob_param_j = mh.realized_trans_logprob(
-        target_j, rgs.params_split[..., 1, :], n1_1, n0_1, a[..., 1, :],
-        b[..., 1, :], std[..., 1, :], state.fp, state.fn, cfg, ax)
-
-    # Each movable cell is forced to its original side under the original
-    # parameters; the count evolution is deterministic, so the "scan" is
-    # prefix/suffix sums in ascending cell order.
-    orig = torch.where(state.assignment == ctx.cl_a[..., None], 0, 1).to(
-        torch.int32)
-    c1, c0 = lk.log_prob_tables(torch.stack([target_i, target_j], dim=-2),
-                                state.fp, state.fn)
-    ll2 = ax.psum(ax.rmul(data.xm, c1.mT) + ax.rmul(data.xm0, c0.mT))
-    log_denom = torch.log(ctx.n_move - 1.0 + state.dp_alpha)
-
-    in_s = ctx.s_mask.to(torch.float32)
-    s1 = _side1_others(orig.to(torch.float32) * in_s,
-                       rgs.rg.to(torch.float32) * in_s)
-    n_j = s1 + 1.0
-    n_i = ctx.n_move[..., None] - s1 - 2.0
-    logpost = ll2 + torch.log(torch.stack([n_i, n_j], dim=-1)) \
-        - log_denom[..., None, None]
-    logp = logpost - torch.logsumexp(logpost, dim=-1, keepdim=True)
-    chosen = torch.gather(logp, -1, orig.long()[..., None])[..., 0]
-    # where, not multiply: a forced side count can be 0 (chosen = -inf).
-    prob_assign = ax.sum(torch.where(in_s > 0.0, chosen, 0.0))
-    return prob_param_i + prob_param_j + prob_assign
-
-
-def _counts(row: int, accept, dev):
-    """[..., 2, 2] int32 MH counts: (accepted, declined) in `row`."""
-    acc = accept.to(torch.int32)
-    c = torch.zeros(tuple(acc.shape) + (2, 2), dtype=torch.int32, device=dev)
-    c[..., row, :] = torch.stack([acc, 1 - acc], dim=-1)
-    return c
 
 
 def _split_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     """Split acceptance (libs/CRP.py:641-653) and its application."""
-    n = cfg.n_cells
-    dev = state.assignment.device
     # Final scan to the proposal state, with transition probabilities.
-    rgs2, gs_split, (side0, side1) = _rg_scan_split(
-        k_f1, ctx, rgs, state, data, cfg, True, ax)
-    # Reverse: merge-launch -> the original single cluster (eq. 15).
-    std = mh.draw_proposal_std(ax.fold_key(k_f2),
-                               tuple(rgs.params_merge.shape))
-    a = (TMIN - rgs2.params_merge) / std
-    b = (TMAX - rgs2.params_merge) / std
-    cells_f = ctx.cells.to(torch.float32)
-    n1_m, n0_m = _masked_counts(cells_f, data)
-    params_a = _row(state.params, ctx.cl_a)
-    gs_merge = mh.realized_trans_logprob(
-        params_a, rgs2.params_merge, n1_m, n0_m, a, b, std, state.fp,
-        state.fn, cfg, ax)
-    trans_ratio = gs_merge - gs_split
+    rgs2, gs_split = _rg_scan_split(k_f1, ctx, rgs, state, data, cfg, True,
+                                    ax)
+    return _split_accept(k_f2, k_accept, ctx, rgs2, gs_split, state, cfg, ax)
 
-    n_j = torch.where(ctx.s_mask, rgs2.rg, 0).sum(-1).to(torch.float32) + 1.0
-    n_i = ctx.n_move - n_j
-    # Eq. 7 prior ratio (libs/CRP.py:695-713).
-    lprior = (torch.log(state.dp_alpha) - torch.lgamma(ctx.n_move)
-              + torch.lgamma(n_j) + torch.lgamma(n_i))
-    if not cfg.beta_prior_uniform:
-        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_split, ax) \
-            - _beta_prior_sum(cfg, params_a, ax)
 
-    ll_split, ll_all = _ll_split_all(side0, side1, cells_f,
-                                     rgs2.params_split, rgs2.params_merge,
-                                     state, data, ax)
-    ll_ratio = ll_split - ll_all
-
-    # Eq. 5 size-proposal ratio (libs/CRP.py:757-764).
-    norm = ctx.inv_sum_others + 1.0 / n_i + 1.0 / n_j
-    rev = -torch.log(n_i * norm) - torch.log(n_j * norm)
-    size_ratio = rev - ctx.ltrans_size
-
-    A = trans_ratio + lprior + ll_ratio + size_ratio
-    # Degenerate launch: every movable cell on one side (libs/CRP.py:647-648).
-    s_count = ctx.n_move - 2.0
-    degenerate = (s_count > 0) & ((n_j - 1.0 == 0.0)
-                                  | (n_j - 1.0 == s_count))
-    accept = (~degenerate) & (torch.log(k_accept.uniform(A.shape)) < A)
-
-    # Apply: side 1 moves to a fresh slot (libs/CRP.py:466-481).
-    new_slot = first_free_slot(state.cluster_size)
-    idx = torch.arange(n, device=dev)
-    move_to_new = accept[..., None] & ((ctx.s_mask & (rgs2.rg == 1))
-                                       | (idx == ctx.anchor_j[..., None]))
-    assignment = torch.where(move_to_new, new_slot[..., None],
-                             state.assignment)
-    n_moved = move_to_new.sum(-1).to(torch.int32)
-    slots = torch.stack([ctx.cl_a, new_slot], dim=-1).long()
-    cluster_size = state.cluster_size.scatter_add(
-        -1, slots, torch.stack([-n_moved, n_moved], dim=-1))
-    rows = slots[..., None].expand(tuple(slots.shape)
-                                   + (state.params.shape[-1],))
-    params = state.params.scatter(-2, rows, torch.where(
-        accept[..., None, None], rgs2.params_split,
-        torch.gather(state.params, -2, rows)))
-    return state._replace(assignment=assignment, params=params,
-                          cluster_size=cluster_size), _counts(0, accept, dev)
+def _split_accept(k_f2, k_accept, ctx, rgs2, gs_split, state, cfg, ax):
+    """A split's acceptance and application after its final scan (`rgs2`,
+    transition sum `gs_split`): ops/cuda_sm_accept.py, kernel 12 on the
+    card and its plain twin on the CPU, on the reverse proposal's std
+    index and the acceptance uniform."""
+    prims = cuda_sm_accept.primitives(
+        ax.fold_key(k_f2), k_accept, rgs2.params_merge.shape,
+        ctx.n_move.shape, False, state.assignment.device)
+    return cuda_sm_accept.split(prims, ctx, rgs2, gs_split, state, cfg, ax)
 
 
 def _merge_branch(k_f1, k_f2, k_accept, ctx, rgs, state, data, cfg, ax):
     """Merge acceptance (libs/CRP.py:656-665) and its application."""
-    n = cfg.n_cells
-    dev = state.assignment.device
     # Forward: one more merge scan with transition probabilities (eq. 16).
     rgs2, gs_merge = _rg_scan_merge(k_f1, ctx, rgs, state, data, cfg, True,
                                     ax)
-    gs_split = _reverse_split_prob(k_f2, ctx, rgs2, state, data, cfg, ax)
-    trans_ratio = gs_split - gs_merge
+    return _merge_accept(k_f2, k_accept, ctx, rgs2, gs_merge, state, data,
+                         cfg, ax)
 
-    # Eq. 8 prior ratio over the ORIGINAL clusters (libs/CRP.py:736-754).
-    size_f = state.cluster_size.to(torch.float32)
-    n_i, n_j = _pick(size_f, ctx.cl_a), _pick(size_f, ctx.cl_b)
-    params_a, params_b = _row(state.params, ctx.cl_a), \
-        _row(state.params, ctx.cl_b)
-    lprior = (torch.lgamma(ctx.n_move) - torch.log(state.dp_alpha)
-              - torch.lgamma(n_i) - torch.lgamma(n_j))
-    if not cfg.beta_prior_uniform:
-        lprior = lprior + _beta_prior_sum(cfg, rgs2.params_merge, ax) \
-            - _beta_prior_sum(cfg, params_a, ax) \
-            - _beta_prior_sum(cfg, params_b, ax)
 
-    # Eq. 12 with the original sides under the launch split params.
-    orig_rg = torch.where(state.assignment == ctx.cl_a[..., None], 0, 1)
-    side0, side1 = _side_masks(ctx, orig_rg)
-    ll_split, ll_all = _ll_split_all(side0, side1,
-                                     ctx.cells.to(torch.float32),
-                                     rgs2.params_split, rgs2.params_merge,
-                                     state, data, ax)
-    ll_ratio = ll_all - ll_split
-
-    # Eq. 6 size ratio (libs/CRP.py:767-774); the log(|S| - 1) term is
-    # dropped when |S| <= 1 (the reference's FloatingPointError fallback).
-    s_count = ctx.n_move - 2.0
-    rev = -torch.log(torch.tensor(float(n))) - torch.where(
-        s_count - 1.0 > 0.0,
-        torch.log(torch.clamp(s_count - 1.0, min=1e-30)), 0.0)
-    size_ratio = rev - ctx.ltrans_size
-
-    A = trans_ratio + lprior + ll_ratio + size_ratio
-    accept = torch.log(k_accept.uniform(A.shape)) < A
-
-    members_b = state.assignment == ctx.cl_b[..., None]
-    assignment = torch.where(accept[..., None] & members_b,
-                             ctx.cl_a[..., None], state.assignment)
-    size_b = _pick(state.cluster_size, ctx.cl_b)
-    slot_a = ctx.cl_a[..., None].long()
-    cluster_size = state.cluster_size.scatter_add(
-        -1, slot_a, torch.where(accept, size_b, 0)[..., None])
-    cluster_size = cluster_size.scatter(
-        -1, ctx.cl_b[..., None].long(),
-        torch.where(accept, 0, size_b)[..., None].to(torch.int32))
-    row_a = slot_a[..., None].expand(tuple(slot_a.shape)
-                                     + (state.params.shape[-1],))
-    params = state.params.scatter(
-        -2, row_a, torch.where(accept[..., None], rgs2.params_merge,
-                               params_a)[..., None, :])
-    return state._replace(assignment=assignment, params=params,
-                          cluster_size=cluster_size), _counts(1, accept, dev)
+def _merge_accept(k_f2, k_accept, ctx, rgs2, gs_merge, state, data, cfg,
+                  ax):
+    """A merge's acceptance and application after its final merge scan
+    (`rgs2`, transition sum `gs_merge`), as :func:`_split_accept`; the
+    reverse split's replay (_rg_get_split_prob, libs/CRP.py:777-820) is
+    the wrapper's."""
+    prims = cuda_sm_accept.primitives(
+        ax.fold_key(k_f2), k_accept, rgs2.params_split.shape,
+        ctx.n_move.shape, True, state.assignment.device)
+    return cuda_sm_accept.merge(prims, ctx, rgs2, gs_merge, state, data, cfg,
+                                ax)
 
 
 def _move(is_split: bool, keys, state: CRPState, data: PackedData,
@@ -597,8 +437,7 @@ def _move(is_split: bool, keys, state: CRPState, data: PackedData,
     # the merge configuration.
     for kk in k_scans.split(sm_steps):
         k1, k2 = kk.split(2)
-        rgs, _, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False,
-                                   ax)
+        rgs, _ = _rg_scan_split(k1, ctx, rgs, state, data, cfg, False, ax)
         rgs, _ = _rg_scan_merge(k2, ctx, rgs, state, data, cfg, False, ax)
 
     k_f1, k_f2 = k_final.split(2)

@@ -13,8 +13,9 @@ needs the accurate ``logf`` of its plain twin); ``--fmad=false`` so that no
 add is contracted into an FMA the plain torch version does not make. The
 MH sweep (``csrc/mh_sweep.cu``), the Beta posterior rows
 (``csrc/beta_post.cu``), a launch scan's per-cell work
-(``csrc/rg_assign.cu``), the error-rate MH (``csrc/error_mh.cu``) and the
-trace row (``csrc/trace_row.cu``) instead reproduce ATen's own CUDA
+(``csrc/rg_assign.cu``), the error-rate MH (``csrc/error_mh.cu``), the
+trace row (``csrc/trace_row.cu``) and the split-merge acceptance
+(``csrc/sm_accept.cu``) instead reproduce ATen's own CUDA
 kernels, which nvcc and the jiterator build with FMA contraction on, so
 they take ``--fmad=true`` (their torch-level arithmetic goes through
 intrinsics that are never contracted; each file says how).
@@ -43,7 +44,7 @@ NVCC_FLAGS = [
 ]
 # Sources built with FMA contraction on (module docstring).
 FMAD_SOURCES = ("beta_post.cu", "error_mh.cu", "mh_sweep.cu", "rg_assign.cu",
-                "trace_row.cu")
+                "sm_accept.cu", "trace_row.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +92,7 @@ _SIGNATURES = {
     # stage, args (a host Args struct), stream
     "bnpc_error_mh": [_I, _P, _P],
     "bnpc_trace_row": [_I, _P, _P],
+    "bnpc_sm_accept": [_I, _P, _P],
 }
 
 _lib = None

@@ -100,6 +100,18 @@ def by_chain_flag(state: CRPState, flags, flags_dev, fn, ax):
     return state, counts
 
 
+def pick_at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[..., i] for a per-chain index i (0-d, or [C] beside x [C, k]),
+    without a host read of i."""
+    return torch.gather(x, -1, i[..., None].long())[..., 0]
+
+
+def row_at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row i of a per-chain matrix x ([k, m], or [C, k, m] with i [C])."""
+    return torch.take_along_dim(x, i[..., None, None].long(), dim=-2)[
+        ..., 0, :]
+
+
 def first_free_slot(cluster_size: torch.Tensor) -> torch.Tensor:
     """Lowest slot id with size 0 (libs/CRP.py:297-299 analogue); 0 when
     every slot is taken, as jnp.argmax of an all-False mask."""

@@ -133,6 +133,24 @@ Phases (any failure exits non-zero, and no result line is printed):
                                composition's (run it alone with `python3 -c
                                "import chip_smoke as cs;
                                cs.phase_rest('cuda', cs.nvidia_smi())"`);
+                 sm_accept     the split-merge acceptance (kernel 12)
+                               against the torch composition on the card
+                               and the twin's stages on the card, from
+                               seeded launch states at 5,000 x 200: splits
+                               and merges, one chain and a batch of 4,
+                               Beta(0.25, 0.25) and uniform priors, a padded
+                               mask, the uniform forced to 0 and 1: the
+                               state, the MH counts and the generators bit
+                               for bit; a degenerate split declined; in a
+                               CUDA graph; the captured block == eager;
+                               7,000 eager steps of a chain past burn-in (at
+                               least 2,000 moves) and 256 of a batch of 4,
+                               every move held to the
+                               composition; the time a call in a graph
+                               beside the twin's (run it alone with
+                               `python3 -c "import chip_smoke as cs;
+                               cs.phase_sm_accept('cuda',
+                               cs.nvidia_smi())"`);
   4. small   — 12 steps on a small input, GPU (kernels) against CPU (plain
                twins) fed identical draws, once per Gibbs impl ("auto" =
                lazy, "stream", "eager", and "blocked": gibbs_block 8, torch
@@ -433,7 +451,8 @@ def max_err(pairs) -> float:
 def kernel_modules():
     from bnpc_tpu_torch.ops import (cuda_beta, cuda_error_mh, cuda_gibbs,
                                     cuda_mh, cuda_rg, cuda_rg_assign,
-                                    cuda_row, cuda_stream, cuda_sweep)
+                                    cuda_row, cuda_sm_accept, cuda_stream,
+                                    cuda_sweep)
     from bnpc_tpu_torch.probes import vecflow_probe, while_probe
 
     return {"lazy_segment": cuda_gibbs, "rg_scan": cuda_rg,
@@ -441,13 +460,16 @@ def kernel_modules():
             "vecflow": vecflow_probe, "while_exit": while_probe,
             "mh_sweep": cuda_mh, "beta_post": cuda_beta,
             "rg_assign": cuda_rg_assign, "error_mh": cuda_error_mh,
-            "trace_row": cuda_row}
+            "trace_row": cuda_row, "sm_accept": cuda_sm_accept}
 
 
 # The kernels of every step's rest (kernels 10 and 11: the error-rate MH,
 # which a step with learned errors takes a quarter of the time, and the
 # trace row), on every path that runs steps.
 REST_KERNELS = {"error_mh", "trace_row"}
+# The split-merge move's kernels beside its launch scans' (kernels 8 and
+# 12: the Beta rows and the acceptance), on every path that runs moves.
+SM_KERNELS = {"beta_post", "sm_accept"}
 
 
 def rg_kernel(n):
@@ -2349,7 +2371,7 @@ def rg_move_inputs(dev, n, m, k_max, clones, seed, chains=0, split=True):
     ctx = sm._MoveCtx(split, *(torch.stack([o[1][f] for o in out])
                                for f in fields))
     rgs = sm._RGState(*(torch.stack([o[2][f] for o in out])
-                        for f in range(3)))
+                        for f in range(len(sm._RGState._fields))))
     return cfg, data, stack_states([o[0] for o in out]), ctx, rgs
 
 
@@ -2954,6 +2976,455 @@ def phase_rest(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, kernel 12: the split-merge acceptance against the torch
+# composition
+# ---------------------------------------------------------------------------
+
+SM_SEEDS = (2147483647, 3000000019, 41)
+# Eager steps of the chain past burn-in, and the moves they must hold at
+# least (a move on ~1/3 of the steps: 1,949 in 6,000 on an H100).
+SM_CHAIN_STEPS = 7000
+SM_CHAIN_MOVES = 2000
+SM_BATCH_STEPS = 256
+
+
+class sm_twin:
+    """While active, the split-merge branches take the plain twin's stages
+    on the card (kernel 12's route turned off): the reference it is held
+    to."""
+
+    def __enter__(self):
+        from bnpc_tpu_torch.ops import cuda_sm_accept
+
+        self.kept = cuda_sm_accept.fits
+        cuda_sm_accept.fits = lambda device: False
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.ops import cuda_sm_accept
+
+        cuda_sm_accept.fits = self.kept
+
+
+def sm_launches():
+    from bnpc_tpu_torch.ops import cuda_sm_accept
+
+    return cuda_sm_accept.launches + cuda_sm_accept.chain_launches
+
+
+class ForcedUniform:
+    """A provider of the acceptance uniform alone: `u` everywhere."""
+
+    def __init__(self, u, dev):
+        self.u, self.dev = u, dev
+
+    def uniform(self, shape):
+        import torch
+
+        return torch.full(tuple(shape), self.u, device=self.dev)
+
+
+def sm_branch(split, case, cfg, ax, seed, chains, dev, forced=None):
+    """_split_branch or _merge_branch on `case` (rg_move_inputs' launch
+    state) from TorchDraws(seed + c), the acceptance uniform forced to
+    `forced` when given. Returns (state, counts, generator states)."""
+    from bnpc_tpu_torch.models import splitmerge as sm
+    from bnpc_tpu_torch.ops import cuda_sm_accept
+
+    _, data, state, ctx, rgs = case
+    draws, provs = rest_draws(seed, chains, dev)
+    k_f1, k_f2, k_acc = draws.split(3)
+    real = cuda_sm_accept.primitives
+    if forced is not None:
+        def primitives(k_std, k_accept, shape, lead, merge, device):
+            idx, u = real(k_std, k_std, shape, lead, merge, device)
+            return idx, u.fill_(forced)
+
+        cuda_sm_accept.primitives = primitives
+        k_acc = ForcedUniform(forced, dev)
+    try:
+        branch = sm._split_branch if split else sm._merge_branch
+        st, counts = branch(k_f1, k_f2, k_acc, ctx, rgs, state, data, cfg,
+                            ax)
+    finally:
+        cuda_sm_accept.primitives = real
+    return st, counts, [p.gen.get_state() for p in provs]
+
+
+def sm_check(tag, split, case, cfg, ax, seed, chains, dev, forced=None):
+    """Kernel 12's route against the twin's stages on the card, from one
+    seed: the state and the MH counts bit for bit, the generators left
+    alike (unless the uniform is forced), 2 launches a split and 3 a
+    merge. Returns (the accepted flags, the parameters' largest absolute
+    difference)."""
+    import torch
+
+    before = sm_launches()
+    got = sm_branch(split, case, cfg, ax, seed, chains, dev, forced)
+    launched = sm_launches() - before
+    with sm_twin():
+        want = sm_branch(split, case, cfg, ax, seed, chains, dev, forced)
+    if launched != (2 if split else 3) or sm_launches() != before + launched:
+        raise AssertionError(f"sm_accept {tag}: launches {launched}, then "
+                             f"{sm_launches() - before}")
+    for f, g, w in zip(got[0]._fields, got[0], want[0]):
+        same_bits(f"sm_accept {tag} {f}", g, w)
+    same_bits(f"sm_accept {tag} counts", got[1], want[1])
+    if forced is None and not all(
+            torch.equal(g, w) for g, w in zip(got[2], want[2])):
+        raise AssertionError(f"sm_accept {tag}: generator states differ")
+    err = float((got[0].params - want[0].params).abs().max())
+    return got[1].reshape(-1, 2, 2)[:, 0 if split else 1, 0].tolist(), err
+
+
+def sm_degenerate(dev, cfg, seed):
+    """A split whose final sides put every movable cell on side 0, the
+    uniform 0: declined by the degenerate test, kernel == twin on the
+    card."""
+    import torch
+
+    from bnpc_tpu_torch.models import splitmerge as sm
+    from bnpc_tpu_torch.ops import cuda_sm_accept as ka
+
+    _, data, state, ctx, rgs = rg_move_inputs(dev, N, M, K_MAX, 10, seed)
+    rgs = rgs._replace(rg=torch.zeros_like(rgs.rg))
+    prims = ka.primitives(TorchDraws(seed, dev), TorchDraws(seed + 1, dev),
+                          rgs.params_merge.shape, (), False, dev)
+    prims = (prims[0], torch.zeros_like(prims[1]))
+    gs = torch.zeros((), device=dev)
+    got = ka.split(prims, ctx, rgs, gs, state, cfg, sm._NO_AXIS)
+    want = ka.split(prims, ctx, rgs, gs, state, cfg, sm._NO_AXIS,
+                    stages=ka.TWIN)
+    for f, g, w in zip(state._fields, got[0], want[0]):
+        same_bits(f"sm_accept degenerate {f}", g, w)
+    same_bits("sm_accept degenerate counts", got[1], want[1])
+    if got[1].tolist() != [[0, 1], [0, 0]]:
+        raise AssertionError(f"sm_accept degenerate: counts {got[1]}")
+
+
+def sm_graph(dev, cfg, chains, seed):
+    """Both branches' kernel routes after their final scans on fixed
+    primitives, captured in one CUDA graph (the torch sums and products
+    between the launches inside it) and replayed twice, against the twin's
+    stages run eager on the card: bit for bit."""
+    import torch
+
+    from bnpc_tpu_torch.models import splitmerge as sm
+    from bnpc_tpu_torch.ops import cuda_sm_accept as ka
+
+    moves = []
+    for split in (True, False):
+        cfg0, data, state, ctx, rgs = rg_move_inputs(dev, N, M, K_MAX, 10,
+                                                     seed, chains, split)
+        ax = rest_axis(chains)
+        draws, _ = rest_draws(seed, chains, dev)
+        scan = sm._rg_scan_split if split else sm._rg_scan_merge
+        rgs2, gs = scan(draws, ctx, rgs, state, data, cfg, True, ax)
+        rows = rgs2.params_merge.shape if split else rgs2.params_split.shape
+        prims = ka.primitives(draws, draws, rows, ctx.n_move.shape,
+                              not split, dev)
+        moves.append((split, prims, ctx, rgs2, gs, state, data, ax))
+
+    def run(stages=None):
+        out = []
+        for split, prims, ctx, rgs2, gs, state, data, ax in moves:
+            if split:
+                st, c = ka.split(prims, ctx, rgs2, gs, state, cfg, ax,
+                                 stages)
+            else:
+                st, c = ka.merge(prims, ctx, rgs2, gs, state, data, cfg, ax,
+                                 stages)
+            out += [*st[:3], c]
+        return out
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    want = run(ka.TWIN)
+    for rep in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(outs, want)):
+            same_bits(f"sm_accept graph ({chains or 1} chain(s)) replay "
+                      f"{rep} output {i}", g, w)
+
+
+# The launches of one branch on kernel 12's route, its final scan included,
+# by kernel wrapper: a split's scan runs kernel 9 and kernel 7's sweep, its
+# tail kernel 7's realized mode once and kernel 12's two stages; a merge's
+# scan kernel 7's sweep, its tail the realized mode twice (the reverse
+# split's two rows) and kernel 12's three stages.
+SM_BRANCH_LAUNCHES = {
+    "split": {"mh_sweep": 2, "beta_post": 0, "rg_assign": 1, "sm_accept": 2},
+    "merge": {"mh_sweep": 3, "beta_post": 0, "rg_assign": 0, "sm_accept": 3}}
+
+
+def sm_branch_counts():
+    """The launches so far of the wrappers SM_BRANCH_LAUNCHES names (one
+    chain and batched together)."""
+    mods = kernel_modules()
+    return {name: mods[name].launches + mods[name].chain_launches
+            for name in SM_BRANCH_LAUNCHES["split"]}
+
+
+class SMChecker:
+    """While active, every split-merge branch of an eager step runs twice:
+    kernel 12's route, then the twin's stages (the route turned off) from
+    the same generator states; the kernel's results go on. The results are
+    held bit for bit on the device and read once (:meth:`verify`), and the
+    route's launches of each kernel counted a branch
+    (SM_BRANCH_LAUNCHES)."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        self.calls = {"split": 0, "merge": 0}
+        self.launches = {kind: dict.fromkeys(SM_BRANCH_LAUNCHES[kind], 0)
+                         for kind in self.calls}
+        self.gen_faults = 0
+
+    def __enter__(self):
+        import functools
+
+        from bnpc_tpu_torch.models import splitmerge as sm
+
+        self.real = sm._split_branch, sm._merge_branch
+        sm._split_branch = functools.partial(self.branch, 0)
+        sm._merge_branch = functools.partial(self.branch, 1)
+        return self
+
+    def __exit__(self, *exc):
+        from bnpc_tpu_torch.models import splitmerge as sm
+
+        sm._split_branch, sm._merge_branch = self.real
+
+    def branch(self, which, k_f1, *args):
+        import torch
+
+        from bnpc_tpu_torch.draws import StackedDraws
+
+        kind = "merge" if which else "split"
+        provs = k_f1.chains if isinstance(k_f1, StackedDraws) else [k_f1]
+        before = [p.gen.get_state() for p in provs]
+        counts = sm_branch_counts()
+        got = self.real[which](k_f1, *args)
+        for name, n in sm_branch_counts().items():
+            self.launches[kind][name] += n - counts[name]
+        after = [p.gen.get_state() for p in provs]
+        for p, s in zip(provs, before):
+            p.gen.set_state(s)
+        with sm_twin():
+            want = self.real[which](k_f1, *args)
+        self.gen_faults += sum(not torch.equal(p.gen.get_state(), a)
+                               for p, a in zip(provs, after))
+        for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
+            self.bad += bits_differ("sm_accept chain", g, w)
+        self.calls[kind] += 1
+        return got
+
+    def verify(self, tag):
+        """Raise unless every pair agreed and the route launched each
+        kernel as SM_BRANCH_LAUNCHES says, every branch. Returns the calls
+        and the launches a split and a merge."""
+        bad = int(self.bad)
+        want = {kind: {name: n * self.calls[kind] for name, n in
+                       SM_BRANCH_LAUNCHES[kind].items()}
+                for kind in self.calls}
+        if bad or self.gen_faults or self.launches != want:
+            raise AssertionError(
+                f"sm_accept chain {tag}: {bad} elements differ, "
+                f"{self.gen_faults} generators moved otherwise, launches "
+                f"{self.launches} against {want}")
+        per = {kind: {name: n / max(self.calls[kind], 1)
+                      for name, n in self.launches[kind].items()}
+               for kind in self.calls}
+        return dict(self.calls), per
+
+
+def sm_chain(dev, chains, steps, seed):
+    """A real chain at the main cell (or a batch of `chains` chains):
+    burn-in (0.33 x 5,000 steps) through the captured block, then `steps`
+    eager steps under SMChecker. Returns the moves checked."""
+    from bnpc_tpu_torch import mcmc
+    from bnpc_tpu_torch.data import pack_data
+
+    data, _ = make_data(N, M, 10, 0.1, seed=3)
+    cfg, mc = bench_configs()
+    runner = mcmc.MCMCRunner(cfg, mc, pack_data(data, dev), device=dev,
+                             block_size=256)
+    states, draws = [], []
+    for c in range(max(chains, 1)):
+        state = runner.init_chains(TorchDraws(seed + c, dev))[0]
+        d = TorchDraws(seed + 100 + c, dev)
+        for _ in range(7):
+            state, _, d = runner.run_block(state, d, 256)
+        states.append(state)
+        draws.append(d)
+    step = runner._block.step
+    with SMChecker(dev) as checker:
+        if chains:
+            mcmc._batch_block(step, states, draws, steps)
+        else:
+            for _ in range(steps // 1000):
+                states[0], _, draws[0] = mcmc._chain_block(
+                    step, states[0], draws[0], 1000)
+    return checker.verify(f"{chains or 1} chain(s)")
+
+
+def kernel_device_ms(fn, kernel, calls=20):
+    """Device ms a call of fn() spent in the kernels whose name holds
+    `kernel` (torch.profiler over `calls` eager calls; None where the
+    profiler reads no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            t = getattr(ev, "device_time_total", None)
+            us += ev.cuda_time_total if t is None else t
+    return us / calls / 1e3 if us else None
+
+
+def sm_timing(dev, smi, cfg):
+    """Each branch's acceptance after its final scan on fixed primitives at
+    the main cell, one chain: kernel 12's own device time a call (its
+    stages alone, profiler), the route's time a call inside a CUDA graph
+    (the torch sums and products and kernel 7's realized launches between
+    the stages included) against the twin's stages on the card, the device
+    operations a call of each, and kernel 12's bytes bound."""
+    from bnpc_tpu_torch.models import splitmerge as sm
+    from bnpc_tpu_torch.ops import cuda_sm_accept as ka
+
+    out = {}
+    for split in (True, False):
+        _, data, state, ctx, rgs = rg_move_inputs(dev, N, M, K_MAX, 10, 5,
+                                                  0, split)
+        ax = rest_axis(0)
+        draws = TorchDraws(7, dev)
+        scan = sm._rg_scan_split if split else sm._rg_scan_merge
+        rgs2, gs = scan(draws, ctx, rgs, state, data, cfg, True, ax)
+        rows = rgs2.params_merge.shape if split else rgs2.params_split.shape
+        prims = ka.primitives(draws, draws, rows, (), not split, dev)
+
+        def call(stages=None):
+            if split:
+                return ka.split(prims, ctx, rgs2, gs, state, cfg, ax, stages)
+            return ka.merge(prims, ctx, rgs2, gs, state, data, cfg, ax,
+                            stages)
+
+        # The parameters read and written, the cells' mask, sides,
+        # assignment in and out; a split's [m] rows (~14 read or written),
+        # a merge's [2, m] rows (~16) and its cells' ll2, sides and terms.
+        plane = K_MAX * M * 4
+        moved = 2 * plane + N * 13 + (14 * M * 4 if split
+                                      else 32 * M * 4 + N * 28)
+        name = "split" if split else "merge"
+        out[name] = {"kernel_ms": kernel_device_ms(call, "sm_accept_kernel"),
+                     "kernel_graph_ms": mh_graph_ms(call, 20),
+                     "kernel_ops": mh_kernels_per_call(call),
+                     "twin_graph_ms": mh_graph_ms(lambda: call(ka.TWIN), 1),
+                     "twin_ops": mh_kernels_per_call(lambda: call(ka.TWIN)),
+                     "bytes_bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        log(f"  sm_accept {name} after the final scan at {N:,} x {M}, k_max "
+            f"{K_MAX}, one chain ({smi}): "
+            + ", ".join(f"{k} {v}" for k, v in out[name].items()))
+    return out
+
+
+def phase_sm_accept(dev, smi):
+    """Kernel 12 (csrc/sm_accept.cu) against its plain twin's stages on
+    the card, bit for bit: both branches at the main cell, one chain and a
+    batch of 4, Beta(0.25, 0.25) and uniform priors, a padded column mask,
+    from seeded launch states; the acceptance forced each way and a
+    degenerate split; inside a CUDA graph; the runner's captured block
+    against its eager one; along a real chain past burn-in
+    (SM_CHAIN_STEPS steps, at least SM_CHAIN_MOVES moves, every one
+    checked, each branch's launches of kernels 7, 8, 9 and 12 counted) and
+    a batch of 4; then kernel 12's own time a call and the route's in a
+    graph against the twin's."""
+    import dataclasses
+
+    import torch
+
+    from bnpc_tpu_torch.ops import cuda_sm_accept
+
+    cfg, _ = bench_configs()
+    uniform = dataclasses.replace(cfg, p=1.0, q=1.0)
+    mask = torch.ones(M, device=dev)
+    mask[-3:] = 0.0
+    flags, errs = {}, []
+    for seed in SM_SEEDS:
+        for chains in (0, 4):
+            for split in (True, False):
+                case = rg_move_inputs(dev, N, M, K_MAX, 10, seed, chains,
+                                      split)
+                for name, c, mk in (("beta", cfg, None),
+                                    ("uniform", uniform, None),
+                                    ("masked", cfg, mask)):
+                    ax = rest_axis(chains, mk)
+                    tag = (f"{'split' if split else 'merge'} {name} seed "
+                           f"{seed} chains {chains}")
+                    flags[tag], err = sm_check(tag, split, case, c, ax,
+                                               seed + 90, chains, dev)
+                    errs.append(err)
+                for u in (0.0, 1.0):
+                    tag = (f"{'split' if split else 'merge'} forced u={u} "
+                           f"seed {seed} chains {chains}")
+                    flags[tag], err = sm_check(tag, split, case, cfg,
+                                               rest_axis(chains), seed + 91,
+                                               chains, dev, forced=u)
+                    errs.append(err)
+    seen = {f for v in flags.values() for f in v}
+    if seen != {0, 1}:
+        raise AssertionError(f"sm_accept: outcomes seen {seen}, not both")
+    sm_degenerate(dev, cfg, 43)
+    for chains in (0, 4):
+        sm_graph(dev, cfg, chains, 47)
+    log(f"  sm_accept == the twin's stages on the card bit for bit "
+        f"(state, MH counts, generators; splits and merges, one chain and "
+        f"4; Beta and uniform priors; a padded mask; forced uniforms; flags "
+        f"{flags}); a degenerate split declined; in a CUDA graph, two "
+        f"replays")
+    per_step = mh_captured(dev, cuda_sm_accept)
+    log(f"  sm_accept in the captured block: == eager bit for bit, "
+        f"{per_step} launches a step counted under replay")
+    t0 = time.perf_counter()
+    calls, per_branch = sm_chain(dev, 0, SM_CHAIN_STEPS, 2147483011)
+    calls_4, per_branch_4 = sm_chain(dev, 4, SM_BATCH_STEPS, 2147484011)
+    if sum(calls.values()) < SM_CHAIN_MOVES or not all(calls_4.values()):
+        raise AssertionError(f"sm_accept chain: moves {calls}, batch "
+                             f"{calls_4}")
+    log(f"  along a real chain past burn-in at {N:,} x {M}: {calls} moves "
+        f"of one chain, {calls_4} of a batch of 4, each kernel route == the "
+        f"twin's bit for bit; launches a branch, its final scan included: "
+        f"{per_branch} ({time.perf_counter() - t0:.1f} s)")
+    timing = sm_timing(dev, smi, cfg)
+    split, merge = timing["split"], timing["merge"]
+    return {"max_abs_err": max(errs), "launches_per_step": per_step,
+            "chain_calls": calls, "batch_calls": calls_4,
+            "launches_per_branch": per_branch,
+            "launches_per_branch_batch": per_branch_4, "timing": timing,
+            "ms": split["kernel_ms"], "plain_ms": split["twin_graph_ms"],
+            "bound_ms": split["bytes_bound_ms"], "bound_by": "bytes",
+            "fields": {"route_ms": split["kernel_graph_ms"],
+                       "merge_ms": merge["kernel_ms"],
+                       "merge_route_ms": merge["kernel_graph_ms"],
+                       "merge_plain_ms": merge["twin_graph_ms"],
+                       "merge_bound_ms": merge["bytes_bound_ms"]}}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: small input, GPU against CPU on identical draws
 # ---------------------------------------------------------------------------
 
@@ -3139,7 +3610,7 @@ def timed_path(name, run_block, state, draws, warm, timed, n, k_max, truth,
         raise AssertionError(f"{name}: {s_counts.size} scan lengths noted, "
                              f"{launches[rg]} {rg} launches")
     check_launches(name, launches, {sweep_kernel, rg, "mh_sweep",
-                                    "beta_post", *REST_KERNELS})
+                                    *SM_KERNELS, *REST_KERNELS})
     a, sizes = check_state(state, [warm_rows, rows], n, k_max)
 
     sm_steps = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) > 0).sum())
@@ -3478,7 +3949,7 @@ def cli_run(dev, tmp, cell, n, k_clones, argv, estimators_, sweep, smi,
         wall = time.perf_counter() - t0
     launches = read_launches()
     check_launches(f"cli {cell}", launches,
-                   {sweep, rg_kernel(n), "mh_sweep", "beta_post",
+                   {sweep, rg_kernel(n), "mh_sweep", *SM_KERNELS,
                     *REST_KERNELS})
     assigns = check_outputs(out_dir, estimators_, n, M)
     score = ari(assigns["posterior"], truth)
@@ -3655,7 +4126,7 @@ def mode_chains(dev, data, cfg, mc):
     chains_s = time.perf_counter() - t0
     launches = read_launches()
     check_launches("chains", launches,
-                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post",
+                   {"lazy_segment", "rg_assign", "mh_sweep", *SM_KERNELS,
                     *REST_KERNELS})
     check_results("chains", res, kept.states, N, K_MAX, 257)
     seeds = runner.seeds.tolist()
@@ -3691,7 +4162,7 @@ def mode_coupled(dev, data, cfg, mc):
     secs = time.perf_counter() - t0
     launches = read_launches()
     check_launches("coupled", launches,
-                   {"lazy_segment", "rg_assign", "mh_sweep", "beta_post",
+                   {"lazy_segment", "rg_assign", "mh_sweep", *SM_KERNELS,
                     *REST_KERNELS})
     check_results("coupled", res, kept.states, N, K_MAX, 65)
     out = {"chain_steps_per_s": 2 * 64 / secs, "launches": launches}
@@ -3815,7 +4286,7 @@ def mode_blocked(dev, n, k_clones, k_max, block, warm, timed, sweep):
         launches = read_launches()
         gibbs = int((rows["mh_counts"][:, 1:3].sum(axis=(1, 2)) == 0).sum())
         a, sizes = check_state(state, [rows], n, k_max)
-        used = ({rg_kernel(n), "mh_sweep", "beta_post"} if gibbs < timed
+        used = ({rg_kernel(n), "mh_sweep", *SM_KERNELS} if gibbs < timed
                 else {"mh_sweep"}) | REST_KERNELS
         if name == "exact" and gibbs:
             used.add(sweep)
@@ -4098,7 +4569,7 @@ def mesh_batched_check(ranks, smi):
                                          f"grids {g}")
             check_launches(f"{tag} vmap rank {r}", run["launches"],
                            {"lazy_segment", "rg_assign", "mh_sweep",
-                            "beta_post", *REST_KERNELS})
+                            *SM_KERNELS, *REST_KERNELS})
             if any(v for k, v in read_one_chain_launches_of(run).items()):
                 raise AssertionError(f"{tag} vmap rank {r}: one-chain "
                                      "launches")
@@ -4274,7 +4745,7 @@ def phase_mesh(dev, smi):
         for r, a in enumerate((a0, a1)):
             check_launches(f"mesh 2x1 rank {r}", a["launches"],
                            {"lazy_segment", "rg_assign", "mh_sweep",
-                            "beta_post", *REST_KERNELS})
+                            *SM_KERNELS, *REST_KERNELS})
         log(f"  (a) 2 x 1 at {N:,} x {M}: 2 chains x {MESH_STEPS} steps, "
             f"{2 * MESH_STEPS / max(a0['seconds'], a1['seconds']):.3f} "
             f"chain-steps/s (ranks {a0['seconds']:.3f} / "
@@ -4291,7 +4762,7 @@ def phase_mesh(dev, smi):
         for r, b in enumerate((b0, b1)):
             check_launches(f"mesh 1x2 rank {r}", b["launches"],
                            {"lazy_segment", "rg_assign", "mh_sweep",
-                            "beta_post", *REST_KERNELS})
+                            *SM_KERNELS, *REST_KERNELS})
         res = b0["results"][0]
         if res.ML.shape != (MESH_STEPS + 1,) or not (
                 np.isfinite(res.ML).all() and np.isfinite(res.MAP).all()):
@@ -5620,7 +6091,8 @@ def main():
          "mh_sweep": phase_mh_sweep(dev, smi),
          "beta_post": phase_beta_post(dev, smi),
          "rg_assign": phase_rg_assign(dev, smi),
-         **phase_rest(dev, smi)}
+         **phase_rest(dev, smi),
+         "sm_accept": phase_sm_accept(dev, smi)}
     log("[4/13] small input: GPU against CPU on identical draws")
     for impl in ("auto", "stream", "eager", "blocked"):
         phase_small(dev, impl)
@@ -5678,13 +6150,14 @@ def main():
          "plain_ms": k[name]["plain_ms"], "bound_ms": k[name]["bound_ms"],
          "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in meta.items()]
-    # Kernels 7-11 replace no TPU kernel of their own; their launches are
+    # Kernels 7-12 replace no TPU kernel of their own; their launches are
     # the main path's.
     for name, src in (("mh_sweep", "mh_sweep.cu"),
                       ("beta_post", "beta_post.cu"),
                       ("rg_assign", "rg_assign.cu"),
                       ("error_mh", "error_mh.cu"),
-                      ("trace_row", "trace_row.cu")):
+                      ("trace_row", "trace_row.cu"),
+                      ("sm_accept", "sm_accept.cu")):
         out = k[name]
         bound_ms, bound_by = out["bound_ms"], out["bound_by"]
         chain_ms = chain["chain_bound_ms"].get(name)
@@ -5696,7 +6169,8 @@ def main():
             "launches": main_out["launches_path"][name],
             "max_abs_err": out["max_abs_err"], "ms": out["ms"],
             "plain_ms": out["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": None,
+            **out.get("fields", {})})
     # Kernels 1-3 and 9 on a chain grid: one launch of 16 chains (1-3),
     # and the batched launches of phase 12's paths (main cell, 4 chains;
     # large-n, 2).

@@ -35,7 +35,7 @@ FUNCTIONS = [
     ("bnpc_tpu_torch.models.splitmerge", f) for f in (
         "_setup", "_rg_init", "beta_posterior_rows", "_rg_scan_split",
         "_rg_scan_merge", "_rg_scan_assign", "_split_branch",
-        "_merge_branch", "_reverse_split_prob")] + [
+        "_merge_branch", "_split_accept", "_merge_accept")] + [
     ("bnpc_tpu_torch.ops.mh", f) for f in (
         "mh_cluster_params", "realized_trans_logprob")] + [
     ("bnpc_tpu_torch.ops.cuda_beta", "primitives")] + [
@@ -46,7 +46,8 @@ KERNELS = [("bnpc_tpu_torch.ops.cuda_mh", f)
     ("bnpc_tpu_torch.ops.cuda_beta", "beta_post"),
     ("bnpc_tpu_torch.ops.cuda_rg_assign", "rg_assign"),
     ("bnpc_tpu_torch.ops.cuda_error_mh", "error_mh"),
-    ("bnpc_tpu_torch.ops.cuda_row", "ml_map")]
+    ("bnpc_tpu_torch.ops.cuda_row", "ml_map"),
+    ("bnpc_tpu_torch.ops.cuda_sm_accept", "launch")]
 
 
 def wrap_all():
